@@ -1,0 +1,103 @@
+"""Where the port's sampling step spends its time on the GPU.
+
+    python scripts/profile_torch_sampler.py [--steps 4] [--out profile_sampler.txt]
+
+Builds the full-width cifar10_cond UNet of ``vdiff_tpu_torch`` (random
+weights), then for the two sampling cells of the JAX bench — DDIM w=0 at B=64
+and CFG w=0.1 at B=32, bf16 activations — runs a few warm-up steps and then
+``--steps`` reverse steps under ``torch.profiler``. Prints per cell the step
+time (host clock around synchronised steps), the device-busy share (summed
+kernel time over wall time) and the kernels by total device time; the full
+tables go to ``--out``. Needs a CUDA device.
+"""
+
+import argparse
+import os
+import sys
+import time
+
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+from vdiff_tpu_torch.factory import build_diffusion, build_unet, load_experiment_config  # noqa: E402
+
+CONFIG = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                      "vdiff_tpu", "configs", "cifar10_cond.json")
+
+
+def _device_us(evt):
+    """Device time of a kernel/memcpy event; 0 for host-side (aten) events,
+    whose device time would count their kernels a second time."""
+    if not str(evt.device_type).endswith("CUDA"):
+        return 0
+    return getattr(evt, "self_device_time_total", None) or getattr(evt, "self_cuda_time_total", 0)
+
+
+def profile_cell(model, cfg, w_guide, batch, steps, warmup=3):
+    diffusion, _ = build_diffusion(cfg["diffusion"], w_guide=w_guide, sample_timesteps=256,
+                                   continuous_gate=False)
+    tables = {k: torch.as_tensor(v, device="cuda")
+              for k, v in diffusion.sample_tables(use_ddim=True).items()}
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn(batch, 32, 32, 3, device="cuda", generator=gen)
+    y = torch.randint(1, 11, (batch,), device="cuda", generator=gen).float()
+
+    def step(i, x):
+        row = {k: v[i] for k, v in tables.items()}
+        return diffusion._p_sample_step(model, x, row, y, None, use_ddim=True)[0]
+
+    with torch.inference_mode():
+        for i in range(warmup):
+            x = step(i, x)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for i in range(warmup, warmup + steps):
+                x = step(i, x)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        # the same window again without the profiler, for the step time
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(warmup + steps, warmup + 2 * steps):
+            x = step(i, x)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) / steps * 1e3
+    events = prof.key_averages()
+    busy_us = sum(_device_us(e) for e in events)
+    return step_ms, busy_us / (wall * 1e6), busy_us / steps / 1e3, events
+
+
+def main():
+    p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p.add_argument("--steps", type=int, default=4)
+    p.add_argument("--out", default="profile_sampler.txt")
+    args = p.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_torch_sampler: needs a CUDA device")
+    cfg, _ = load_experiment_config(CONFIG)
+    model = build_unet(cfg["model"], in_channels=3, model_out_type="v", num_classes=10,
+                       multitags=False, dtype=torch.bfloat16,
+                       generator=torch.Generator().manual_seed(0)).cuda().eval()
+    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+    with open(args.out, "w") as f:
+        for name, w, batch in (("ddim w=0 B=64", 0.0, 64), ("cfg w=0.1 B=32", 0.1, 32)):
+            step_ms, busy, kernel_ms, events = profile_cell(model, cfg, w, batch, args.steps)
+            head = (f"{name}: {step_ms:.3f} ms/step ({batch * 1e3 / step_ms / 256:.3f} samples/s "
+                    f"at 256 steps), device busy {busy:.3f} of the profiled wall time, "
+                    f"kernel time {kernel_ms:.3f} ms/step")
+            print(head)
+            top = sorted((e for e in events if _device_us(e) > 0), key=_device_us, reverse=True)
+            for e in top[:12]:
+                print(f"  {_device_us(e) / args.steps / 1e3:8.3f} ms/step  {e.count // args.steps:5d}x/step"
+                      f"  {e.key[:90]}")
+            f.write(head + "\n")
+            key = "self_device_time_total" if hasattr(events[0], "self_device_time_total") \
+                else "self_cuda_time_total"
+            f.write(events.table(sort_by=key, row_limit=60) + "\n\n")
+
+
+if __name__ == "__main__":
+    main()

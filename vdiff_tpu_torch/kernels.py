@@ -1,0 +1,97 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+The sources under ``csrc/`` expose plain C entry points. At first use they are
+compiled with ``nvcc`` for Hopper (``sm_90a``) into one shared library under
+``_build/`` and loaded with :mod:`ctypes`. The library's file name carries a
+hash of the sources and flags, so an edited source builds anew and a stale
+library is never loaded. Nothing here runs at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+
+_PKG_DIR = os.path.dirname(os.path.abspath(__file__))
+CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(_PKG_DIR, "_build")
+
+SOURCES = ("attn_fwd_online.cu", "attn_fwd_qblk.cu")
+HEADERS = ("attn_common.cuh",)
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+)
+
+# argtypes of every C entry point; each returns an int: the launches their
+# cudaError_t, vdiff_attn_fwd_qblk_max_t the largest token count it takes.
+_ATTN_ARGS = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_ENTRY_POINTS = {
+    "vdiff_attn_fwd_online": _ATTN_ARGS,
+    "vdiff_attn_fwd_qblk": _ATTN_ARGS,
+    "vdiff_attn_fwd_qblk_max_t": [ctypes.c_int],
+}
+
+
+def find_nvcc() -> str:
+    """Path of ``nvcc``: on PATH, else under ``$CUDA_HOME`` or ``/usr/local/cuda``."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and os.path.isfile(os.path.join(root, "bin", "nvcc")):
+            return os.path.join(root, "bin", "nvcc")
+    raise RuntimeError(
+        "nvcc not found (PATH, $CUDA_HOME, /usr/local/cuda): the port's CUDA kernels "
+        "are built from vdiff_tpu_torch/csrc at first use and need the CUDA toolkit"
+    )
+
+
+def source_digest() -> str:
+    """Hash of the kernel sources, headers and compiler flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES + HEADERS:
+        with open(os.path.join(CSRC_DIR, name), "rb") as f:
+            h.update(name.encode() + b"\0" + f.read())
+    return h.hexdigest()[:16]
+
+
+def build_library() -> str:
+    """Compile the sources into ``_build/`` unless a library with the same
+    digest exists there; return its path. Raises with nvcc's output on a
+    failed build."""
+    path = os.path.join(BUILD_DIR, f"libvdiff_kernels_{source_digest()}.so")
+    if os.path.exists(path):
+        return path
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *(os.path.join(CSRC_DIR, s) for s in SOURCES)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}")
+    os.replace(tmp, path)  # atomic: a concurrent loader never sees half a file
+    return path
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The built kernel library, loaded once per process."""
+    lib = ctypes.CDLL(build_library())
+    for name, argtypes in _ENTRY_POINTS.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.vdiff_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.vdiff_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a launch returned a CUDA error."""
+    if err:
+        msg = library().vdiff_cuda_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
