@@ -21,6 +21,7 @@ PORT_MODULES = [
     "vdiff_tpu_torch.models.layers", "vdiff_tpu_torch.models.unet",
     "vdiff_tpu_torch.models.convert", "vdiff_tpu_torch.diffusion", "vdiff_tpu_torch.factory",
     "vdiff_tpu_torch.generate", "vdiff_tpu_torch.utils.config", "vdiff_tpu_torch.data",
+    "vdiff_tpu_torch.utils.misc", "vdiff_tpu_torch.train_lib", "vdiff_tpu_torch.train",
 ]
 
 

@@ -1,6 +1,6 @@
-// Shared pieces of the attention forward kernels: dtype conversion, warp
-// reductions, the tile loader that reads one head's q/k/v columns straight out
-// of the fused (B, T, 3*N*C) projection, and the launch-side helpers.
+// Shared pieces of the attention kernels: dtype conversion, warp reductions,
+// the tile loader that reads one head's q/k/v columns straight out of the
+// fused (B, T, 3*N*C) projection, and the launch-side helpers.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -22,6 +22,13 @@ __device__ __forceinline__ float from_f32<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
+}
+
+// x rounded to the element type and back: the input-dtype matmul operands of
+// the Pallas kernels (P and dS cast to q's dtype); the identity for f32.
+template <typename E>
+__device__ __forceinline__ float round_to(float x) {
+  return to_f32(from_f32<E>(x));
 }
 
 __device__ __forceinline__ float warp_max(float v) {

@@ -1,4 +1,5 @@
-"""Gaussian V-diffusion, sampling half (counterpart of ``vdiff_tpu/diffusion.py``).
+"""Gaussian V-diffusion: the sampler and the training loss (counterpart of
+``vdiff_tpu/diffusion.py``).
 
 Per-step schedule and posterior scalars are precomputed on the host in numpy
 float64 and cast to float32 (:meth:`GaussianDiffusion.sample_tables`), exactly
@@ -7,6 +8,11 @@ rows on the device. Classifier-free guidance doubles the batch as
 concatenated halves [cond; uncond]. Randomness is explicit: the caller passes
 ``x_T`` and, for ancestral or η>0 DDIM sampling, a ``torch.Generator``;
 deterministic DDIM (η=0) draws no noise.
+
+The training loss (:meth:`GaussianDiffusion.train_loss`) evaluates the schedule
+on the device for the per-example t, in f32, as the JAX package does. Its t,
+noise and CFG keep mask are passed in; the train step draws them. Only
+``loss_type="mse"`` is ported; the KL/bpd surface is ROADMAP A5.
 """
 
 from __future__ import annotations
@@ -36,6 +42,11 @@ class GaussianDiffusion:
     p_uncond: float = 0.1
     x0eps_coef: bool = False
 
+    def t2logsnr(self, t: torch.Tensor, ndim: int = 4):
+        """Device path: (B,) t → ((B,1,..) logsnr, (B,) adjusted t)."""
+        logsnr, t_adj = self.logsnr_fn(t)
+        return logsnr.reshape((-1,) + (1,) * (ndim - 1)), t_adj
+
     def pred_x0(self, model_out, x_t, logsnr_t):
         """Model output → x̂_0 for this model's head type."""
         if self.model_out_type == "x0":
@@ -47,6 +58,62 @@ class GaussianDiffusion:
         if self.model_out_type == "v":
             return N.pred_x0_from_v(x_t, model_out, logsnr_t)
         raise NotImplementedError(self.model_out_type)
+
+    def from_model_out_to_pred(self, x_t, model_out, logsnr_t):
+        """{x_0, eps, (x_0, eps), v} from any head type, keyed by the reweight
+        type that compares against each."""
+        assert self.model_out_type in {"x0", "eps", "both", "v"}
+        if self.model_out_type == "v":
+            v = model_out
+            x_0 = N.pred_x0_from_v(x_t, v, logsnr_t)
+            eps = N.pred_eps_from_v(x_t, v, logsnr_t)
+        else:
+            if self.model_out_type == "x0":
+                x_0 = model_out
+                eps = N.pred_eps_from_x0(x_t, x_0, logsnr_t)
+            elif self.model_out_type == "eps":
+                eps = model_out
+                x_0 = N.pred_x0_from_eps(x_t, eps, logsnr_t)
+            else:  # both
+                x_0 = N.pred_x0_from_x0eps(x_t, model_out, logsnr_t)
+                eps = N.pred_eps_from_x0(x_t, x_0, logsnr_t)
+            v = N.pred_v_from_x0eps(x_0, eps, logsnr_t)
+        return {"constant": x_0, "snr": eps, "snr_trunc": (x_0, eps), "snr_1plus": v}
+
+    def train_loss(self, denoise_fn, x_0, t, y, noise,
+                   keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Per-sample loss (B,). CFG label dropout zeroes the labels where
+        ``keep`` (bool (B,), the JAX package's U(0,1) > p_uncond) is false;
+        without ``keep`` the labels stay."""
+        if self.loss_type == "kl":
+            raise NotImplementedError("loss_type='kl' (the bpd/KL surface) is not ported yet "
+                                      "(ROADMAP.md queue A: A5)")
+        if self.loss_type != "mse":
+            raise NotImplementedError(self.loss_type)
+        assert self.model_var_type != "learned"
+        assert self.reweight_type in {"constant", "snr", "snr_trunc", "snr_1plus"}
+        ndim = x_0.ndim
+        logsnr_t, t_adj = self.t2logsnr(t, ndim)
+        x_t = N.q_sample(x_0, logsnr_t, noise)
+
+        if self.p_uncond and y is not None and keep is not None:
+            y = y * keep.to(y.dtype).reshape((-1,) + (1,) * (y.ndim - 1))
+
+        model_out = denoise_fn(x_t, t_adj, y)
+        target = {
+            "constant": x_0,
+            "snr": noise,
+            "snr_trunc": (x_0, noise),
+            "snr_1plus": N.pred_v_from_x0eps(x_0, noise, logsnr_t),
+        }[self.reweight_type]
+        if isinstance(target, tuple):
+            # snr_trunc: elementwise max of the two flat-mean MSEs
+            predict = self.from_model_out_to_pred(x_t, model_out, logsnr_t)[self.reweight_type]
+            return torch.maximum(*[N.flat_mean((tgt - pred) ** 2)
+                                   for tgt, pred in zip(target, predict)])
+        # the other targets compare against the raw model output: the head
+        # type must pair with the reweight type
+        return N.flat_mean((target - model_out) ** 2)
 
     def sample_tables(self, use_ddim: bool = False, eta: float = 0.0) -> Dict[str, np.ndarray]:
         """Per-step scalars, host float64 math, float32 (T,) arrays. Row ``i``

@@ -9,10 +9,12 @@ from __future__ import annotations
 
 import json
 import os
+from functools import partial
+from types import SimpleNamespace
 
 import torch
 
-from .utils.config import fill_with_defaults
+from .utils.config import fill_with_defaults, update_config
 
 CONFIG_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                           "vdiff_tpu", "configs")
@@ -28,6 +30,18 @@ def load_experiment_config(config_path: str, default_config_path: str = DEFAULT_
     fill_with_defaults(config, defaults)
     exp_name = os.path.splitext(os.path.basename(config_path))[0]
     return config, exp_name
+
+
+def resolve_section(config: dict, args, section: str, fields: dict) -> SimpleNamespace:
+    """Resolve one config section against CLI args (CLI > experiment JSON >
+    defaults). ``fields`` maps a config field to a spec with optional ``arg``
+    (the CLI attribute when named differently) and ``op`` (the store_true
+    OR/AND rule). Resolved values are written back into ``config[section]``,
+    so the dumped config records what ran."""
+    sec = config.setdefault(section, {})
+    get = partial(update_config, old_config=sec, new_config=args)
+    return SimpleNamespace(**{name: get(name, spec.get("arg"), logical_op=spec.get("op"))
+                              for name, spec in fields.items()})
 
 
 def normalize_out_type(model_out_type: str) -> str:

@@ -1,10 +1,11 @@
 """Build and load the port's hand-written CUDA kernels.
 
-The sources under ``csrc/`` expose plain C entry points. At first use they are
-compiled with ``nvcc`` for Hopper (``sm_90a``) into one shared library under
-``_build/`` and loaded with :mod:`ctypes`. The library's file name carries a
-hash of the sources and flags, so an edited source builds anew and a stale
-library is never loaded. Nothing here runs at import time.
+The sources under ``csrc/`` expose plain C entry points. At first use each is
+compiled with ``nvcc`` for Hopper (``sm_90a``), all of them at once in parallel
+processes, then linked into one shared library under ``_build/`` and loaded
+with :mod:`ctypes`. The library's file name carries a hash of the sources and
+flags, so an edited source builds anew and a stale library is never loaded.
+Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -20,20 +21,26 @@ _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 
-SOURCES = ("attn_fwd_online.cu", "attn_fwd_qblk.cu")
-HEADERS = ("attn_common.cuh",)
+SOURCES = ("attn_fwd_online.cu", "attn_fwd_qblk.cu", "attn_fwd_train.cu", "attn_bwd_rows.cu",
+           "attn_bwd_cols.cu")
+HEADERS = ("attn_common.cuh", "attn_direct_fwd.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 # argtypes of every C entry point; each returns an int: the launches their
-# cudaError_t, vdiff_attn_fwd_qblk_max_t the largest token count it takes.
-_ATTN_ARGS = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+# cudaError_t, the *_max_t functions the largest token count a kernel takes.
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_ATTN_ARGS = [_P, _P] + [_I] * 5 + [_P]
 _ENTRY_POINTS = {
     "vdiff_attn_fwd_online": _ATTN_ARGS,
     "vdiff_attn_fwd_qblk": _ATTN_ARGS,
-    "vdiff_attn_fwd_qblk_max_t": [ctypes.c_int],
+    "vdiff_attn_fwd_qblk_max_t": [_I],
+    "vdiff_attn_fwd_train": _ATTN_ARGS,
+    "vdiff_attn_bwd_rows": [_P] * 5 + [_I] * 5 + [_P],
+    "vdiff_attn_bwd_rows_max_t": [_I],
+    "vdiff_attn_bwd_cols": [_P] * 5 + [_I] * 5 + [_P],
 }
 
 
@@ -60,19 +67,39 @@ def source_digest() -> str:
     return h.hexdigest()[:16]
 
 
+def _run(cmds):
+    """Run the commands in parallel; raise with nvcc's output if any fails."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                    text=True)) for cmd in cmds]
+    failed = []
+    for cmd, proc in procs:
+        out = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def build_library() -> str:
     """Compile the sources into ``_build/`` unless a library with the same
-    digest exists there; return its path. Raises with nvcc's output on a
-    failed build."""
-    path = os.path.join(BUILD_DIR, f"libvdiff_kernels_{source_digest()}.so")
+    digest exists there; return its path. One nvcc per source, all started
+    together, then one link. Raises with nvcc's output on a failed build."""
+    digest = source_digest()
+    path = os.path.join(BUILD_DIR, f"libvdiff_kernels_{digest}.so")
     if os.path.exists(path):
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *(os.path.join(CSRC_DIR, s) for s in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}")
+    nvcc, tag = find_nvcc(), f"{digest}.{os.getpid()}"
+    objs = [os.path.join(BUILD_DIR, f"{os.path.splitext(s)[0]}.{tag}.o") for s in SOURCES]
+    try:
+        _run([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, os.path.join(CSRC_DIR, src)]
+              for src, obj in zip(SOURCES, objs)])
+        tmp = f"{path}.{os.getpid()}.tmp"
+        _run([[nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]])
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
     os.replace(tmp, path)  # atomic: a concurrent loader never sees half a file
     return path
 

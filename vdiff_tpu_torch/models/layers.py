@@ -1,5 +1,5 @@
-"""NN primitives: the reference's LeCun-truncated initialiser, label one-hot
-and the two resamplers (counterpart of ``vdiff_tpu/models/layers.py``).
+"""NN primitives: the reference's LeCun-truncated initialiser, dropout, label
+one-hot and the two resamplers (counterpart of ``vdiff_tpu/models/layers.py``).
 
 Dense layers are ``nn.Linear`` and convolutions ``nn.Conv2d``; parameters
 stay float32 and are cast to the model's compute dtype where they are used,
@@ -28,6 +28,36 @@ def lecun_trunc_normal_(w: torch.Tensor, scale: float = 1.0,
     fan_in = math.prod(w.shape[1:])
     nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
     return w.mul_(math.sqrt(scale / fan_in))
+
+
+class EfficientDropout(nn.Module):
+    """Dropout with the JAX package's law: keep an element iff a uniform 16-bit
+    integer is ≥ round(rate·2¹⁶), and scale survivors by exactly 1/keep_prob
+    (keep_prob = 1 − threshold/2¹⁶, so E[out] = x). A rate that rounds to 2¹⁶
+    drops everything. The bits come from an explicit ``torch.Generator``, drawn
+    as int32 in [0, 2¹⁶) since CUDA has no uint16 ``randint``; they are not
+    JAX's bits, only its law."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if not train or self.rate == 0.0:
+            return x
+        thresh = int(round(self.rate * 65536.0))
+        if thresh >= 65536:
+            return torch.zeros_like(x)
+        if generator is None:
+            raise ValueError("EfficientDropout in training needs an explicit torch.Generator")
+        keep_prob = 1.0 - thresh / 65536.0
+        bits = torch.randint(0, 65536, x.shape, generator=generator, device=x.device,
+                             dtype=torch.int32)
+        # filled on the device: torch.tensor(…, device="cuda") would copy from
+        # the host and wait for the stream, once per residual block
+        scale = torch.full((), 1.0 / keep_prob, dtype=x.dtype, device=x.device)
+        return torch.where(bits >= thresh, x * scale, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 def conv2d(x: torch.Tensor, conv: nn.Conv2d, dtype: torch.dtype) -> torch.Tensor:

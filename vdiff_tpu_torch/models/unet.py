@@ -1,4 +1,4 @@
-"""UNet denoiser, inference forward (counterpart of ``vdiff_tpu/models/unet.py``).
+"""UNet denoiser (counterpart of ``vdiff_tpu/models/unet.py``).
 
 The module tree carries the reference's state_dict key names
 (``time_embed.0/.2``, ``class_embed.1``, ``in_conv``,
@@ -13,6 +13,12 @@ works on NCHW tensors in ``channels_last`` memory, so every NHWC↔NCHW change
 is a free view. Compute dtype follows Flax: parameters stay float32 and are
 cast to ``dtype`` where used; the output conv runs in float32 (Flax promotes
 the bf16 activation with its f32 kernel there).
+
+``train=True`` is JAX's training mode: dropout between norm2 and conv2 of each
+residual block (bits from the ``generator`` passed in) and differentiable
+attention (``spatial_attention_qkv(train=True)``). JAX's other use of the flag,
+``fuse = not train``, selects Pallas inference kernels that are off on this
+path, so it has nothing to port.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ from ..ops.attention import spatial_attention_qkv
 from ..ops.groupnorm import gn_film_silu
 from ..ops.numerics import get_timestep_embedding
 from .layers import (
+    EfficientDropout,
     avg_pool_2x,
     conv2d,
     lecun_trunc_normal_,
@@ -61,9 +68,11 @@ class ResidualBlock(nn.Module):
     skip of the resampled input."""
 
     def __init__(self, in_channels: int, out_channels: int, embed_dim: int,
-                 resampling: str = "none", dtype: torch.dtype = torch.float32):
+                 resampling: str = "none", dtype: torch.dtype = torch.float32,
+                 drop_rate: float = 0.0):
         super().__init__()
         self.dtype = dtype
+        self.dropout = EfficientDropout(drop_rate)
         self.resample = {"upsample": nearest_upsample, "downsample": avg_pool_2x,
                          "none": lambda a: a}[resampling]
         self.norm1 = GroupNorm32(in_channels)
@@ -73,13 +82,14 @@ class ResidualBlock(nn.Module):
         self.conv2 = _zero_init(nn.Conv2d(out_channels, out_channels, 3, padding=1))
         self.skip = nn.Conv2d(in_channels, out_channels, 1) if in_channels != out_channels else None
 
-    def forward(self, x, t_emb):
+    def forward(self, x, t_emb, train=False, generator=None):
         skip = self.resample(x)
         if self.skip is not None:
             skip = conv2d(skip, self.skip, self.dtype)
         h = conv2d(self.resample(self.norm1(x, silu=True)), self.conv1, self.dtype)
         shift, scale = linear(F.silu(t_emb), self.fc, self.dtype).chunk(2, dim=-1)
         h = self.norm2(h, shift, scale, silu=True)
+        h = self.dropout(h, train, generator)
         return conv2d(h, self.conv2, self.dtype) + skip
 
 
@@ -103,12 +113,12 @@ class AttentionBlock(nn.Module):
         self.proj_in = nn.Conv2d(channels, 3 * hid, 1)
         self.proj_out = _zero_init(nn.Conv2d(hid, channels, 1))
 
-    def forward(self, x):
+    def forward(self, x, train=False):
         B, C, H, W = x.shape
         tokens = self.norm(x, silu=False).permute(0, 2, 3, 1).reshape(B, H * W, C)
         dt = tokens.dtype
         qkv = F.linear(tokens, self.proj_in.weight.flatten(1).to(dt), self.proj_in.bias.to(dt))
-        out = spatial_attention_qkv(qkv, self.num_heads)
+        out = spatial_attention_qkv(qkv, self.num_heads, train=train)
         out = F.linear(out, self.proj_out.weight.flatten(1).to(dt), self.proj_out.bias.to(dt))
         return out.reshape(B, H, W, C).permute(0, 3, 1, 2) + x
 
@@ -117,15 +127,17 @@ class _ResAttn(nn.Sequential):
     """Residual block followed by attention (the reference's
     ``Sequential(res, attn)``, keys ``.0``/``.1``)."""
 
-    def forward(self, x, t_emb):
-        return self[1](self[0](x, t_emb))
+    def forward(self, x, t_emb, train=False, generator=None):
+        return self[1](self[0](x, t_emb, train, generator), train)
 
 
 class UNet(nn.Module):
     """Improved-DDPM UNet; constructor arguments mirror the JAX ``UNet``.
 
-    ``forward(x, t, y)``: x (B, H, W, C_in) NHWC, t (B,), y (B,) class labels
-    (0 = null class) or None → (B, H, W, C_out) f32.
+    ``forward(x, t, y, train=False, generator=None)``: x (B, H, W, C_in)
+    NHWC, t (B,), y (B,) class labels (0 = null class) or None →
+    (B, H, W, C_out) f32. With ``train`` and a nonzero ``drop_rate`` the
+    dropout bits come from ``generator``.
     """
 
     def __init__(
@@ -137,7 +149,7 @@ class UNet(nn.Module):
         num_res_blocks: int,
         apply_attn: Union[bool, Sequence[bool]],
         embedding_dim: Optional[int] = None,
-        drop_rate: float = 0.0,  # inference only: dropout is inactive
+        drop_rate: float = 0.0,
         head_dim: Optional[int] = None,
         num_heads: Optional[int] = None,
         num_classes: int = 0,
@@ -164,7 +176,7 @@ class UNet(nn.Module):
         chs = [m * hid_channels for m in ch_multipliers]
 
         def block(level, in_ch, out_ch, resampling="none"):
-            res = ResidualBlock(in_ch, out_ch, embed_dim, resampling, dtype)
+            res = ResidualBlock(in_ch, out_ch, embed_dim, resampling, dtype, drop_rate)
             if not attn_flags[level]:
                 return res
             return _ResAttn(res, AttentionBlock(out_ch, head_dim, num_heads))
@@ -187,9 +199,9 @@ class UNet(nn.Module):
 
         mid = chs[-1]
         self.middle = nn.ModuleList([
-            ResidualBlock(mid, mid, embed_dim, dtype=dtype),
+            ResidualBlock(mid, mid, embed_dim, dtype=dtype, drop_rate=drop_rate),
             AttentionBlock(mid, head_dim, num_heads),
-            ResidualBlock(mid, mid, embed_dim, dtype=dtype),
+            ResidualBlock(mid, mid, embed_dim, dtype=dtype, drop_rate=drop_rate),
         ])
 
         self.upsamples = nn.ModuleDict()
@@ -221,7 +233,7 @@ class UNet(nn.Module):
                 m.weight.fill_(1.0)
                 m.bias.zero_()
 
-    def forward(self, x, t, y=None):
+    def forward(self, x, t, y=None, train=False, generator=None):
         dt = self.dtype
         t_emb = get_timestep_embedding(t, self.hid_channels)
         t_emb = linear(t_emb, self.time_embed[0], dt)
@@ -233,17 +245,17 @@ class UNet(nn.Module):
         hs = [conv2d(x.permute(0, 3, 1, 2), self.in_conv, dt)]
         for level in self.downsamples.values():
             for blk in level:
-                hs.append(blk(hs[-1], t_emb))
+                hs.append(blk(hs[-1], t_emb, train, generator))
 
-        h = self.middle[0](hs[-1], t_emb)
-        h = self.middle[1](h)
-        h = self.middle[2](h, t_emb)
+        h = self.middle[0](hs[-1], t_emb, train, generator)
+        h = self.middle[1](h, train)
+        h = self.middle[2](h, t_emb, train, generator)
 
         for i in reversed(range(len(self.upsamples))):
             for j, blk in enumerate(self.upsamples[f"level_{i}"]):
                 if j <= self.num_res_blocks:  # all but the trailing upsample block
                     h = torch.cat([h, hs.pop()], dim=1)
-                h = blk(h, t_emb)
+                h = blk(h, t_emb, train, generator)
         assert not hs
 
         h = self.out_conv[0](h, silu=True)

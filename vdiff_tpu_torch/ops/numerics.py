@@ -6,8 +6,10 @@ Two halves, as in ``vdiff_tpu/ops/numerics.py``:
   that drive the sampling loop. This is the numpy branch of the JAX package's
   namespace-generic functions, copied verbatim in its arithmetic so the
   tables agree bit for bit.
-* **device, torch** — the ``pred_*`` conversions and the timestep embedding,
-  on whatever device and dtype their tensors carry.
+* **device, torch** — the schedules again, for the per-example t of training
+  (the JAX package's jnp branch, in the tensor's dtype), ``q_sample``, the
+  ``pred_*`` conversions, ``flat_mean``/``flat_sum`` and the timestep
+  embedding, on whatever device and dtype their tensors carry.
 """
 
 from __future__ import annotations
@@ -24,7 +26,9 @@ import torch
 
 
 def _sigmoid(x):
-    """Numerically stable numpy sigmoid."""
+    """Numerically stable sigmoid (numpy float64 on the host, torch on a tensor)."""
+    if isinstance(x, torch.Tensor):
+        return torch.sigmoid(x)
     out = np.empty_like(x, dtype=np.result_type(x, np.float64))
     x = np.asarray(x, dtype=out.dtype)
     pos = x >= 0
@@ -42,6 +46,10 @@ def log_sigmoid(x):
 
 def stable_log1mexp(x):
     """Numerically stable log(1 - exp(x)) for x < 0."""
+    if isinstance(x, torch.Tensor):
+        safe_lo = torch.where(x < -9, x, -9.0)
+        safe_hi = torch.where(x < -9, -9.0, torch.clamp(x, max=-1e-20))
+        return torch.where(x < -9, torch.log1p(-torch.exp(safe_lo)), torch.log(-torch.expm1(safe_hi)))
     x = np.asarray(x)
     safe_lo = np.where(x < -9, x, -9.0)
     safe_hi = np.where(x < -9, -9.0, np.minimum(x, -1e-20))
@@ -49,10 +57,17 @@ def stable_log1mexp(x):
 
 
 def _logit(t):
-    return np.log(t) - np.log1p(-t)
+    xp = _xp(t)
+    return xp.log(t) - xp.log1p(-t)
 
 
-#: schedule_fn(t) -> (logsnr, t_adjusted), numpy float64
+def _xp(x):
+    """torch for a tensor (device path), numpy otherwise (host path)."""
+    return torch if isinstance(x, torch.Tensor) else np
+
+
+#: schedule_fn(t) -> (logsnr, t_adjusted): numpy float64 for host arrays, the
+#: tensor's dtype and device for a torch tensor
 ScheduleFn = Callable[[np.ndarray], Tuple[np.ndarray, np.ndarray]]
 
 
@@ -71,6 +86,15 @@ def get_logsnr_schedule(
         log_x_from = math.log(x_from)
 
         def legacy_fn(t):
+            if isinstance(t, torch.Tensor):
+                # the JAX package's f32 form: g(b) - g(a) for g(x) = x·ln x - x,
+                # b = a + δ, as δ·ln a + a·h(δ/a) with a series for
+                # h(r) = (1+r)·log1p(r) - r, free of cancellation
+                delta = (x_min - x_max) * t
+                r = delta / x_from
+                h = r * r * (0.5 + r * (-1.0 / 6.0 + r * (1.0 / 12.0 - r / 20.0)))
+                log_alpha = (1000.0 / slope) * (delta * log_x_from + x_from * h)
+                return (log_alpha - stable_log1mexp(log_alpha - 1e-9)).to(t.dtype), t
             _t = np.asarray(t, dtype=np.float64)
             x_to = x_max + (x_min - x_max) * _t
             log_alpha = 1000.0 / slope * (x_to * np.log(x_to) - x_to - x_from * log_x_from + x_from)
@@ -94,10 +118,12 @@ def get_logsnr_schedule(
     elif schedule == "cosine":
 
         def logsnr2t(logsnr):
-            return np.arctan(np.exp(-0.5 * logsnr)) / (0.5 * math.pi)
+            xp = _xp(logsnr)
+            return xp.arctan(xp.exp(-0.5 * logsnr)) / (0.5 * math.pi)
 
         def t2logsnr(t):
-            return -2.0 * np.log(np.tan(t * math.pi * 0.5))
+            xp = _xp(t)
+            return -2.0 * xp.log(xp.tan(t * math.pi * 0.5))
 
     else:
         raise NotImplementedError(schedule)
@@ -108,11 +134,14 @@ def get_logsnr_schedule(
     t_to = float(logsnr2t(np.float64(logsnr_min)))
 
     def schedule_fn(t):
-        _t = np.asarray(t, dtype=np.float64)
+        device = isinstance(t, torch.Tensor)
+        _t = t if device else np.asarray(t, dtype=np.float64)
         logsnr = t2logsnr(t_from + (t_to - t_from) * _t)
         t_adjusted = t
         if rescale:
             t_adjusted = logsnr2t(logsnr) if rescale_factor is None else t * rescale_factor
+        if device:
+            return logsnr.to(t.dtype), t_adjusted.to(t.dtype)
         return logsnr, np.asarray(t_adjusted, dtype=np.float64)
 
     return schedule_fn
@@ -240,6 +269,19 @@ def pred_x0_from_v(x_t, v, logsnr_t):
 
 def pred_eps_from_v(x_t, v, logsnr_t):
     return x_t * torch.sqrt(torch.sigmoid(-logsnr_t)) + v * torch.sqrt(torch.sigmoid(logsnr_t))
+
+
+def q_sample(x_0, logsnr_t, eps):
+    """Forward process: x_t = √σ(λ)·x_0 + √σ(-λ)·ε."""
+    return x_0 * torch.sqrt(torch.sigmoid(logsnr_t)) + eps * torch.sqrt(torch.sigmoid(-logsnr_t))
+
+
+def flat_mean(x: torch.Tensor, start_dim: int = 1) -> torch.Tensor:
+    return x.mean(dim=tuple(range(start_dim, x.ndim)))
+
+
+def flat_sum(x: torch.Tensor, start_dim: int = 1) -> torch.Tensor:
+    return x.sum(dim=tuple(range(start_dim, x.ndim)))
 
 
 def get_timestep_embedding(timesteps: torch.Tensor, embed_dim: int,
