@@ -24,11 +24,35 @@ Phases, one output line each (any failure raises and exits non-zero):
      attn_fwd_online never;
   7. train-cli: the port's train CLI (vdiff_tpu_torch.train) on
      synthetic_flagship.json with --allow-bf16 --epochs 1 (4 steps of 128, the
-     epoch-end sample grid, ckpt_last), then generate samples from ckpt_last.
-The line before last is the kernels' JSON record; the last line is
-{"ok": true, "device": {...}}. Imports nothing of JAX.
+     epoch-end sample grid, ckpt_last), then generate samples from ckpt_last;
+  8. celeba-kernels: the head-dim 64 kernels (attn_fwd_pack1, attn_fwd_pack1_lse,
+     attn_bwd_pack1, attn_bwd_pack1_kv) run at the shapes the celeba paths give
+     them (CELEBA_KERNEL_SHAPES: the sampler's B=32, the train step's B=48)
+     and are held against their twins, f32 and bf16: on the whole batch at
+     T <= 1024, and at T=4096 on four batch slices of the same inputs and
+     outputs (the twins' (B, N, T, T) f32 scores take 19 GB at B=48); then
+     timed in bf16 there beside the twin, SDPA and the card's bound;
+  9. celeba-unet: the full-width celeba UNet (301 M parameters, 40 multi-hot
+     tags, 'both' head) in f32 at B=1 on the GPU against the CPU; one forward
+     must launch attn_fwd_pack1 10 times, attn_fwd_qblk 8 and attn_fwd_online 9;
+ 10. celeba-train-unet: one full-width f32 train step at B=1 on the GPU against
+     the CPU, dropout off, with the per-step launch counts of CELEBA_STEP_LAUNCHES;
+ 11. celeba-sample: the generate CLI on the random-weight model with
+     celeba.json, B=32, 16 DDIM steps at w=0, bf16, tags drawn from a written
+     list_attr_celeba.txt: finite PNGs and 10 / 8 / 9 launches per forward;
+ 12. celeba-train: 3 steps of the bf16 train step at B=48 on seeded images and
+     multi-hot tags, each with CELEBA_STEP_LAUNCHES, a finite loss and the
+     peak device memory.
+Every kernel's launches in the JSON record are counted on the main paths
+(phases 4, 7, 11, 12), each run with the counts set to 0 just before it and
+read just after: "launches" is their sum over the four paths, and
+"launches_by_path" each path's own count. The line before last is the kernels' JSON record (with each
+kernel's time, its twin's, one PyTorch call's where there is one, and the
+card's bound for the same work); the last line is {"ok": true, "device":
+{...}}. Imports nothing of JAX.
 """
 
+import collections
 import copy
 import glob
 import json
@@ -44,15 +68,58 @@ import torch
 CONFIGS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "vdiff_tpu", "configs")
 CONFIG = os.path.join(CONFIGS, "cifar10_cond.json")
 TRAIN_CONFIG = os.path.join(CONFIGS, "synthetic_flagship.json")
+CELEBA_CONFIG = os.path.join(CONFIGS, "celeba.json")
 STEPS = 256
+CELEBA_STEPS, CELEBA_SAMPLE_B, CELEBA_TRAIN_B, CELEBA_TRAIN_STEPS = 16, 32, 48, 3
+KERNELS = ("attn_fwd_online", "attn_fwd_qblk", "attn_fwd_train", "attn_bwd_rows",
+           "attn_bwd_cols", "attn_fwd_pack1", "attn_fwd_pack1_lse", "attn_bwd_pack1",
+           "attn_bwd_pack1_kv")
+
+
+def _launches(**counts):
+    """A launch count for every kernel: the given ones, 0 for the rest."""
+    return {name: counts.get(name, 0) for name in KERNELS}
+
+
 # attention calls per cifar10_cond UNet forward: 17 at T <= 512 (8 at T=256,
 # 9 at T=64) go to the online kernel (attn_fwd_train when training), 1 at
 # T=1024 (up_1_us) to the q-blocked one; a training backward runs each
 # backward pass once per call
 ONLINE_PER_FWD, QBLK_PER_FWD = 17, 1
-TRAIN_STEP_LAUNCHES = {"attn_fwd_online": 0, "attn_fwd_train": 17, "attn_fwd_qblk": 1,
-                       "attn_bwd_rows": 18, "attn_bwd_cols": 18}
-KERNELS = tuple(TRAIN_STEP_LAUNCHES)
+TRAIN_STEP_LAUNCHES = _launches(attn_fwd_train=17, attn_fwd_qblk=1, attn_bwd_rows=18,
+                                attn_bwd_cols=18)
+# the celeba UNet's 27 attention calls (head dim 64), routed as JAX routes
+# them on a TPU without head padding: one forward launches the head-dim 64
+# forward 10 times (T=1024 and T=256 at N=6, T=256 at N=12, T=4096 in
+# up_1_us), the q-blocked kernel 8 times (N=9: T=256 and up_2_us's T=1024)
+# and the online kernel 9 times (T=64); a train step runs the pack1 pair
+# (forward + full-row backward) at 9 calls, the kv-streamed pair at T=4096,
+# and B3/B2 + the two backward passes at the other 17. attn_fwd_pack1 runs
+# B1's kernel, attn_bwd_pack1 the two backward passes and attn_bwd_pack1_kv
+# the column pass; each wrapper counts only its own launches.
+CELEBA_FWD_LAUNCHES = _launches(attn_fwd_pack1=10, attn_fwd_qblk=8, attn_fwd_online=9)
+CELEBA_STEP_LAUNCHES = _launches(attn_fwd_pack1=9, attn_fwd_pack1_lse=1, attn_bwd_pack1=9,
+                                 attn_bwd_pack1_kv=1, attn_fwd_train=16, attn_fwd_qblk=1,
+                                 attn_bwd_rows=17, attn_bwd_cols=17)
+# (B, T, N, kernels) at head dim 64: every shape the celeba paths give the
+# head-dim 64 kernels, the sampler's B6 at T=4096 and the train step's at B=48
+# (the sampler's B6 at T <= 1024 runs the same code at a smaller batch)
+CELEBA_KERNEL_SHAPES = (
+    (CELEBA_SAMPLE_B, 4096, 6, ("attn_fwd_pack1",)),                         # up_1_us
+    (CELEBA_TRAIN_B, 4096, 6, ("attn_fwd_pack1_lse", "attn_bwd_pack1_kv")),  # up_1_us
+    (CELEBA_TRAIN_B, 1024, 6, ("attn_fwd_pack1", "attn_bwd_pack1")),   # down_1_*, up_1_{0..3}
+    (CELEBA_TRAIN_B, 256, 6, ("attn_fwd_pack1", "attn_bwd_pack1")),    # down_1_ds
+    (CELEBA_TRAIN_B, 256, 12, ("attn_fwd_pack1", "attn_bwd_pack1")),   # up_3_us
+)
+# above this T the twins run on the batch slices 0, 1, B-2 and B-1 only
+TWIN_FULL_BATCH_MAX_T = 1024
+TRAINING_KERNELS = ("attn_fwd_train", "attn_bwd_rows", "attn_bwd_cols", "attn_fwd_pack1_lse",
+                    "attn_bwd_pack1", "attn_bwd_pack1_kv")
+
+# the card's peaks (NVIDIA H100 SXM data sheet, dense): bf16 on the tensor
+# cores, f32 outside them; HBM3 bandwidth
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+HBM_BYTES_PER_S = 3.35e12
 
 # f32: both sides do f32 math; only the summation order differs.
 F32_ATOL = 1e-4
@@ -64,9 +131,9 @@ BF16_RTOL = 2.0 ** -8
 # summation order and the kernels' order differ across ~60 layers.
 UNET_RTOL = 1e-3
 # attention backward vs attention_qkv_bwd_reference, per d(qkv) slot (dq, dk,
-# dv), relative to the slot's scale max(1, max|ref|). f32: both sides do f32
-# math; the sums run in other orders and the column pass takes P as
-# exp(S - lse) where the twin divides by the row sum.
+# dv), relative to the slot's own scale max|ref| (at T=4096 dK/dV are ~1e-2).
+# f32: both sides do f32 math; the sums run in other orders and the column
+# pass takes P as exp(S - lse) where the twin divides by the row sum.
 BWD_F32_RTOL = 1e-4
 # bf16: kernel and twin round P and dS to bf16 as matmul operands at the same
 # points and round each output once; their f32 sums differ in order, which can
@@ -82,6 +149,9 @@ BWD_BF16_RTOL, BWD_BF16_SCALE = 2.0 ** -7, 2.0 ** -8
 # 2·lr (plus the decay's share), all others to 1e-2·lr.
 STEP_LOSS_RTOL, STEP_GRAD_RTOL, STEP_PARAM_RTOL, STEP_SIGN_BOUND = 1e-4, 1e-3, 1e-2, 2.01
 STEP_LR = 2e-4
+# lse of the head-dim 64 forward vs its twin, f32 on both sides: |lse| is
+# at most ~20 here and the kernel's running max moves f32 roundings only
+LSE_ATOL = 1e-4
 
 
 def fail(msg):
@@ -100,6 +170,44 @@ def cuda_ms(fn, iters=20, warmup=3):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _bound(kind, B, T, N, C, dtype):
+    """The least time the card could take for one attention call: the larger
+    of its operations over the peak for the inputs' type and its bytes (each
+    input read once, each output written once) over the memory rate.
+    Operations per (batch, head): 4·T²·C forward (q·kᵀ and P·v); 10·T²·C for
+    a whole backward (S, dP, dQ, dK, dV); 6·T²·C for the row pass alone (S,
+    dP, dQ), 8·T²·C for the column pass (S, dP, dK, dV)."""
+    x = B * T * N * C * (2 if dtype == torch.bfloat16 else 4)  # one (B, T, N·C) array
+    stats = B * N * T * 4  # one f32 (B, N, T) row statistic
+    flops, nbytes = {
+        "fwd": (4, 3 * x + x),
+        "fwd_lse": (4, 3 * x + x + stats),
+        "bwd": (10, 3 * x + x + 3 * x),
+        "bwd_kv": (10, 3 * x + x + stats + x + 3 * x),
+        "bwd_rows": (6, 3 * x + x + x + 2 * stats),
+        "bwd_cols": (8, 3 * x + x + 2 * stats + 2 * x),
+    }[kind]
+    t_ops = flops * T * T * C * N * B / PEAK_FLOPS[dtype]
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return {"bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def _sdpa(qkv, N, g=None):
+    """One call of torch's scaled_dot_product_attention on the same q/k/v
+    (views of the fused qkv): the forward, or with ``g`` the forward and the
+    backward to d(q, k, v). Timed as a yardstick only; the port never calls it."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    B, T, three_nc = qkv.shape
+    q, k, v = qkv.view(B, T, 3, N, three_nc // (3 * N)).permute(2, 0, 3, 1, 4).unbind(0)
+    if g is None:
+        return lambda: sdpa(q, k, v)
+    q, k, v = (a.detach().contiguous().requires_grad_() for a in (q, k, v))
+    go = g.view(B, T, N, -1).transpose(1, 2)
+    return lambda: torch.autograd.grad(sdpa(q, k, v), (q, k, v), go)
 
 
 def phase_card():
@@ -134,14 +242,20 @@ def phase_kernels():
         for dtype in (torch.float32, torch.bfloat16):
             qkv = torch.randn(B, T, 3 * N * C, device="cuda", generator=gen).to(dtype)
             tag = f"{fn.__name__} B={B} T={T} N={N} C={C} {str(dtype)[6:]}"
-            max_err = _check_fwd(tag, fn(qkv, N), A.attention_qkv_reference(qkv.float(), N), dtype)
-            ms = cuda_ms(lambda: fn(qkv, N))
-            plain_ms = cuda_ms(lambda: A.attention_qkv_reference(qkv, N))
-            print(f"kernels: {tag}: max_abs_err={max_err} ms={ms} plain_ms={plain_ms}", flush=True)
+            rec = {"max_abs_err": _check_fwd(tag, fn(qkv, N),
+                                             A.attention_qkv_reference(qkv.float(), N), dtype),
+                   "ms": cuda_ms(lambda: fn(qkv, N)),
+                   "plain_ms": cuda_ms(lambda: A.attention_qkv_reference(qkv, N)),
+                   "library_ms": cuda_ms(_sdpa(qkv, N)), **_bound("fwd", B, T, N, C, dtype)}
+            print(f"kernels: {tag}: " + _fmt(rec), flush=True)
             if dtype == torch.bfloat16 and fn.__name__ not in record:
-                record[fn.__name__] = {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms}
+                record[fn.__name__] = rec
             del qkv
     return record
+
+
+def _fmt(rec):
+    return " ".join(f"{k}={v}" for k, v in rec.items())
 
 
 def _check_fwd(name, out, ref, dtype):
@@ -159,22 +273,28 @@ def _check_fwd(name, out, ref, dtype):
 
 
 def _check_bwd(name, got, ref, dtype):
-    """d(qkv) of the kernel pair vs attention_qkv_bwd_reference in the same
-    dtype, slot by slot; returns the largest absolute error."""
+    """d(qkv) of a backward kernel vs its twin in the same dtype, slot by slot;
+    prints each slot's error beside its limit and its |ref| (largest, mean)
+    and returns the largest absolute error."""
     torch.cuda.synchronize()
     if got.shape != ref.shape or got.dtype != dtype:
         fail(f"{name}: got {tuple(got.shape)} {got.dtype}")
-    worst = 0.0
+    worst, lines = 0.0, []
     for slot, (a, r) in zip("qkv", zip(got.float().chunk(3, -1), ref.float().chunk(3, -1))):
-        scale = max(1.0, r.abs().max().item())
+        scale = r.abs().max().item()
         err = (a - r).abs()
         if dtype == torch.float32:
             tol = torch.full_like(r, BWD_F32_RTOL * scale)
+            limit = f"{BWD_F32_RTOL * scale:.3g}"
         else:
             tol = BWD_BF16_RTOL * r.abs() + BWD_BF16_SCALE * scale
+            limit = f"2^-7|ref| + {BWD_BF16_SCALE * scale:.3g}"
+        lines.append(f"d{slot} err {err.max().item():.3g} limit {limit} |ref| max {scale:.3g} "
+                     f"mean {r.abs().mean().item():.3g}")
         if not bool(torch.isfinite(a).all()) or bool((err > tol).any()):
             fail(f"{name}: d{slot} max err {err.max().item()} (scale {scale}) over tolerance")
         worst = max(worst, err.max().item())
+    print(f"{name}: " + "; ".join(lines), flush=True)
     return worst
 
 
@@ -201,33 +321,40 @@ def phase_train_kernels():
                              A.attention_qkv_reference(qkv.float(), N), dtype)
             rec = {fwd.__name__: {
                 "max_abs_err": err, "ms": cuda_ms(lambda: fwd(qkv, N), iters=10),
-                "plain_ms": cuda_ms(lambda: A.attention_qkv_reference(qkv, N), iters=10)}}
+                "plain_ms": cuda_ms(lambda: A.attention_qkv_reference(qkv, N), iters=10),
+                "library_ms": cuda_ms(_sdpa(qkv, N), iters=10), **_bound("fwd", B, T, N, C, dtype)}}
             dqkv = A.attn_bwd(qkv, g, N)
             err = _check_bwd(f"attn_bwd {tag}", dqkv, A.attention_qkv_bwd_reference(qkv, g, N), dtype)
             lse, delta = A.attn_bwd_rows(qkv, g, N, dqkv)
             plain = cuda_ms(lambda: A.attention_qkv_bwd_reference(qkv, g, N), iters=10)
-            rec["attn_bwd_rows"] = {"max_abs_err": err, "plain_ms": plain,
-                                    "ms": cuda_ms(lambda: A.attn_bwd_rows(qkv, g, N, dqkv), iters=10)}
-            rec["attn_bwd_cols"] = {"max_abs_err": err, "plain_ms": plain, "ms": cuda_ms(
-                lambda: A.attn_bwd_cols(qkv, g, N, lse, delta, dqkv), iters=10)}
+            # no one PyTorch call computes either pass alone: SDPA's forward +
+            # backward, the yardstick of the pair, is printed beside them
+            pair_library = cuda_ms(_sdpa(qkv, N, g), iters=10)
+            rec["attn_bwd_rows"] = {"max_abs_err": err, "plain_ms": plain, "library_ms": None,
+                                    "ms": cuda_ms(lambda: A.attn_bwd_rows(qkv, g, N, dqkv), iters=10),
+                                    **_bound("bwd_rows", B, T, N, C, dtype)}
+            rec["attn_bwd_cols"] = {"max_abs_err": err, "plain_ms": plain, "library_ms": None, "ms": cuda_ms(
+                lambda: A.attn_bwd_cols(qkv, g, N, lse, delta, dqkv), iters=10),
+                **_bound("bwd_cols", B, T, N, C, dtype)}
             for name, r in rec.items():
-                print(f"train-kernels: {name} {tag}: max_abs_err={r['max_abs_err']} ms={r['ms']} "
-                      f"plain_ms={r['plain_ms']}" + (" (plain: whole backward)" if "bwd" in name else ""),
-                      flush=True)
+                print(f"train-kernels: {name} {tag}: " + _fmt(r)
+                      + (f" (plain: whole backward; SDPA forward+backward {pair_library} ms, "
+                         f"bound of the whole backward {_bound('bwd', B, T, N, C, dtype)})"
+                         if "bwd" in name else ""), flush=True)
                 if dtype == torch.bfloat16 and name not in record:
                     record[name] = r
             del qkv, g, dqkv, lse, delta
     return record
 
 
-def _perturbed_unet(cfg, dtype=torch.float32):
+def _perturbed_unet(cfg, num_classes=10, multitags=False, dtype=torch.float32):
     """Full-width UNet with random weights; zero-init layers get noise so the
     output (and every check on it) is not trivially zero."""
     from vdiff_tpu_torch.factory import build_unet
 
     gen = torch.Generator().manual_seed(1234)
     model = build_unet(cfg["model"], in_channels=3, model_out_type=cfg["diffusion"]["model_out_type"],
-                       num_classes=10, multitags=False, dtype=dtype, generator=gen)
+                       num_classes=num_classes, multitags=multitags, dtype=dtype, generator=gen)
     with torch.no_grad():
         for p in model.parameters():
             if p.ndim >= 2 and not bool(p.any()):
@@ -235,29 +362,33 @@ def _perturbed_unet(cfg, dtype=torch.float32):
     return model.eval()
 
 
-def phase_unet(cfg):
-    from vdiff_tpu_torch.ops import attention as A
+def _unet_parity(name, model, x, t, y, want):
+    """One f32 forward on the GPU against the CPU, and its launch counts."""
+    with torch.inference_mode():
+        ref = model(x, t, y)
+        model_gpu = copy.deepcopy(model).cuda()
+        before = _counts()
+        out = model_gpu(x.cuda(), t.cuda(), y.cuda()).cpu()
+    launched = {k: v - before[k] for k, v in _counts().items()}
+    del model_gpu
+    scale = max(1.0, ref.abs().max().item())
+    err = (out - ref).abs().max().item()
+    print(f"{name}: full width B={x.shape[0]} f32, cuda vs cpu max_abs_err={err} "
+          f"(|ref|max={scale}), kernel launches {launched}", flush=True)
+    if not bool(torch.isfinite(out).all()) or err > UNET_RTOL * scale:
+        fail(f"{name}: cuda vs cpu max err {err} > {UNET_RTOL} * {scale}")
+    if launched != want:
+        fail(f"{name}: one forward launched {launched}, expected {want}")
 
+
+def phase_unet(cfg):
     model = _perturbed_unet(cfg)
     gen = torch.Generator().manual_seed(7)
     x = torch.randn(2, 32, 32, 3, generator=gen)
     t = torch.rand(2, generator=gen)
     y = torch.tensor([3.0, 0.0])  # a class and the CFG null label
-    with torch.inference_mode():
-        ref = model(x, t, y)
-        model_gpu = copy.deepcopy(model).cuda()
-        n_on, n_q = A.attn_fwd_online.launches, A.attn_fwd_qblk.launches
-        out = model_gpu(x.cuda(), t.cuda(), y.cuda()).cpu()
-    d_on, d_q = A.attn_fwd_online.launches - n_on, A.attn_fwd_qblk.launches - n_q
-    scale = max(1.0, ref.abs().max().item())
-    err = (out - ref).abs().max().item()
-    print(f"unet: cifar10_cond full width B=2 f32, cuda vs cpu max_abs_err={err} "
-          f"(|ref|max={scale}), kernel launches online={d_on} qblk={d_q}", flush=True)
-    if not bool(torch.isfinite(out).all()) or err > UNET_RTOL * scale:
-        fail(f"unet: cuda vs cpu max err {err} > {UNET_RTOL} * {scale}")
-    if (d_on, d_q) != (ONLINE_PER_FWD, QBLK_PER_FWD):
-        fail(f"unet: one forward launched online={d_on} qblk={d_q} kernels, "
-             f"expected {ONLINE_PER_FWD} and {QBLK_PER_FWD}")
+    _unet_parity("unet: cifar10_cond", model, x, t, y,
+                 _launches(attn_fwd_online=ONLINE_PER_FWD, attn_fwd_qblk=QBLK_PER_FWD))
     return model
 
 
@@ -274,21 +405,19 @@ def _reset_counts():
         getattr(A, name).launches = 0
 
 
-def phase_train_unet(cfg):
-    """One full-width f32 train step at B=2 on CUDA vs the CPU; returns the
-    kernels' launch counts of the CUDA step."""
+def _train_step_parity(name, cfg, model, x, y, keep, want):
+    """One f32 train step (loss, backward, clip, AdamW, EMA) on CUDA vs the
+    CPU with the same weights, t, noise and CFG keep mask; the CUDA step's
+    launch counts must equal ``want``."""
     from vdiff_tpu_torch.factory import build_diffusion
     from vdiff_tpu_torch.train_lib import Optimizer, make_train_step
 
-    model = _perturbed_unet(dict(cfg, model=dict(cfg["model"], drop_rate=0.0)))
     cond = cfg["conditional"]
     diffusion, timesteps = build_diffusion(cfg["diffusion"], w_guide=cond["w_guide"],
                                            p_uncond=cond["p_uncond"])
     gen = torch.Generator().manual_seed(11)
-    x = torch.rand(2, 32, 32, 3, generator=gen) * 2 - 1
-    y = torch.tensor([3, 7])
-    draws = [{"t": torch.rand(2, generator=gen), "noise": torch.randn(2, 32, 32, 3, generator=gen),
-              "keep": torch.tensor([True, False])}]
+    draws = [{"t": torch.rand(x.shape[0], generator=gen),
+              "noise": torch.randn(x.shape, generator=gen), "keep": keep}]
 
     def run(device):
         m = copy.deepcopy(model).to(device)
@@ -311,15 +440,23 @@ def phase_train_unet(cfg):
     moved = (p - cpu_p).abs() / STEP_LR
     signed = cpu_g.abs() > STEP_GRAD_RTOL * grad_scale
     param_err, near_zero_err = moved[signed].max().item(), moved.max().item()
-    print(f"train-unet: cifar10_cond full width B=2 f32 one step, cuda vs cpu: loss {loss} vs "
+    print(f"{name}: full width B={x.shape[0]} f32 one step, cuda vs cpu: loss {loss} vs "
           f"{cpu_loss} (rel {loss_err}), grads max err {grad_err} of the largest, params max "
           f"err {param_err} of lr ({near_zero_err} of lr over the {int((~signed).sum())} entries "
           f"whose gradient is within tolerance of zero), launches {launched}", flush=True)
     if not (math.isfinite(loss) and loss_err <= STEP_LOSS_RTOL and grad_err <= STEP_GRAD_RTOL
             and param_err <= STEP_PARAM_RTOL and near_zero_err <= STEP_SIGN_BOUND):
-        fail("train-unet: cuda step disagrees with the cpu step")
-    if launched != TRAIN_STEP_LAUNCHES:
-        fail(f"train-unet: one step launched {launched}, expected {TRAIN_STEP_LAUNCHES}")
+        fail(f"{name}: cuda step disagrees with the cpu step")
+    if launched != want:
+        fail(f"{name}: one step launched {launched}, expected {want}")
+
+
+def phase_train_unet(cfg):
+    """One full-width f32 train step of cifar10_cond at B=2, dropout off."""
+    model = _perturbed_unet(dict(cfg, model=dict(cfg["model"], drop_rate=0.0)))
+    x = torch.rand(2, 32, 32, 3, generator=torch.Generator().manual_seed(12)) * 2 - 1
+    _train_step_parity("train-unet: cifar10_cond", cfg, model, x, torch.tensor([3, 7]),
+                       torch.tensor([True, False]), TRAIN_STEP_LAUNCHES)
 
 
 def phase_train_cli(tmp):
@@ -387,9 +524,204 @@ def phase_sample(model, tmp):
             fail(f"sample {name}: launches online={d_on} qblk={d_q}, expected "
                  f"{ONLINE_PER_FWD * forwards} and {QBLK_PER_FWD * forwards}")
     launched = _counts()
-    if any(launched[k] for k in ("attn_fwd_train", "attn_bwd_rows", "attn_bwd_cols")):
+    if any(launched[k] for k in TRAINING_KERNELS):
         fail(f"sample: the sampler launched training kernels: {launched}")
     return launched
+
+
+def phase_celeba_kernels():
+    """attn_fwd_pack1 (B6), attn_fwd_pack1_lse (B7), attn_bwd_pack1 (B8) and
+    attn_bwd_pack1_kv (B9) at CELEBA_KERNEL_SHAPES, f32 and bf16, against
+    their twins: on the whole batch at T <= TWIN_FULL_BATCH_MAX_T, else on
+    batch slices 0, 1, B-2, B-1 of the same inputs and of the kernels'
+    outputs. B9 takes B7's own (out, lse), its twin their slices. In bf16
+    each kernel is then timed on the whole batch beside its twin, SDPA and
+    the card's bound. Returns the per-kernel records (each kernel's first
+    shape; max_abs_err the largest over its bf16 shapes)."""
+    from vdiff_tpu_torch.ops import attention as A
+
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    C = 64
+    worst = collections.defaultdict(float)
+    record = {}
+    for B, T, N, names in CELEBA_KERNEL_SHAPES:
+        idx = list(range(B)) if T <= TWIN_FULL_BATCH_MAX_T else [0, 1, B - 2, B - 1]
+        for dtype in (torch.float32, torch.bfloat16):
+            tag = f"B={B} T={T} N={N} C={C} {str(dtype)[6:]}"
+            on = "" if len(idx) == B else f" (twin on batch slices {idx})"
+            qkv = torch.randn(B, T, 3 * N * C, device="cuda", generator=gen).to(dtype)
+            g = torch.randn(B, T, N * C, device="cuda", generator=gen).to(dtype)
+            sq, sg = qkv[idx], g[idx]
+            errs, timed = {}, {}
+            if "attn_fwd_pack1" in names:
+                ref_out, _ = A.attention_qkv_lse_reference(sq.float(), N)
+                errs["attn_fwd_pack1"] = _check_fwd(f"attn_fwd_pack1 {tag}{on}",
+                                                    A.attn_fwd_pack1(qkv, N)[idx], ref_out, dtype)
+                timed["attn_fwd_pack1"] = (lambda: A.attn_fwd_pack1(qkv, N),
+                                           lambda: A.attention_qkv_lse_reference(qkv, N),
+                                           _sdpa(qkv, N), "fwd")
+                del ref_out
+            if "attn_fwd_pack1_lse" in names:
+                ref_out, ref_lse = A.attention_qkv_lse_reference(sq.float(), N)
+                out, lse = A.attn_fwd_pack1_lse(qkv, N)
+                errs["attn_fwd_pack1_lse"] = _check_fwd(f"attn_fwd_pack1_lse {tag}{on}", out[idx],
+                                                        ref_out, dtype)
+                lse_err = (lse[idx] - ref_lse).abs().max().item()
+                if lse.shape != (B, N, T) or not lse_err <= LSE_ATOL:
+                    fail(f"attn_fwd_pack1_lse {tag}: lse {tuple(lse.shape)} max err {lse_err}")
+                print(f"celeba-kernels: attn_fwd_pack1_lse {tag}: lse max_abs_err {lse_err}",
+                      flush=True)
+                timed["attn_fwd_pack1_lse"] = (lambda: A.attn_fwd_pack1_lse(qkv, N),
+                                               lambda: A.attention_qkv_lse_reference(qkv, N),
+                                               _sdpa(qkv, N), "fwd_lse")
+                del ref_out, ref_lse
+            if "attn_bwd_pack1" in names:
+                errs["attn_bwd_pack1"] = _check_bwd(
+                    f"attn_bwd_pack1 {tag}{on}", A.attn_bwd_pack1(qkv, g, N)[idx],
+                    A.attention_qkv_bwd_reference(sq, sg, N), dtype)
+                timed["attn_bwd_pack1"] = (lambda: A.attn_bwd_pack1(qkv, g, N),
+                                           lambda: A.attention_qkv_bwd_reference(qkv, g, N),
+                                           _sdpa(qkv, N, g), "bwd")
+            if "attn_bwd_pack1_kv" in names:
+                errs["attn_bwd_pack1_kv"] = _check_bwd(
+                    f"attn_bwd_pack1_kv {tag}{on}", A.attn_bwd_pack1_kv(qkv, out, lse, g, N)[idx],
+                    A.attention_qkv_bwd_kv_reference(sq, out[idx], lse[idx], sg, N), dtype)
+                timed["attn_bwd_pack1_kv"] = (
+                    lambda: A.attn_bwd_pack1_kv(qkv, out, lse, g, N),
+                    lambda: A.attention_qkv_bwd_kv_reference(qkv, out, lse, g, N),
+                    _sdpa(qkv, N, g), "bwd_kv")
+            print(f"celeba-kernels: {tag}{on}: max_abs_err {errs}", flush=True)
+            del sq, sg
+            torch.cuda.empty_cache()
+            if dtype == torch.bfloat16:
+                for name, (fn, plain, library, kind) in timed.items():
+                    worst[name] = max(worst[name], errs[name])
+                    rec = {"ms": cuda_ms(fn, iters=3, warmup=1),
+                           "plain_ms": cuda_ms(plain, iters=3, warmup=1),
+                           "library_ms": cuda_ms(library, iters=3, warmup=1),
+                           **_bound(kind, B, T, N, C, dtype)}
+                    print(f"celeba-kernels: {name} {tag}: " + _fmt(rec)
+                          + (" (library: SDPA forward+backward)" if "bwd" in name else ""),
+                          flush=True)
+                    record.setdefault(name, rec)
+                    torch.cuda.empty_cache()
+            del qkv, g, timed
+            out = lse = None
+            torch.cuda.empty_cache()
+    for name, rec in record.items():
+        record[name] = {"max_abs_err": worst[name], **rec}
+    return record
+
+
+def _celeba_inputs(B, gen):
+    """x in [-1, 1] (B, 64, 64, 3) and multi-hot tags (B, 40), bench.py's draw."""
+    x = torch.rand(B, 64, 64, 3, generator=gen) * 2 - 1
+    return x, (torch.rand(B, 40, generator=gen) < 0.5).float()
+
+
+def phase_celeba_unet(cfg):
+    model = _perturbed_unet(dict(cfg, model=dict(cfg["model"], drop_rate=0.0)), num_classes=40,
+                            multitags=True)
+    print(f"celeba-unet: {sum(p.numel() for p in model.parameters())} parameters", flush=True)
+    x, y = _celeba_inputs(1, torch.Generator().manual_seed(8))
+    _unet_parity("celeba-unet", model, x, torch.rand(1, generator=torch.Generator().manual_seed(9)),
+                 y, CELEBA_FWD_LAUNCHES)
+    return model
+
+
+def phase_celeba_train_unet(cfg, model):
+    """One full-width f32 train step of the celeba model at B=1, dropout off."""
+    x, y = _celeba_inputs(1, torch.Generator().manual_seed(13))
+    _train_step_parity("celeba-train-unet", cfg, model, x, y, torch.tensor([True]),
+                       CELEBA_STEP_LAUNCHES)
+
+
+def _write_attr_table(root, rows, seed=5):
+    """A CelebA attribute table (and its split list) of ``rows`` seeded ±1 rows
+    under ``root/celeba``: the tags the generate CLI draws."""
+    base = os.path.join(root, "celeba")
+    os.makedirs(base, exist_ok=True)
+    gen = torch.Generator().manual_seed(seed)
+    attrs = torch.randint(0, 2, (rows, 40), generator=gen) * 2 - 1
+    names = [f"{i + 1:06d}.jpg" for i in range(rows)]
+    with open(os.path.join(base, "list_attr_celeba.txt"), "w") as f:
+        f.write(f"{rows}\n" + " ".join(f"attr_{k}" for k in range(40)) + "\n")
+        for name, row in zip(names, attrs.tolist()):
+            f.write(name + "  " + " ".join(str(v) for v in row) + "\n")
+    with open(os.path.join(base, "list_eval_partition.txt"), "w") as f:
+        f.writelines(f"{name} 0\n" for name in names)
+
+
+def phase_celeba_sample(model, tmp):
+    """The generate CLI on celeba.json; returns the run's launch counts."""
+    from vdiff_tpu_torch import generate
+
+    ckpt = os.path.join(tmp, "celeba.pt")
+    sd = model.state_dict()
+    torch.save({"model": sd, "ema": {"shadow": sd}}, ckpt)
+    data_root = os.path.join(tmp, "celeba_data")
+    _write_attr_table(data_root, rows=64)
+    B = CELEBA_SAMPLE_B
+    _reset_counts()
+    summary = generate.main([
+        "--config-path", CELEBA_CONFIG, "--ckpt-path", ckpt, "--data-root", data_root,
+        "--save-dir", os.path.join(tmp, "celeba_out"), "--use-ema", "--use-ddim", "--allow-bf16",
+        "--sample-timesteps", str(CELEBA_STEPS), "--w-guide", "0", "--batch-size", str(B),
+        "--total-size", str(B), "--seed", "0",
+    ])
+    launched = _counts()
+    pngs = len(glob.glob(os.path.join(summary["save_dir"], "*.png")))
+    print(f"celeba-sample: w=0 B={B}, {CELEBA_STEPS} DDIM steps bf16: "
+          f"{summary['images'] / summary['seconds']} samples/s ({summary['seconds']} s, the first "
+          f"batch's warm-up included), {pngs} PNGs, finite={summary['finite']}, launches {launched}",
+          flush=True)
+    if pngs != B or not summary["finite"]:
+        fail(f"celeba-sample: {pngs} PNGs (want {B}), finite={summary['finite']}")
+    want = {k: v * CELEBA_STEPS for k, v in CELEBA_FWD_LAUNCHES.items()}
+    if launched != want:
+        fail(f"celeba-sample: launches {launched}, expected {want}")
+    return launched
+
+
+def phase_celeba_train(cfg):
+    """CELEBA_TRAIN_STEPS bf16 train steps of the celeba model at B=48 (the
+    JAX bench's batch, no remat), dropout as configured; returns the launch
+    counts summed over the steps."""
+    from vdiff_tpu_torch.factory import build_diffusion, build_unet
+    from vdiff_tpu_torch.train_lib import Optimizer, make_train_step
+
+    torch.cuda.empty_cache()
+    tr, cond = cfg["train"], cfg["conditional"]
+    model = build_unet(cfg["model"], in_channels=3, model_out_type=cfg["diffusion"]["model_out_type"],
+                       num_classes=40, multitags=True, dtype=torch.bfloat16,
+                       generator=torch.Generator().manual_seed(0)).cuda()
+    ema = copy.deepcopy(model).requires_grad_(False)
+    diffusion, timesteps = build_diffusion(cfg["diffusion"], w_guide=cond["w_guide"],
+                                           p_uncond=cond["p_uncond"])
+    opt = Optimizer(model.parameters(), lr=tr["lr"], weight_decay=tr["weight_decay"],
+                    warmup=tr["warmup"], grad_norm=tr["grad_norm"])
+    step = make_train_step(model, diffusion, opt, timesteps, use_cfg=True,
+                           ema_decay=tr["ema_decay"], ema_model=ema)
+    x, y = (a.cuda() for a in _celeba_inputs(CELEBA_TRAIN_B, torch.Generator().manual_seed(14)))
+    torch.cuda.reset_peak_memory_stats()
+    total = collections.Counter()
+    for i in range(CELEBA_TRAIN_STEPS):
+        _reset_counts()
+        t0 = time.perf_counter()
+        loss = step(x, y, 0, i).item()
+        seconds = time.perf_counter() - t0
+        launched = _counts()
+        print(f"celeba-train: bf16 B={CELEBA_TRAIN_B} step {i}: {seconds:.3f} s "
+              f"({CELEBA_TRAIN_B / seconds:.1f} img/s), loss {loss}, launches {launched}", flush=True)
+        if not math.isfinite(loss):
+            fail(f"celeba-train: step {i} loss {loss}")
+        if launched != CELEBA_STEP_LAUNCHES:
+            fail(f"celeba-train: step {i} launched {launched}, expected {CELEBA_STEP_LAUNCHES}")
+        total.update(launched)
+    print(f"celeba-train: peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
+          flush=True)
+    return total
 
 
 def main():
@@ -404,17 +736,25 @@ def main():
     record = phase_kernels()
     cfg, _ = load_experiment_config(CONFIG)
     model = phase_unet(cfg)
+    by_path = {}  # each main path's counts, read just after its run
     with tempfile.TemporaryDirectory() as tmp:
-        launches = phase_sample(model, tmp)
+        by_path["cifar_sample"] = phase_sample(model, tmp)
         del model
         for name, r in phase_train_kernels().items():  # the sampling shape's record stays
             record.setdefault(name, r)
         phase_train_unet(cfg)
-        train_launches = phase_train_cli(tmp)
-    # the sampling kernels' counts are the sampling CLI's, the training
-    # kernels' the train CLI's
-    launches.update({k: train_launches[k] for k in ("attn_fwd_train", "attn_bwd_rows",
-                                                     "attn_bwd_cols")})
+        by_path["cifar_train_cli"] = phase_train_cli(tmp)
+        # the train CLI turns cuDNN's autotuner on (defaults.json); the later
+        # phases run as the generate CLI and the profile scripts do, without it
+        torch.backends.cudnn.benchmark = False
+
+        record.update(phase_celeba_kernels())
+        celeba_cfg, _ = load_experiment_config(CELEBA_CONFIG)
+        model = phase_celeba_unet(celeba_cfg)
+        phase_celeba_train_unet(celeba_cfg, model)
+        by_path["celeba_sample"] = phase_celeba_sample(model, tmp)
+        del model
+        by_path["celeba_train"] = phase_celeba_train(celeba_cfg)
 
     meta = {
         "attn_fwd_online": ("vdiff_tpu_torch/csrc/attn_fwd_online.cu",
@@ -427,13 +767,25 @@ def main():
                           "vdiff_tpu/ops/attention.py:204"),
         "attn_bwd_cols": ("vdiff_tpu_torch/csrc/attn_bwd_cols.cu",
                           "vdiff_tpu/ops/attention.py:240"),
+        # B6 launches B1's kernel, B7 its lse entry, B8 the two backward
+        # passes (attn_bwd_rows.cu, then attn_bwd_cols.cu): each counted apart
+        "attn_fwd_pack1": ("vdiff_tpu_torch/csrc/attn_fwd_online.cu",
+                           "vdiff_tpu/ops/attention.py:318"),
+        "attn_fwd_pack1_lse": ("vdiff_tpu_torch/csrc/attn_fwd_online.cu",
+                               "vdiff_tpu/ops/attention.py:407"),
+        "attn_bwd_pack1": ("vdiff_tpu_torch/csrc/attn_bwd_rows.cu",
+                           "vdiff_tpu/ops/attention.py:470"),
+        "attn_bwd_pack1_kv": ("vdiff_tpu_torch/csrc/attn_bwd_pack1_kv.cu",
+                              "vdiff_tpu/ops/attention.py:567"),
     }
     kernels = []
     for name, (source, replaces) in meta.items():
-        if launches[name] == 0:
+        paths = {path: counts[name] for path, counts in by_path.items() if counts[name]}
+        if not paths:
             fail(f"{name} was not launched on the main path")
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                        "launches": launches[name], **record[name]})
+                        "launches": sum(paths.values()), "launches_by_path": paths,
+                        **record[name]})
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

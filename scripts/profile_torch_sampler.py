@@ -1,11 +1,13 @@
 """Where the port's sampling step spends its time on the GPU.
 
-    python scripts/profile_torch_sampler.py [--steps 4] [--out profile_sampler.txt]
+    python scripts/profile_torch_sampler.py [--config cifar10_cond|celeba] [--steps 4]
+        [--out profile_sampler.txt]
 
-Builds the full-width cifar10_cond UNet of ``vdiff_tpu_torch`` (random
-weights), then for the two sampling cells of the JAX bench — DDIM w=0 at B=64
-and CFG w=0.1 at B=32, bf16 activations — runs a few warm-up steps and then
-``--steps`` reverse steps under ``torch.profiler``. Prints per cell the step
+Builds the full-width UNet of ``vdiff_tpu_torch`` for ``--config`` (random
+weights), then for its sampling cells of the JAX bench — cifar10_cond: DDIM
+w=0 at B=64 and CFG w=0.1 at B=32; celeba: DDIM w=0 at B=32 with multi-hot
+tags (bench.py:336-346) — in bf16 activations, runs a few warm-up steps and
+then ``--steps`` reverse steps under ``torch.profiler``. Prints per cell the step
 time (host clock around synchronised steps), the device-busy share (summed
 kernel time over wall time) and the kernels by total device time; the full
 tables go to ``--out``. Needs a CUDA device.
@@ -23,8 +25,13 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from vdiff_tpu_torch.factory import build_diffusion, build_unet, load_experiment_config  # noqa: E402
 
-CONFIG = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                      "vdiff_tpu", "configs", "cifar10_cond.json")
+CONFIG_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                          "vdiff_tpu", "configs")
+# config → (classes, multi-tag, resolution, cells as (name, w, batch))
+SETUPS = {
+    "cifar10_cond": (10, False, 32, (("ddim w=0 B=64", 0.0, 64), ("cfg w=0.1 B=32", 0.1, 32))),
+    "celeba": (40, True, 64, (("ddim w=0 B=32", 0.0, 32),)),
+}
 
 
 def _device_us(evt):
@@ -35,14 +42,17 @@ def _device_us(evt):
     return getattr(evt, "self_device_time_total", None) or getattr(evt, "self_cuda_time_total", 0)
 
 
-def profile_cell(model, cfg, w_guide, batch, steps, warmup=3):
+def profile_cell(model, cfg, w_guide, batch, steps, num_classes, multitags, res, warmup=3):
     diffusion, _ = build_diffusion(cfg["diffusion"], w_guide=w_guide, sample_timesteps=256,
                                    continuous_gate=False)
     tables = {k: torch.as_tensor(v, device="cuda")
               for k, v in diffusion.sample_tables(use_ddim=True).items()}
     gen = torch.Generator(device="cuda").manual_seed(0)
-    x = torch.randn(batch, 32, 32, 3, device="cuda", generator=gen)
-    y = torch.randint(1, 11, (batch,), device="cuda", generator=gen).float()
+    x = torch.randn(batch, res, res, 3, device="cuda", generator=gen)
+    if multitags:
+        y = (torch.rand(batch, num_classes, device="cuda", generator=gen) < 0.5).float()
+    else:
+        y = torch.randint(1, num_classes + 1, (batch,), device="cuda", generator=gen).float()
 
     def step(i, x):
         row = {k: v[i] for k, v in tables.items()}
@@ -72,20 +82,23 @@ def profile_cell(model, cfg, w_guide, batch, steps, warmup=3):
 
 def main():
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p.add_argument("--config", choices=sorted(SETUPS), default="cifar10_cond")
     p.add_argument("--steps", type=int, default=4)
     p.add_argument("--out", default="profile_sampler.txt")
     args = p.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_sampler: needs a CUDA device")
-    cfg, _ = load_experiment_config(CONFIG)
-    model = build_unet(cfg["model"], in_channels=3, model_out_type="v", num_classes=10,
-                       multitags=False, dtype=torch.bfloat16,
+    num_classes, multitags, res, cells = SETUPS[args.config]
+    cfg, _ = load_experiment_config(os.path.join(CONFIG_DIR, f"{args.config}.json"))
+    model = build_unet(cfg["model"], in_channels=3, model_out_type=cfg["diffusion"]["model_out_type"],
+                       num_classes=num_classes, multitags=multitags, dtype=torch.bfloat16,
                        generator=torch.Generator().manual_seed(0)).cuda().eval()
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:
-        for name, w, batch in (("ddim w=0 B=64", 0.0, 64), ("cfg w=0.1 B=32", 0.1, 32)):
-            step_ms, busy, kernel_ms, events = profile_cell(model, cfg, w, batch, args.steps)
-            head = (f"{name}: {step_ms:.3f} ms/step ({batch * 1e3 / step_ms / 256:.3f} samples/s "
+        for name, w, batch in cells:
+            step_ms, busy, kernel_ms, events = profile_cell(model, cfg, w, batch, args.steps,
+                                                            num_classes, multitags, res)
+            head = (f"{args.config} {name}: {step_ms:.3f} ms/step ({batch * 1e3 / step_ms / 256:.3f} samples/s "
                     f"at 256 steps), device busy {busy:.3f} of the profiled wall time, "
                     f"kernel time {kernel_ms:.3f} ms/step")
             print(head)

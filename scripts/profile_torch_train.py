@@ -1,14 +1,15 @@
 """Where the port's train step spends its time on the GPU.
 
-    python scripts/profile_torch_train.py [--batch 128] [--steps 8] [--cudnn-benchmark]
-        [--out profile_train.txt]
+    python scripts/profile_torch_train.py [--config synthetic_flagship|celeba] [--batch B]
+        [--steps 8] [--cudnn-benchmark] [--out profile_train.txt]
 
-Builds the full-width cifar10_cond UNet of ``vdiff_tpu_torch`` (random
-weights, bf16 activations, dropout 0.2 as configured) and its train step (loss,
-backward, clip, AdamW, EMA; synthetic_flagship.json's optimizer settings), runs
-3 warm-up steps (each timed on its own), times ``--steps`` steps (host clock
-around synchronised steps)
-and then profiles 2 steps with ``torch.profiler``. Prints the step time,
+Builds the full-width UNet of ``vdiff_tpu_torch`` for ``--config`` (random
+weights, bf16 activations, dropout as configured): synthetic_flagship, the
+cifar10_cond model at the default B=128, or celeba at the JAX bench's B=48
+(bench.py:380-408: no remat, multi-hot tags). Its train step (loss, backward,
+clip, AdamW, EMA; the config's optimizer settings) runs on seeded images and
+labels: 3 warm-up steps (each timed on its own), then ``--steps`` steps timed
+(host clock around synchronised steps), then 2 steps profiled with ``torch.profiler``. Prints the step time,
 images/s, the device-busy share (summed kernel time over the profiled wall
 time, which the profiler's own host cost lengthens, and over the unprofiled
 step), peak device memory and the kernels by total device time; the full
@@ -31,8 +32,10 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from vdiff_tpu_torch.factory import build_diffusion, build_unet, load_experiment_config  # noqa: E402
 from vdiff_tpu_torch.train_lib import Optimizer, make_train_step  # noqa: E402
 
-CONFIG = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                      "vdiff_tpu", "configs", "synthetic_flagship.json")
+CONFIG_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                          "vdiff_tpu", "configs")
+# config → (classes, multi-tag, resolution, default batch)
+SETUPS = {"synthetic_flagship": (10, False, 32, 128), "celeba": (40, True, 64, 48)}
 
 
 def _device_us(evt):
@@ -46,7 +49,8 @@ def _device_us(evt):
 
 def main():
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    p.add_argument("--batch", type=int, default=128)
+    p.add_argument("--config", choices=sorted(SETUPS), default="synthetic_flagship")
+    p.add_argument("--batch", type=int, help="default: the config's (128; celeba 48)")
     p.add_argument("--steps", type=int, default=8)
     p.add_argument("--cudnn-benchmark", action="store_true", help="cuDNN autotuner, as the CLI flag")
     p.add_argument("--out", default="profile_train.txt")
@@ -55,10 +59,12 @@ def main():
         raise SystemExit("profile_torch_train: needs a CUDA device")
     torch.backends.cudnn.benchmark = args.cudnn_benchmark
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
-    cfg, _ = load_experiment_config(CONFIG)
+    num_classes, multitags, res, batch = SETUPS[args.config]
+    args.batch = args.batch or batch
+    cfg, _ = load_experiment_config(os.path.join(CONFIG_DIR, f"{args.config}.json"))
     tr, cond = cfg["train"], cfg["conditional"]
-    model = build_unet(cfg["model"], in_channels=3, model_out_type="v", num_classes=10,
-                       multitags=False, dtype=torch.bfloat16,
+    model = build_unet(cfg["model"], in_channels=3, model_out_type=cfg["diffusion"]["model_out_type"],
+                       num_classes=num_classes, multitags=multitags, dtype=torch.bfloat16,
                        generator=torch.Generator().manual_seed(0)).cuda()
     ema = copy.deepcopy(model).requires_grad_(False)
     diffusion, timesteps = build_diffusion(cfg["diffusion"], w_guide=cond["w_guide"],
@@ -68,8 +74,11 @@ def main():
     step = make_train_step(model, diffusion, opt, timesteps, use_cfg=True,
                            ema_decay=tr["ema_decay"], ema_model=ema)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    x = torch.rand(args.batch, 32, 32, 3, device="cuda", generator=gen) * 2 - 1
-    y = torch.randint(1, 11, (args.batch,), device="cuda", generator=gen)
+    x = torch.rand(args.batch, res, res, 3, device="cuda", generator=gen) * 2 - 1
+    if multitags:
+        y = (torch.rand(args.batch, num_classes, device="cuda", generator=gen) < 0.5).float()
+    else:
+        y = torch.randint(1, num_classes + 1, (args.batch,), device="cuda", generator=gen)
 
     n, warm_ms = 0, []
     for _ in range(3):  # the first steps build the kernels and tune cuDNN
@@ -96,7 +105,7 @@ def main():
         wall = time.perf_counter() - t0
     events = prof.key_averages()
     busy_us = sum(_device_us(e) for e in events)
-    head = (f"train step bf16 B={args.batch} cudnn.benchmark={args.cudnn_benchmark}: "
+    head = (f"{args.config} train step bf16 B={args.batch} cudnn.benchmark={args.cudnn_benchmark}: "
             f"{step_ms:.3f} ms/step "
             f"({args.batch * 1e3 / step_ms:.1f} img/s, loss {loss.item():.4f}), device busy "
             f"{busy_us / (wall * 1e6):.3f} of the profiled wall time and "

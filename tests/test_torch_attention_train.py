@@ -1,5 +1,5 @@
-"""Port trainable attention (vdiff_tpu_torch.ops.attention.TrainableAttention
-and its backward twin) vs the JAX package's flash_attention_trainable on the CPU.
+"""Port trainable attention (vdiff_tpu_torch.ops.attention.QkvAttention on the
+training route, and its backward twin) vs the JAX package's flash_attention_trainable on the CPU.
 
 The Pallas kernels run in interpret mode, as tests/test_attention.py runs them:
 T=64 and T=256 reach ``_attn_fwd_kernel`` (B3) and ``_attn_bwd_kernel`` (B4);

@@ -1,0 +1,145 @@
+"""The port's CelebA data path and CLIs on the CPU: the attribute tables, the
+loader (crop 148×148 at (40, 15) → 64×64 PIL-BILINEAR, flip, normalise) bit
+for bit against the JAX package's, the multi-tag label stream of the generate
+CLI against the JAX CLI's, and both CLIs end to end on a tiny CelebA tree
+that the tests write with PIL."""
+
+import json
+import os
+
+import numpy as np
+import pytest
+
+jax = pytest.importorskip("jax")
+Image = pytest.importorskip("PIL.Image")
+import torch  # noqa: E402
+
+
+@pytest.fixture
+def celeba_root(tmp_path):
+    """Six random 218×178 JPEGs, a round-robin split and 40 ±1 attributes."""
+    base = tmp_path / "celeba"
+    img_dir = base / "img_align_celeba"
+    img_dir.mkdir(parents=True)
+    rng = np.random.RandomState(0)
+    names = [f"{i:06d}.jpg" for i in range(6)]
+    for name in names:
+        Image.fromarray(rng.randint(0, 256, (218, 178, 3), np.uint8)).save(img_dir / name)
+    with open(base / "list_eval_partition.txt", "w") as f:
+        f.writelines(f"{n} {i % 3}\n" for i, n in enumerate(names))
+    with open(base / "list_attr_celeba.txt", "w") as f:
+        f.write("6\n" + " ".join(f"Attr_{k}" for k in range(40)) + "\n")
+        for n in names:
+            f.write(n + "  " + " ".join(f"{v:d}" for v in rng.choice([-1, 1], size=40)) + "\n")
+    return str(tmp_path)
+
+
+@pytest.mark.parametrize("split", ["all", "train", "test"])
+def test_celeba_index_matches_jax(celeba_root, split):
+    from vdiff_tpu.data import load_celeba_index as jax_index
+    from vdiff_tpu_torch.data import load_celeba_index
+
+    names, attr, attr_names = load_celeba_index(celeba_root, split)
+    ref = jax_index(celeba_root, split)
+    assert names == ref[0] and attr_names == ref[2]
+    np.testing.assert_array_equal(attr, ref[1])
+    assert attr.dtype == np.float32 and set(np.unique(attr)) <= {0.0, 1.0}
+
+
+def test_celeba_loader_bit_equal_to_jax(celeba_root):
+    """load_batch and the epoch loader's (x, y), with flips, equal the JAX
+    package's bit for bit; the crop-resize also equals PIL's own."""
+    from vdiff_tpu import data as jdata
+    from vdiff_tpu_torch import data
+
+    ds = data._build_dataset("celeba", celeba_root, "all", num_workers=2)
+    ref_ds = jdata._build_dataset("celeba", celeba_root, "all")
+    idx = np.array([0, 3, 5])
+    batch = ds.load_batch(idx)
+    assert batch.shape == (3, 64, 64, 3) and batch.dtype == np.uint8
+    np.testing.assert_array_equal(batch, ref_ds.load_batch(idx))
+    with Image.open(os.path.join(celeba_root, "celeba", "img_align_celeba", ds.filenames[3])) as im:
+        pil = np.asarray(im.crop((15, 40, 163, 188)).resize((64, 64), Image.BILINEAR))
+    np.testing.assert_array_equal(batch[1], pil)
+
+    loader = data.DataLoader(ds, batch_size=2, seed=3)
+    ref_loader = jdata.DataLoader(ref_ds, batch_size=2, seed=3)
+    for epoch in (0, 1):
+        loader.set_epoch(epoch)
+        ref_loader.set_epoch(epoch)
+        for (x, y), (rx, ry) in zip(loader, ref_loader, strict=True):
+            assert x.dtype == np.float32 and y.shape == (2, 40) and y.dtype == np.float32
+            np.testing.assert_array_equal(x, rx)
+            np.testing.assert_array_equal(y, ry)
+
+
+@pytest.mark.parametrize("size,box,out", [
+    ((218, 178), (40, 15, 148, 148), (64, 64)),  # celeba's transform
+    ((37, 53), (3, 5, 30, 41), (17, 64)),         # a downscale and an upscale
+    ((28, 28), (0, 0, 28, 28), (32, 32)),         # MNIST's resize
+])
+def test_crop_resize_bilinear_bit_equal_to_native(size, box, out):
+    from vdiff_tpu import native
+    from vdiff_tpu_torch.data import crop_resize_bilinear
+
+    images = np.random.RandomState(sum(size)).randint(0, 256, (2, *size, 3), np.uint8)
+    got = crop_resize_bilinear(images, *box, *out)
+    np.testing.assert_array_equal(got, native.crop_resize_bilinear(images, *box, *out))
+
+
+def test_label_stream_draws_attribute_rows_as_the_jax_cli(celeba_root):
+    import generate as jax_cli
+    from vdiff_tpu_torch.data import DATA_INFO
+    from vdiff_tpu_torch.generate import make_label_stream
+
+    info = DATA_INFO["celeba"]
+    ref = jax_cli.make_label_stream(info, True, False, celeba_root, 1234)
+    got = make_label_stream(info, True, False, 1234, celeba_root)
+    for n in (4, 7):
+        labels = got(n)
+        assert labels.shape == (n, 40) and labels.dtype == np.float32
+        np.testing.assert_array_equal(labels, np.asarray(ref(n)))
+    np.testing.assert_array_equal(make_label_stream(info, True, True, 0, celeba_root)(3),
+                                  np.zeros((3, 40), np.float32))
+
+
+def _tiny_celeba_config(tmp_path):
+    """celeba.json at the test width (hid 32, one block a level) with a short
+    sampler and training run."""
+    from vdiff_tpu_torch.factory import CONFIG_DIR
+
+    with open(os.path.join(CONFIG_DIR, "celeba.json")) as f:
+        cfg = json.load(f)
+    cfg["model"].update(hid_channels=32, num_res_blocks=1, embedding_dim=64, head_dim=32)
+    cfg["train"].update(epochs=1, batch_size=2, warmup=2, image_intv=1, num_save_images=2,
+                        ckpt_intv=1)
+    cfg["diffusion"]["sample_timesteps"] = 2
+    path = tmp_path / "tiny_celeba.json"
+    path.write_text(json.dumps(cfg))
+    return str(path)
+
+
+def test_celeba_train_then_generate_cli_on_cpu(celeba_root, tmp_path):
+    """The train CLI on the tiny CelebA tree (3 steps of 2, the sample grid
+    under tag rows of the set, ckpt_last), then the generate CLI from its
+    checkpoint with tags drawn from the attribute table under --data-root,
+    with CFG and with --uncond."""
+    from vdiff_tpu_torch import generate, train
+
+    cfg = _tiny_celeba_config(tmp_path)
+    summary = train.main(["--config-path", cfg, "--device", "cpu", "--data_root", celeba_root,
+                          "--exp-dir", str(tmp_path / "exps"), "--num-workers", "2"])
+    assert summary["steps"] == 3 and np.isfinite(summary["loss"])
+    assert os.path.exists(os.path.join(summary["image_dir"], "1.png"))
+    ckpt = os.path.join(summary["ckpt_dir"], "ckpt_last.pt")
+    sd = torch.load(ckpt, weights_only=True)["model"]
+    assert sd["class_embed.weight"].shape == (64, 40)
+    for extra in ([], ["--uncond"]):
+        out = generate.main(["--config-path", cfg, "--ckpt-path", ckpt, "--device", "cpu",
+                             "--data-root", celeba_root, "--save-dir", str(tmp_path / "gen"),
+                             "--use-ema", "--use-ddim", "--sample-timesteps", "2",
+                             "--batch-size", "2", "--total-size", "3", *extra])
+        pngs = [f for f in os.listdir(out["save_dir"]) if f.endswith(".png")]
+        assert out["images"] == len(pngs) == 3 and out["finite"]
+        with Image.open(os.path.join(out["save_dir"], pngs[0])) as im:
+            assert im.size == (64, 64)

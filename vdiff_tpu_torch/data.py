@@ -5,13 +5,16 @@ Numpy on the host with a prefetch thread, NHWC batches in [-1, 1], the same
 seeded per-epoch permutation and flips as the JAX package, so a loader built
 with the same seed yields the same batches. The JAX package's native
 ``normalize_flip`` becomes its numpy form here (a 256-entry lookup table with
-the same f32 division). CelebA is the celeba slice's (ROADMAP A7) and
-per-process sharding the multi-GPU slice's (A10).
+the same f32 division), and its native ``crop_resize_bilinear`` a numpy
+copy of the same fixed-point PIL resampler, equal to it bit for bit.
+Per-process sharding is the multi-GPU slice's (ROADMAP A10).
 """
 
 from __future__ import annotations
 
+import csv
 import gzip
+import math
 import os
 import pickle
 import queue as queue_mod
@@ -135,6 +138,83 @@ def _resize_batch_bilinear(x: np.ndarray, size: int) -> np.ndarray:
     return out
 
 
+def load_celeba_index(root: str, split: str = "all"):
+    """Parse CelebA's text tables under ``root/celeba`` (reference
+    datasets.py:57-72): returns (filenames, attrs in {0,1} float32 (N, K),
+    attr_names)."""
+    base = os.path.join(root, "celeba")
+    with open(os.path.join(base, "list_eval_partition.txt")) as f:
+        rows = [r for r in csv.reader(f, delimiter=" ", skipinitialspace=True) if r]
+    with open(os.path.join(base, "list_attr_celeba.txt")) as f:
+        attr_rows = [r for r in csv.reader(f, delimiter=" ", skipinitialspace=True) if r]
+    attr_names, attr_rows = attr_rows[1], attr_rows[2:]
+    filenames = [r[0] for r in rows]
+    partition = np.asarray([int(r[1]) for r in rows])
+    attr = np.asarray([[int(v) for v in r[1:]] for r in attr_rows], np.float32)
+    attr = 0.5 * (attr + 1.0)  # {-1,1} -> {0,1}
+    part = {"train": 0, "valid": 1, "test": 2, "all": None}[split.lower()]
+    if part is not None:
+        mask = partition == part
+        filenames = [f for f, m in zip(filenames, mask) if m]
+        attr = attr[mask]
+    return filenames, attr, attr_names
+
+
+# PIL's fixed-point resampling (Resample.c), as the JAX package's native
+# dataops.cpp reimplements it: triangle filter whose support grows with the
+# downscale factor, weights in 22-bit fixed point, a horizontal pass into a
+# uint8 intermediate, then a vertical pass.
+_PRECISION_BITS = 32 - 8 - 2
+
+
+def _resample_coeffs(in_size: int, out_size: int):
+    """(first input index (out,), fixed-point weights (out, ksize) int64) of
+    every output pixel, as dataops.cpp's ``precompute_coeffs`` on the whole
+    axis: double arithmetic in the same order, truncating casts."""
+    scale = in_size / out_size
+    filterscale = max(scale, 1.0)
+    support = 1.0 * filterscale
+    ksize = int(math.ceil(support)) * 2 + 1
+    ss = 1.0 / filterscale
+    starts = np.zeros(out_size, np.int64)
+    weights = np.zeros((out_size, ksize), np.int64)
+    for xx in range(out_size):
+        center = (xx + 0.5) * scale
+        xmin = max(int(center - support + 0.5), 0)
+        xmax = min(int(center + support + 0.5), in_size) - xmin
+        w = [max(0.0, 1.0 - abs((x + xmin - center + 0.5) * ss)) for x in range(xmax)]
+        ww = 0.0
+        for v in w:
+            ww += v
+        for x, v in enumerate(w):
+            v = 0.0 if ww == 0.0 else v / ww
+            weights[xx, x] = int((-0.5 if v < 0 else 0.5) + v * (1 << _PRECISION_BITS))
+        starts[xx] = xmin
+    return starts, weights
+
+
+def _resample_axis(x: np.ndarray, axis: int, out_size: int) -> np.ndarray:
+    """One separable pass along ``axis`` of a uint8 array, rounded and clipped
+    to uint8 as PIL does."""
+    starts, weights = _resample_coeffs(x.shape[axis], out_size)
+    idx = np.minimum(starts[:, None] + np.arange(weights.shape[1]), x.shape[axis] - 1)
+    taps = np.take(x.astype(np.int64), idx, axis=axis)  # axis → (out, ksize)
+    shape = [1] * taps.ndim
+    shape[axis], shape[axis + 1] = weights.shape
+    acc = (taps * weights.reshape(shape)).sum(axis=axis + 1) + (1 << (_PRECISION_BITS - 1))
+    return (np.clip(acc, 0, (1 << _PRECISION_BITS << 8) - 1) >> _PRECISION_BITS).astype(np.uint8)
+
+
+def crop_resize_bilinear(images: np.ndarray, top: int, left: int, ch: int, cw: int,
+                         oh: int, ow: int) -> np.ndarray:
+    """(N, H, W, C) uint8 → crop (top, left, ch, cw) → PIL-BILINEAR resize to
+    (N, oh, ow, C) uint8, bit-equal to ``im.crop(box).resize(size, BILINEAR)``
+    and to the JAX package's ``native.crop_resize_bilinear``."""
+    assert images.dtype == np.uint8 and images.ndim == 4
+    crop = images[:, top:top + ch, left:left + cw]
+    return _resample_axis(_resample_axis(crop, 2, ow), 1, oh)
+
+
 @dataclass
 class ArrayDataset:
     """In-memory uint8 NHWC images + integer labels."""
@@ -147,7 +227,48 @@ class ArrayDataset:
         return len(self.images)
 
 
-def _build_dataset(dataset: str, root: str, split: str):
+class CelebADataset:
+    """Lazily decoded CelebA (``root/celeba/img_align_celeba``): the reference
+    transform crop(top=40, left=15, 148×148) → 64×64 PIL-BILINEAR, then the
+    loader's flip and normalisation. JPEG decoding (PIL, imported where it is
+    used) fans out over ``num_workers`` threads."""
+
+    random_flip = True
+
+    def __init__(self, root: str, split: str = "all", num_workers: int = 0):
+        self.root = root
+        self.filenames, self.attr, self.attr_names = load_celeba_index(root, split)
+        self.num_workers = num_workers
+        self._pool = None
+
+    @property
+    def targets(self):
+        return self.attr
+
+    def __len__(self):
+        return len(self.filenames)
+
+    def _decode_one(self, filename: str) -> np.ndarray:
+        from PIL import Image
+
+        with Image.open(os.path.join(self.root, "celeba", "img_align_celeba", filename)) as im:
+            return np.asarray(im.convert("RGB"), np.uint8)
+
+    def load_batch(self, indices: np.ndarray) -> np.ndarray:
+        """(B, 64, 64, 3) uint8 of the images at ``indices``."""
+        names = [self.filenames[i] for i in indices]
+        if self.num_workers > 1 and len(names) > 1:
+            if self._pool is None:
+                from concurrent.futures import ThreadPoolExecutor
+
+                self._pool = ThreadPoolExecutor(max_workers=self.num_workers)
+            raws = list(self._pool.map(self._decode_one, names))
+        else:
+            raws = [self._decode_one(f) for f in names]
+        return crop_resize_bilinear(np.stack(raws), 40, 15, 148, 148, 64, 64)
+
+
+def _build_dataset(dataset: str, root: str, split: str, num_workers: int = 0):
     train = split in {"train", "all"}
     if dataset == "mnist":
         images, labels = load_mnist(root, train=train)
@@ -156,7 +277,7 @@ def _build_dataset(dataset: str, root: str, split: str):
         images, labels = load_cifar10(root, train=train)
         return ArrayDataset(images, labels + 1, random_flip=True)
     if dataset == "celeba":
-        raise NotImplementedError("the celeba dataset " + _NOT_PORTED.format("A7"))
+        return CelebADataset(root, split=split, num_workers=num_workers)
     if dataset == "synthetic":
         n = DATA_INFO["synthetic"]["train_size" if train else "test_size"]
         rng = np.random.RandomState(0 if train else 1)
@@ -167,7 +288,8 @@ def _build_dataset(dataset: str, root: str, split: str):
 
 
 class DataLoader:
-    """Epoch loader: yields (x, y), x float32 NHWC in [-1, 1], y int64 (B,).
+    """Epoch loader: yields (x, y), x float32 NHWC in [-1, 1], y int64 (B,)
+    or float32 (B, K) tags.
 
     The per-epoch permutation is ``RandomState(seed + epoch)`` and the flips
     ``RandomState(seed * 9176 + epoch)``, as in the JAX package; ``drop_last``
@@ -199,8 +321,8 @@ class DataLoader:
 
     def _materialize(self, idx: np.ndarray, flips: np.ndarray):
         ds = self.dataset
-        x = normalize_flip(ds.images[idx], flips if ds.random_flip else None)
-        return x, ds.targets[idx]
+        images = ds.load_batch(idx) if isinstance(ds, CelebADataset) else ds.images[idx]
+        return normalize_flip(images, flips if ds.random_flip else None), ds.targets[idx]
 
     def __iter__(self):
         indices = self._epoch_indices()
@@ -243,7 +365,8 @@ def train_val_split(dataset: str, val_size: float, random_seed: Optional[int] = 
 
 def get_dataloader(dataset: str, batch_size: int, split: str, val_size: float = 0.0,
                    random_seed: Optional[int] = None, root: str = DEFAULT_ROOT,
-                   drop_last: bool = True, distributed: bool = False, **_ignored):
+                   drop_last: bool = True, distributed: bool = False, num_workers: int = 0,
+                   **_ignored):
     """The JAX package's loader factory on one process; returns (loader,
     loader), the loader doubling as its own sampler (``set_epoch``)."""
     if distributed:
@@ -257,7 +380,7 @@ def get_dataloader(dataset: str, batch_size: int, split: str, val_size: float = 
     elif val_size == 0 and split == "valid":
         raise ValueError("valid split requires val_size > 0")
     else:
-        ds = _build_dataset(dataset, root, split)
+        ds = _build_dataset(dataset, root, split, num_workers=num_workers)
     loader = DataLoader(ds, batch_size=batch_size, shuffle=split in {"train", "all"},
                         seed=random_seed, drop_last=drop_last)
     return loader, loader

@@ -22,14 +22,56 @@ DEFAULT_CONFIG_PATH = os.path.join(CONFIG_DIR, "defaults.json")
 
 
 def load_experiment_config(config_path: str, default_config_path: str = DEFAULT_CONFIG_PATH):
-    """Experiment JSON deep-merged over defaults → (config dict, exp name)."""
+    """Experiment JSON deep-merged over defaults → (config dict, exp name).
+
+    An experiment whose model names ``head_dim`` and not ``num_heads`` keeps
+    ``num_heads`` unset, so its head count is channels / head_dim: celeba.json's
+    301.38 M-parameter model (N = 6/9/12 heads of 64), the one bench.py builds.
+    The JAX package's loader merges the defaults' ``num_heads: 1`` over it and
+    builds one head of 64 per block (266.8 M parameters; ROADMAP C4)."""
     with open(config_path, "r") as f:
         config = json.load(f)
     with open(default_config_path, "r") as f:
         defaults = json.load(f)
+    model = config.get("model", {})
+    heads_from_dim = "head_dim" in model and "num_heads" not in model
     fill_with_defaults(config, defaults)
+    if heads_from_dim:
+        config["model"]["num_heads"] = None
     exp_name = os.path.splitext(os.path.basename(config_path))[0]
     return config, exp_name
+
+
+def heads_note(model_section: dict) -> str | None:
+    """The line the CLIs print when the head count comes from ``head_dim``
+    (see :func:`load_experiment_config`): the heads each attention level gets,
+    and that the JAX CLIs build another model from the same file."""
+    head_dim = model_section.get("head_dim")
+    if head_dim is None or model_section.get("num_heads") is not None:
+        return None
+    hid = model_section["hid_channels"]
+    heads = [hid * m // head_dim for m, attn in zip(model_section["ch_multipliers"],
+                                                   model_section["apply_attn"]) if attn]
+    return (f"attention: heads of {head_dim}, {heads} heads at the attention levels (num_heads "
+            f"unset: channels / head_dim); the JAX CLIs build one head of {head_dim} from this "
+            "config, so checkpoints do not cross between them (ROADMAP C4)")
+
+
+def load_weights(model: torch.nn.Module, state_dict: dict) -> None:
+    """``model.load_state_dict(state_dict, strict=True)``, refusing by name a
+    checkpoint whose attention blocks have another width than the model's: one
+    trained by the JAX CLIs from an experiment that sets ``head_dim`` alone
+    (ROADMAP C4)."""
+    own = model.state_dict()
+    for key, value in state_dict.items():
+        if key.endswith("proj_in.weight") and key in own and own[key].shape != value.shape:
+            raise ValueError(
+                f"{key}: the checkpoint's attention projects to 3x{value.shape[0] // 3} channels, "
+                f"this model's to 3x{own[key].shape[0] // 3}. The port builds an experiment that "
+                "sets head_dim and not num_heads with channels / head_dim heads (bench.py's "
+                "model); the JAX CLIs build one head of head_dim from the same file "
+                "(ROADMAP C4), and their checkpoints do not load here.")
+    model.load_state_dict(state_dict, strict=True)
 
 
 def resolve_section(config: dict, args, section: str, fields: dict) -> SimpleNamespace:

@@ -26,9 +26,9 @@ from datetime import datetime
 import numpy as np
 import torch
 
-from .data import DATA_INFO
-from .factory import (DEFAULT_CONFIG_PATH, build_diffusion, build_unet, load_checkpoint_params,
-                      load_experiment_config)
+from .data import DATA_INFO, load_celeba_index
+from .factory import (DEFAULT_CONFIG_PATH, build_diffusion, build_unet, heads_note,
+                      load_checkpoint_params, load_experiment_config, load_weights)
 
 _NOT_PORTED = "is not ported yet (ROADMAP.md queue A: {})"
 
@@ -59,17 +59,24 @@ def encode_png(img: np.ndarray) -> bytes:
             + chunk(b"IEND", b""))
 
 
-def make_label_stream(dataset_info, use_cfg, uncond, seed):
-    """Per-batch labels as the JAX CLI draws them: uniform over 1..K for a
-    class-conditional model, zeros with ``--uncond``, None unconditional."""
-    if use_cfg and dataset_info.get("multitags", False):
-        raise NotImplementedError("multi-tag (celeba) labels " + _NOT_PORTED.format("A7/A8"))
+def make_label_stream(dataset_info, use_cfg, uncond, seed, data_root=None):
+    """Per-batch labels as the JAX CLI draws them: for a multi-tag model,
+    rows of the attribute table under ``data_root`` (``celeba/``, all
+    splits); for a class-conditional one, uniform over 1..K; zeros of the
+    label's shape with ``uncond``; None unconditional."""
     num_classes = dataset_info.get("num_classes", 0) if use_cfg else 0
+    multitags = use_cfg and dataset_info.get("multitags", False)
     rng = np.random.RandomState(seed)
+    if multitags:
+        _, attrs, _ = load_celeba_index(data_root, split="all")
 
     def next_labels(n):
         if not use_cfg:
             return None
+        if multitags:
+            if uncond:
+                return np.zeros((n, num_classes), np.float32)
+            return attrs[rng.randint(len(attrs), size=(n,))].astype(np.float32)
         if uncond:
             return np.zeros((n,), np.float32)
         return (rng.randint(num_classes, size=(n,)) + 1).astype(np.float32)
@@ -147,7 +154,9 @@ def main(argv=None) -> dict:
         multitags=info.get("multitags", False) if use_cfg else False,
         dtype=torch.bfloat16 if args.allow_bf16 else torch.float32,
     )
-    model.load_state_dict(state_dict, strict=True)
+    if heads_note(config["model"]):
+        print(heads_note(config["model"]))
+    load_weights(model, state_dict)
     model = model.to(device).eval()
 
     timestamp = datetime.now().strftime("%Y-%m-%dT%H%M%S%f")
@@ -158,7 +167,8 @@ def main(argv=None) -> dict:
 
     res = info["resolution"][0]
     shape = (args.batch_size, res, res, info["channels"])
-    next_labels = make_label_stream(info, use_cfg, args.uncond, args.seed)
+    next_labels = make_label_stream(info, use_cfg, args.uncond, args.seed,
+                                    os.path.expandvars(os.path.expanduser(args.data_root)))
     gen = torch.Generator(device=device).manual_seed(args.seed)
     num_batches = math.ceil(args.total_size / args.batch_size)
     finite, seconds, written = True, 0.0, 0

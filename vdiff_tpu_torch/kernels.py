@@ -22,7 +22,7 @@ CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 
 SOURCES = ("attn_fwd_online.cu", "attn_fwd_qblk.cu", "attn_fwd_train.cu", "attn_bwd_rows.cu",
-           "attn_bwd_cols.cu")
+           "attn_bwd_cols.cu", "attn_bwd_pack1_kv.cu")
 HEADERS = ("attn_common.cuh", "attn_direct_fwd.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -41,6 +41,8 @@ _ENTRY_POINTS = {
     "vdiff_attn_bwd_rows": [_P] * 5 + [_I] * 5 + [_P],
     "vdiff_attn_bwd_rows_max_t": [_I],
     "vdiff_attn_bwd_cols": [_P] * 5 + [_I] * 5 + [_P],
+    "vdiff_attn_fwd_pack1_lse": [_P] * 3 + [_I] * 5 + [_P],
+    "vdiff_attn_bwd_pack1_kv": [_P] * 6 + [_I] * 5 + [_P],
 }
 
 

@@ -52,14 +52,18 @@ def _block(sd, prefix, p):
 
 
 def flax_params_to_state_dict(params: Mapping, model_cfg: Mapping) -> Dict[str, np.ndarray]:
-    """``model_cfg`` holds the UNet's ``ch_multipliers`` and ``num_res_blocks``."""
+    """``model_cfg`` holds the UNet's ``ch_multipliers`` and ``num_res_blocks``,
+    and ``multitags`` (default false) for a multi-tag class embedding."""
     levels = len(model_cfg["ch_multipliers"])
     nres = model_cfg["num_res_blocks"]
     sd: Dict[str, np.ndarray] = {}
     _linear(sd, "time_embed.0", params["time_embed_1"])
     _linear(sd, "time_embed.2", params["time_embed_2"])
     if "class_embed" in params:
-        _linear(sd, "class_embed.1", params["class_embed"])
+        # multi-tag models embed the tags with a bare Linear, class models
+        # with the reference's Sequential(OneHot, Linear)
+        key = "class_embed" if model_cfg.get("multitags") else "class_embed.1"
+        _linear(sd, key, params["class_embed"])
     _conv(sd, "in_conv", params["in_conv"])
     for i in range(levels):
         base = f"downsamples.level_{i}"

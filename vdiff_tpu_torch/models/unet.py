@@ -1,7 +1,8 @@
 """UNet denoiser (counterpart of ``vdiff_tpu/models/unet.py``).
 
 The module tree carries the reference's state_dict key names
-(``time_embed.0/.2``, ``class_embed.1``, ``in_conv``,
+(``time_embed.0/.2``, ``class_embed.1`` — or ``class_embed`` for multi-tag
+conditioning —, ``in_conv``,
 ``downsamples.level_i.j(.0/.1)``, ``middle.0/1/2``, ``upsamples.level_i.j``,
 ``out_conv.0/.2``; ``norm1/conv1/fc/norm2/conv2/skip`` in residual blocks and
 ``norm/proj_in/proj_out`` in attention blocks), so reference ``.pt`` files load
@@ -135,7 +136,8 @@ class UNet(nn.Module):
     """Improved-DDPM UNet; constructor arguments mirror the JAX ``UNet``.
 
     ``forward(x, t, y, train=False, generator=None)``: x (B, H, W, C_in)
-    NHWC, t (B,), y (B,) class labels (0 = null class) or None →
+    NHWC, t (B,), y (B,) class labels (0 = null class), (B, K) tags with
+    ``multitags`` (all zeros = the null label), or None →
     (B, H, W, C_out) f32. With ``train`` and a nonzero ``drop_rate`` the
     dropout bits come from ``generator``.
     """
@@ -161,12 +163,10 @@ class UNet(nn.Module):
         super().__init__()
         if not resample_with_res:
             raise NotImplementedError("resample_with_res=False (strided-conv resampling) is not ported")
-        if multitags:
-            raise NotImplementedError("multi-tag (celeba) conditioning is not ported yet "
-                                      "(ROADMAP.md queue A: A7)")
         self.hid_channels = hid_channels
         self.num_res_blocks = num_res_blocks
         self.num_classes = num_classes
+        self.multitags = multitags
         self.dtype = dtype
         levels = len(ch_multipliers)
         attn_flags = [apply_attn] * levels if isinstance(apply_attn, bool) else list(apply_attn)
@@ -184,7 +184,9 @@ class UNet(nn.Module):
         self.time_embed = nn.Sequential(
             nn.Linear(hid_channels, embed_dim), nn.SiLU(), nn.Linear(embed_dim, embed_dim)
         )
-        if num_classes > 0:  # the reference's Sequential(OneHot, Linear)
+        if num_classes > 0 and multitags:  # the reference's bare Linear over the tags
+            self.class_embed = nn.Linear(num_classes, embed_dim)
+        elif num_classes > 0:  # the reference's Sequential(OneHot, Linear)
             self.class_embed = nn.Sequential(nn.Identity(), nn.Linear(num_classes, embed_dim))
         self.in_conv = nn.Conv2d(in_channels, hid_channels, 3, padding=1)
 
@@ -238,7 +240,11 @@ class UNet(nn.Module):
         t_emb = get_timestep_embedding(t, self.hid_channels)
         t_emb = linear(t_emb, self.time_embed[0], dt)
         t_emb = linear(F.silu(t_emb), self.time_embed[2], dt)
-        if self.num_classes > 0 and y is not None:
+        if self.num_classes > 0 and y is not None and self.multitags:
+            # (B, K) tags over √(number of nonzero tags), at least 1
+            count = (y != 0).sum(dim=1).to(y.dtype).clamp(min=1.0).sqrt()
+            t_emb = t_emb + linear(y / count[:, None], self.class_embed, dt)
+        elif self.num_classes > 0 and y is not None:
             onehot = one_hot_exclude_zero(y, self.num_classes)
             t_emb = t_emb + linear(onehot, self.class_embed[1], dt)
 

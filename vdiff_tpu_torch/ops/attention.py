@@ -1,23 +1,36 @@
 """Spatial self-attention on the fused qkv projection.
 
-Counterpart of ``vdiff_tpu/ops/attention.py``'s CIFAR paths. Every forward
-takes the fused projection output ``qkv`` of shape (B, T, 3·N·C), laid out
+Counterpart of ``vdiff_tpu/ops/attention.py``. Every forward takes the fused
+projection output ``qkv`` of shape (B, T, 3·N·C), laid out
 [q heads | k heads | v heads], and returns (B, T, N·C); the backward returns
 d(qkv) in the same layout as one buffer:
 
 * :func:`attention_qkv_reference` is the plain PyTorch forward, the twin of
-  JAX's ``_xla_attention``; :func:`attention_qkv_bwd_reference` the plain
-  backward, the twin of the Pallas ``_attn_bwd_kernel``. They are the CPU
-  path and what the kernels are held against on the card.
+  JAX's ``_xla_attention``; :func:`attention_qkv_lse_reference` adds the
+  per-row logsumexp; :func:`attention_qkv_bwd_reference` is the plain
+  full-row backward (the Pallas ``_attn_bwd_kernel``'s math) and
+  :func:`attention_qkv_bwd_kv_reference` the kv-chunked one
+  (``_attn_bwd_kernel_pack1_kv``'s). They are the CPU path and what the
+  kernels are held against on the card.
 * :func:`attn_fwd_online`, :func:`attn_fwd_qblk` and :func:`attn_fwd_train`
   wrap the forward CUDA kernels (``csrc/attn_fwd_online.cu``,
   ``csrc/attn_fwd_qblk.cu``, ``csrc/attn_fwd_train.cu``);
   :func:`attn_bwd_rows` and :func:`attn_bwd_cols` the two passes of the
   backward (``csrc/attn_bwd_rows.cu``, ``csrc/attn_bwd_cols.cu``), which
   :func:`attn_bwd` runs in turn.
-* :func:`spatial_attention_qkv` dispatches on the token count and, with
-  ``train=True``, goes through :class:`TrainableAttention`, the
-  ``torch.autograd.Function`` counterpart of ``flash_attention_trainable``.
+* :func:`attn_fwd_pack1`, :func:`attn_fwd_pack1_lse`, :func:`attn_bwd_pack1`
+  and :func:`attn_bwd_pack1_kv` are the counterparts of JAX's head-dim 32/64
+  ``pack1`` kernels B6–B9. B6 launches B1's online kernel and B8 the two
+  backward passes, each with a launch counter of its own; B7 is the online
+  kernel's logsumexp entry (``csrc/attn_fwd_online.cu``) and B9 a kv-streamed
+  dQ pass followed by the column pass (``csrc/attn_bwd_pack1_kv.cu``).
+* :func:`spatial_attention_qkv` routes each call as JAX's
+  ``spatial_attention_qkv`` does on a TPU without head padding
+  (:func:`route`) and, with ``train=True``, goes through one of the
+  ``torch.autograd.Function`` counterparts of JAX's custom VJPs:
+  :class:`QkvAttention` (``flash_attention_trainable`` and
+  ``pack1_attention_trainable``) or :class:`Pack1AttentionKV`
+  (``pack1_attention_trainable_kv``).
 
 A wrapper given a CPU tensor returns the twin's result; given a CUDA tensor it
 launches its kernel or raises. Each counts its launches in ``.launches``.
@@ -36,6 +49,8 @@ from .. import kernels
 QBLK_THRESHOLD = 512
 
 _HEAD_DIMS = (32, 64, 128, 256)
+#: head dims of JAX's pack1 family: whole heads tile a 128-lane block
+_SUBLANE_HEAD_DIMS = (32, 64)
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -194,6 +209,23 @@ def _bwd_args(qkv, num_heads, B, T, C):
             torch.cuda.current_stream(qkv.device).cuda_stream)
 
 
+def _bwd_rows(qkv, g, num_heads, dqkv, B, T, C):
+    lse = torch.empty(B, num_heads, T, dtype=torch.float32, device=qkv.device)
+    delta = torch.empty_like(lse)
+    err = kernels.library().vdiff_attn_bwd_rows(
+        qkv.data_ptr(), g.data_ptr(), dqkv.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+        *_bwd_args(qkv, num_heads, B, T, C))
+    kernels.check(err, "vdiff_attn_bwd_rows")
+    return lse, delta
+
+
+def _bwd_cols(qkv, g, num_heads, lse, delta, dqkv, B, T, C):
+    err = kernels.library().vdiff_attn_bwd_cols(
+        qkv.data_ptr(), g.data_ptr(), lse.data_ptr(), delta.data_ptr(), dqkv.data_ptr(),
+        *_bwd_args(qkv, num_heads, B, T, C))
+    kernels.check(err, "vdiff_attn_bwd_cols")
+
+
 def attn_bwd_rows(qkv: torch.Tensor, g: torch.Tensor, num_heads: int, dqkv: torch.Tensor):
     """First backward pass (CUDA kernel ``attn_bwd_rows.cu``): writes dQ into
     the q columns of ``dqkv`` and returns the f32 row statistics (lse, δ),
@@ -202,12 +234,7 @@ def attn_bwd_rows(qkv: torch.Tensor, g: torch.Tensor, num_heads: int, dqkv: torc
     B, T, C = _check_bwd_input(qkv, g, num_heads, "attn_bwd_rows")
     _need_cuda("attn_bwd_rows", qkv, g, dqkv)
     _check_max_t("attn_bwd_rows", T, C, "vdiff_attn_bwd_rows_max_t")
-    lse = torch.empty(B, num_heads, T, dtype=torch.float32, device=qkv.device)
-    delta = torch.empty_like(lse)
-    err = kernels.library().vdiff_attn_bwd_rows(
-        qkv.data_ptr(), g.data_ptr(), dqkv.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-        *_bwd_args(qkv, num_heads, B, T, C))
-    kernels.check(err, "vdiff_attn_bwd_rows")
+    lse, delta = _bwd_rows(qkv, g, num_heads, dqkv, B, T, C)
     attn_bwd_rows.launches += 1
     return lse, delta
 
@@ -222,10 +249,7 @@ def attn_bwd_cols(qkv: torch.Tensor, g: torch.Tensor, num_heads: int, lse: torch
     CUDA tensors only."""
     B, T, C = _check_bwd_input(qkv, g, num_heads, "attn_bwd_cols")
     _need_cuda("attn_bwd_cols", qkv, g, lse, delta, dqkv)
-    err = kernels.library().vdiff_attn_bwd_cols(
-        qkv.data_ptr(), g.data_ptr(), lse.data_ptr(), delta.data_ptr(), dqkv.data_ptr(),
-        *_bwd_args(qkv, num_heads, B, T, C))
-    kernels.check(err, "vdiff_attn_bwd_cols")
+    _bwd_cols(qkv, g, num_heads, lse, delta, dqkv, B, T, C)
     attn_bwd_cols.launches += 1
 
 
@@ -249,34 +273,301 @@ def attn_bwd(qkv: torch.Tensor, g: torch.Tensor, num_heads: int) -> torch.Tensor
     return dqkv
 
 
-class TrainableAttention(torch.autograd.Function):
-    """Differentiable attention on the fused qkv: the counterpart of JAX's
-    ``flash_attention_trainable`` custom VJP. The forward saves qkv (JAX saves
-    q/k/v) and runs :func:`attn_fwd_train` at T ≤ 512 or :func:`attn_fwd_qblk`
-    above; the backward recomputes P and returns d(qkv) from :func:`attn_bwd`."""
+def attn_fwd_trainable(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """The forward of JAX's ``flash_attention_trainable``: :func:`attn_fwd_train`
+    at T ≤ 512, :func:`attn_fwd_qblk` above."""
+    if qkv.shape[1] <= QBLK_THRESHOLD:
+        return attn_fwd_train(qkv, num_heads)
+    return attn_fwd_qblk(qkv, num_heads)
+
+
+class QkvAttention(torch.autograd.Function):
+    """Differentiable attention on the fused qkv that saves qkv (JAX saves
+    q/k/v) and recomputes P in the backward: ``QkvAttention.apply(qkv, N, fwd,
+    bwd)`` runs ``fwd(qkv, N)`` forward and returns d(qkv) as one buffer from
+    ``bwd(qkv, g, N)``. The counterpart of JAX's ``flash_attention_trainable``
+    (:func:`attn_fwd_trainable`, :func:`attn_bwd`) and
+    ``pack1_attention_trainable`` (:func:`attn_fwd_pack1`,
+    :func:`attn_bwd_pack1`; JAX concatenates dq/dk/dv) custom VJPs."""
 
     @staticmethod
-    def forward(ctx, qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
+    def forward(ctx, qkv: torch.Tensor, num_heads: int, fwd, bwd) -> torch.Tensor:
         ctx.save_for_backward(qkv)
-        ctx.num_heads = num_heads
-        if qkv.shape[1] <= QBLK_THRESHOLD:
-            return attn_fwd_train(qkv, num_heads)
-        return attn_fwd_qblk(qkv, num_heads)
+        ctx.num_heads, ctx.bwd = num_heads, bwd
+        return fwd(qkv, num_heads)
 
     @staticmethod
     def backward(ctx, g: torch.Tensor):
         (qkv,) = ctx.saved_tensors
-        return attn_bwd(qkv, g.contiguous(), ctx.num_heads), None
+        return ctx.bwd(qkv, g.contiguous(), ctx.num_heads), None, None, None
+
+
+def attention_qkv_lse_reference(qkv: torch.Tensor, num_heads: int):
+    """Plain twin of the Pallas ``_attn_fwd_kernel_pack1_lse`` (B7): q cast
+    to f32 and scaled by 1/√C before the product with f32 k, e = exp(s − max),
+    out = (e·v)/Σe in f32 cast to qkv's dtype, and lse = max + log Σe per row.
+    Returns (out (B, T, N·C), lse (B, N, T) f32); JAX broadcasts lse over each
+    head's C lanes of a (B, T, N·C) array, a TPU layout."""
+    B, T, C = _shape(qkv, num_heads)
+    q, k, v = (a.float() for a in qkv.reshape(B, T, 3, num_heads, C).unbind(2))
+    s = torch.einsum("btnc,bsnc->bnts", q * (1.0 / math.sqrt(C)), k)
+    m = s.amax(dim=-1, keepdim=True)
+    e = s.sub_(m).exp_()  # in place: one (B, N, T, T) f32 tensor at a time
+    l = e.sum(dim=-1, keepdim=True)
+    out = torch.einsum("bnts,bsnc->btnc", e, v) / l.permute(0, 2, 1, 3)
+    lse = (m + torch.log(l)).squeeze(-1)
+    return out.to(qkv.dtype).reshape(B, T, num_heads * C), lse
+
+
+def attention_qkv_bwd_kv_reference(qkv: torch.Tensor, out: torch.Tensor, lse: torch.Tensor,
+                                   g: torch.Tensor, num_heads: int, chunk: int = 1024):
+    """Plain twin of the Pallas ``_attn_bwd_kernel_pack1_kv`` (B9), line by
+    line in kv chunks of ``chunk`` keys: δ = Σ_C dO∘O from the forward's
+    saved output ``out`` in its own dtype; per chunk S = q·kᵀ/√C (scaled after
+    the product), P = exp(S − lse) with the forward's ``lse`` (B, N, T) f32,
+    dP = dO·vᵀ, dS = P∘(dP − δ), dQ += dS·k/√C, dK = dSᵀ·q/√C, dV = Pᵀ·dO; P and
+    dS rounded to the input dtype as matmul operands, every product in f32.
+    ``g`` is d(out); returns d(qkv) (B, T, 3·N·C) in qkv's dtype."""
+    B, T, C = _shape(qkv, num_heads)
+    dt = qkv.dtype
+    scale = 1.0 / math.sqrt(C)
+    q, k, v = (a.float() for a in qkv.reshape(B, T, 3, num_heads, C).unbind(2))
+    do = g.reshape(B, T, num_heads, C).float()
+    delta = (do * out.reshape(B, T, num_heads, C).float()).sum(-1).permute(0, 2, 1)[..., None]
+    lse = lse.reshape(B, num_heads, T, 1).float()
+    dq = torch.zeros_like(q)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    for j in range(0, T, chunk):
+        kj, vj = k[:, j:j + chunk], v[:, j:j + chunk]
+        s = torch.einsum("btnc,bsnc->bnts", q, kj) * scale
+        p = torch.exp(s - lse)
+        dp = torch.einsum("btnc,bsnc->bnts", do, vj)
+        ds = (p * (dp - delta)).to(dt).float()
+        pn = p.to(dt).float()
+        dk[:, j:j + chunk] = torch.einsum("bnts,btnc->bsnc", ds, q) * scale
+        dv[:, j:j + chunk] = torch.einsum("bnts,btnc->bsnc", pn, do)
+        dq += torch.einsum("bnts,bsnc->btnc", ds, kj) * scale
+    return torch.stack([dq, dk, dv], dim=2).to(dt).reshape(B, T, 3 * num_heads * C)
+
+
+def _check_sublane(qkv: torch.Tensor, num_heads: int, name: str):
+    B, T, C = _check_kernel_input(qkv, num_heads, name)
+    if C not in _SUBLANE_HEAD_DIMS:
+        raise ValueError(f"{name}: head dim {C} not supported {_SUBLANE_HEAD_DIMS}")
+    return B, T, C
+
+
+def attn_fwd_pack1(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """Attention forward for head dims 32/64 at any T: B1's online-softmax
+    kernel (``attn_fwd_online.cu``, entry ``vdiff_attn_fwd_online``), counted
+    here and not in :func:`attn_fwd_online`.
+
+    Replaces JAX's Pallas ``_attn_fwd_kernel_pack1`` (B6, through
+    ``_pack1_fwd_call``), which computes B1's function. The TPU kernel holds a
+    whole (bq, T) score tile; at T=4096 no score row fits a block's shared
+    memory, and the online kernel streams the softmax over key tiles; compute
+    bound, f32 FMAs in this first version. Its CPU twin is
+    :func:`attention_qkv_lse_reference`'s output: B6's f32 e·v, where
+    :func:`attention_qkv_reference` rounds P to a bf16 input's dtype first."""
+    B, T, C = _check_sublane(qkv, num_heads, "attn_fwd_pack1")
+    if qkv.device.type == "cpu":
+        return attention_qkv_lse_reference(qkv, num_heads)[0]
+    out = _launch("vdiff_attn_fwd_online", qkv, num_heads, B, T, C)
+    attn_fwd_pack1.launches += 1
+    return out
+
+
+attn_fwd_pack1.launches = 0
+
+
+def attn_fwd_pack1_lse(qkv: torch.Tensor, num_heads: int):
+    """:func:`attn_fwd_pack1` that also returns each row's logsumexp of the
+    scaled scores as f32 (B, N, T) (entry ``vdiff_attn_fwd_pack1_lse`` of
+    ``attn_fwd_online.cu``).
+
+    Replaces JAX's Pallas ``_attn_fwd_kernel_pack1_lse`` (B7, through
+    ``_pack1_fwd_lse_call``), the forward of the kv-chunked training path."""
+    B, T, C = _check_sublane(qkv, num_heads, "attn_fwd_pack1_lse")
+    if qkv.device.type == "cpu":
+        return attention_qkv_lse_reference(qkv, num_heads)
+    _need_cuda("attn_fwd_pack1_lse", qkv)
+    out = torch.empty(B, T, num_heads * C, dtype=qkv.dtype, device=qkv.device)
+    lse = torch.empty(B, num_heads, T, dtype=torch.float32, device=qkv.device)
+    err = kernels.library().vdiff_attn_fwd_pack1_lse(
+        qkv.data_ptr(), out.data_ptr(), lse.data_ptr(), B, T, num_heads, C,
+        int(qkv.dtype == torch.bfloat16), torch.cuda.current_stream(qkv.device).cuda_stream)
+    kernels.check(err, "vdiff_attn_fwd_pack1_lse")
+    attn_fwd_pack1_lse.launches += 1
+    return out, lse
+
+
+attn_fwd_pack1_lse.launches = 0
+
+
+def attn_bwd_pack1(qkv: torch.Tensor, g: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """Full-row attention backward for head dims 32/64: d(qkv) (B, T, 3·N·C).
+
+    Replaces JAX's Pallas ``_attn_bwd_kernel_pack1`` (B8, through
+    ``_pack1_bwd_call``), which computes B4's function. Runs the row and
+    column kernels of :func:`attn_bwd_rows` / :func:`attn_bwd_cols`
+    (``attn_bwd_rows.cu``, ``attn_bwd_cols.cu``; T ≤ 1664 at C=64) and counts
+    one launch here; their own counts stay B4/B5's."""
+    B, T, C = _check_bwd_input(qkv, g, num_heads, "attn_bwd_pack1")
+    if C not in _SUBLANE_HEAD_DIMS:
+        raise ValueError(f"attn_bwd_pack1: head dim {C} not supported {_SUBLANE_HEAD_DIMS}")
+    if qkv.device.type == "cpu":
+        return attention_qkv_bwd_reference(qkv, g, num_heads)
+    _need_cuda("attn_bwd_pack1", qkv, g)
+    _check_max_t("attn_bwd_pack1", T, C, "vdiff_attn_bwd_rows_max_t")
+    dqkv = torch.empty_like(qkv)
+    lse, delta = _bwd_rows(qkv, g, num_heads, dqkv, B, T, C)
+    _bwd_cols(qkv, g, num_heads, lse, delta, dqkv, B, T, C)
+    attn_bwd_pack1.launches += 1
+    return dqkv
+
+
+attn_bwd_pack1.launches = 0
+
+
+def attn_bwd_pack1_kv(qkv: torch.Tensor, out: torch.Tensor, lse: torch.Tensor, g: torch.Tensor,
+                      num_heads: int) -> torch.Tensor:
+    """kv-streamed attention backward for head dims 32/64 at any T (entry
+    ``vdiff_attn_bwd_pack1_kv`` in ``attn_bwd_pack1_kv.cu``), from the
+    forward's ``out`` and ``lse`` (:func:`attn_fwd_pack1_lse`): d(qkv).
+
+    Replaces JAX's Pallas ``_attn_bwd_kernel_pack1_kv`` (B9, through
+    ``_pack1_bwd_kv_call``). The entry runs its own dQ/δ kernel, then the
+    column kernel of :func:`attn_bwd_cols` for dK/dV; it counts its own
+    launches here, and the column kernel's count stays B4/B5's."""
+    B, T, C = _check_bwd_input(qkv, g, num_heads, "attn_bwd_pack1_kv")
+    if C not in _SUBLANE_HEAD_DIMS:
+        raise ValueError(f"attn_bwd_pack1_kv: head dim {C} not supported {_SUBLANE_HEAD_DIMS}")
+    if (out.shape != g.shape or out.dtype != qkv.dtype or lse.shape != (B, num_heads, T)
+            or lse.dtype != torch.float32 or not (out.is_contiguous() and lse.is_contiguous())):
+        raise ValueError(f"attn_bwd_pack1_kv: out must be {tuple(g.shape)} {qkv.dtype} and lse "
+                         f"{(B, num_heads, T)} float32, both contiguous; got "
+                         f"{tuple(out.shape)} {out.dtype}, {tuple(lse.shape)} {lse.dtype}")
+    if qkv.device.type == "cpu":
+        return attention_qkv_bwd_kv_reference(qkv, out, lse, g, num_heads)
+    _need_cuda("attn_bwd_pack1_kv", qkv, out, lse, g)
+    dqkv = torch.empty_like(qkv)
+    delta = torch.empty_like(lse)
+    err = kernels.library().vdiff_attn_bwd_pack1_kv(
+        qkv.data_ptr(), out.data_ptr(), lse.data_ptr(), g.data_ptr(), dqkv.data_ptr(),
+        delta.data_ptr(), *_bwd_args(qkv, num_heads, B, T, C))
+    kernels.check(err, "vdiff_attn_bwd_pack1_kv")
+    attn_bwd_pack1_kv.launches += 1
+    return dqkv
+
+
+attn_bwd_pack1_kv.launches = 0
+
+
+class Pack1AttentionKV(torch.autograd.Function):
+    """Differentiable head-dim 32/64 attention for long rows: the counterpart
+    of JAX's ``pack1_attention_trainable_kv`` custom VJP. Forward
+    :func:`attn_fwd_pack1_lse` (B7), saving (qkv, out, lse); backward
+    :func:`attn_bwd_pack1_kv` (B9), d(qkv) as one buffer."""
+
+    @staticmethod
+    def forward(ctx, qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
+        out, lse = attn_fwd_pack1_lse(qkv, num_heads)
+        ctx.save_for_backward(qkv, out, lse)
+        ctx.num_heads = num_heads
+        return out
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        qkv, out, lse = ctx.saved_tensors
+        return attn_bwd_pack1_kv(qkv, out, lse, g.contiguous(), ctx.num_heads), None
+
+
+# JAX's VMEM q-block pickers (vdiff_tpu/ops/attention.py), copied as they are.
+# On the TPU they size blocks; here they only decide which of JAX's kernels a
+# call corresponds to, so that the port routes every shape as JAX does. They
+# do not shape the Hopper kernels.
+_PACK1_BWD_MIN_BQ = 128
+
+
+def _pick_qblk_fwd(T: int, C: int) -> int:
+    for bq in (512, 256, 128):
+        if T % bq == 0 and bq * T * 4 + 4 * T * C * 4 <= 12 * 1024 * 1024:
+            return bq
+    return 0
+
+
+def _pick_qblk_pack1(T: int, C: int) -> int:
+    for bq in (512, 256, 128):
+        vmem = bq * T * 4 + 2 * T * C * 4 + 2 * T * 128 * 2 + 2 * bq * 128 * 4
+        if T % bq == 0 and vmem <= 13 * 1024 * 1024:
+            return bq
+    return 0
+
+
+def _pick_qblk_pack1_bwd(T: int, C: int) -> int:
+    for bq in (256, 128, 64, 32):
+        vmem = (3 * bq * T * 4 + 2 * T * 128 * 4 + 2 * T * 128 * 4
+                + 2 * T * 128 * 2 + 3 * bq * 128 * 4)
+        if T % bq == 0 and vmem <= 14 * 1024 * 1024:
+            return bq
+    return 0
+
+
+def _pick_qblk_pack1_kv(T: int, C: int) -> int:
+    for bq in (256, 128):
+        for bkv in (1024, 512):
+            if T % bq or T % bkv or bkv >= T:
+                continue
+            vmem = (3 * bq * bkv * 4 + 2 * bkv * 128 * 4 + 2 * T * 128 * 4
+                    + 2 * T * 128 * 2 + 6 * bq * 128 * 4)
+            if vmem <= 13 * 1024 * 1024:
+                return bq
+    return 0
+
+
+def route(T: int, num_heads: int, C: int, train: bool) -> str:
+    """The kernel family JAX's ``spatial_attention_qkv`` takes for a call at
+    (T, N, C) on a TPU without head padding, by the same gates:
+
+    * ``"pack1"``: head dim 32/64, T % 128 == 0, N·C % 128 == 0 — B6
+      (:func:`attn_fwd_pack1`); training B6 + B8 (:class:`QkvAttention`)
+      when the full-row backward's q-block reaches ``_PACK1_BWD_MIN_BQ``;
+    * ``"pack1_kv"``: training of such a shape whose full-row backward block
+      is too small (T=4096) — B7 + B9 (:class:`Pack1AttentionKV`);
+    * ``"qblk"``: inference, B2 (:func:`attn_fwd_qblk`): head dim 32/64 with
+      N·C unaligned and T % 128 == 0 (JAX's folded native-width path), or
+      T > 512 at other head dims;
+    * ``"online"``: inference otherwise, B1 (:func:`attn_fwd_online`; T=64,
+      where JAX runs XLA, too);
+    * ``"train"``: training otherwise, :class:`QkvAttention` (B3/B2
+      forward, B4/B5 backward)."""
+    sublane = C in _SUBLANE_HEAD_DIMS and T % 128 == 0
+    if sublane and (num_heads * C) % 128 == 0 and _pick_qblk_pack1(T, C):
+        if not train or _pick_qblk_pack1_bwd(T, C) >= _PACK1_BWD_MIN_BQ:
+            return "pack1"
+        if _pick_qblk_pack1_kv(T, C):
+            return "pack1_kv"
+    if train:
+        return "train"
+    if sublane:
+        return "qblk" if _pick_qblk_fwd(T, C) else "online"
+    return "online" if T <= QBLK_THRESHOLD else "qblk"
+
+
+_INFERENCE = {"pack1": attn_fwd_pack1, "qblk": attn_fwd_qblk, "online": attn_fwd_online}
+#: (forward, backward) of each route whose VJP saves qkv alone
+_TRAINABLE = {"pack1": (attn_fwd_pack1, attn_bwd_pack1), "train": (attn_fwd_trainable, attn_bwd)}
 
 
 def spatial_attention_qkv(qkv: torch.Tensor, num_heads: int, train: bool = False) -> torch.Tensor:
-    """(B, T, 3·N·C) → (B, T, N·C). At inference T ≤ 512 takes the
-    online-softmax kernel (the sampler's T=64 too, where JAX uses XLA), T > 512
-    the q-blocked one. With ``train`` the call is differentiable through
-    :class:`TrainableAttention`, as JAX's ``train=True`` goes through
-    ``flash_attention_trainable``."""
-    if train:
-        return TrainableAttention.apply(qkv, num_heads)
-    if qkv.shape[1] <= QBLK_THRESHOLD:
-        return attn_fwd_online(qkv, num_heads)
-    return attn_fwd_qblk(qkv, num_heads)
+    """(B, T, 3·N·C) → (B, T, N·C) through the kernel :func:`route` picks.
+    With ``train`` the call is differentiable through one of the
+    ``torch.autograd.Function`` classes, as JAX's ``train=True`` goes through its
+    custom VJPs."""
+    B, T, C = _shape(qkv, num_heads)
+    kind = route(T, num_heads, C, train)
+    if not train:
+        return _INFERENCE[kind](qkv, num_heads)
+    if kind == "pack1_kv":
+        return Pack1AttentionKV.apply(qkv, num_heads)
+    return QkvAttention.apply(qkv, num_heads, *_TRAINABLE[kind])

@@ -31,8 +31,8 @@ from datetime import datetime, timezone
 import torch
 
 from .data import DATA_INFO, get_dataloader
-from .factory import (DEFAULT_CONFIG_PATH, build_diffusion, build_unet, load_experiment_config,
-                      resolve_section)
+from .factory import (DEFAULT_CONFIG_PATH, build_diffusion, build_unet, heads_note,
+                      load_experiment_config, resolve_section)
 from .train_lib import Trainer
 from .utils.misc import seed_all
 
@@ -112,9 +112,12 @@ def main(argv=None) -> dict:
                        model_out_type=config["diffusion"]["model_out_type"],
                        num_classes=num_classes, multitags=info.get("multitags", False),
                        dtype=dtype, generator=torch.Generator().manual_seed(train.seed))
+    if heads_note(config["model"]):
+        print(heads_note(config["model"]))
     trainloader, _ = get_dataloader(dataset, batch_size=train.batch_size,
                                     split="all" if dataset == "celeba" else "train",
-                                    random_seed=train.seed, root=root, drop_last=True)
+                                    random_seed=train.seed, root=root, drop_last=True,
+                                    num_workers=args.num_workers)
 
     exp_dir, ckpt_dir, image_dir = make_experiment_dirs(args.exp_dir, exp_name)
     print(f"Checkpoints → {os.path.abspath(ckpt_dir)} every {train.ckpt_intv} epoch(s)")
@@ -172,7 +175,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--intp-frac", type=float)
     p.add_argument("--w-guide", type=float, help="classifier-free guidance strength")
     p.add_argument("--p-uncond", type=float, help="probability of unconditional training")
-    p.add_argument("--num-workers", type=int, default=4, help="(parity) one loader thread is used")
+    p.add_argument("--num-workers", type=int, default=4,
+                   help="CelebA's JPEG decode threads (other datasets are in memory)")
     p.add_argument("--device", type=str, default="cuda")
     p.add_argument("--image-intv", type=int)
     p.add_argument("--num-save-images", type=int, help="number of images to generate & save")

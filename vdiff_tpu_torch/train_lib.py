@@ -28,6 +28,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from .factory import load_weights
 from .utils.misc import RunningStatistics, save_image
 
 
@@ -224,10 +225,10 @@ class CheckpointManager:
         if path is None or not os.path.exists(path):
             raise FileNotFoundError(path or self.ckpt_dir)
         ckpt = torch.load(path, map_location="cpu", weights_only=True)
-        model.load_state_dict(ckpt["model"])
+        load_weights(model, ckpt["model"])
         optimizer.load_state_dict(ckpt["optimizer"])
         if ema_model is not None and "ema" in ckpt:
-            ema_model.load_state_dict(ckpt["ema"]["shadow"])
+            load_weights(ema_model, ckpt["ema"]["shadow"])
         return int(ckpt["epoch"]), int(ckpt["step"])
 
 
@@ -283,6 +284,16 @@ class Trainer:
     def num_classes(self):
         return self.model.num_classes
 
+    @property
+    def multitags(self):
+        return self.model.multitags
+
+    def _dummy_label(self, b):
+        """The null label of a conditional model: zeros (b,), or (b, K) tags."""
+        if not self.num_classes:
+            return None
+        return np.zeros((b, self.num_classes) if self.multitags else (b,), np.float32)
+
     def _sync(self):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -322,11 +333,13 @@ class Trainer:
 
     def sample_fn(self, label=None, batch_size=None, use_ddim=False, seed=0) -> np.ndarray:
         """A batch of samples under the EMA weights, x_T and the sampler's
-        noise from a generator seeded with ``seed``."""
+        noise from a generator seeded with ``seed``; a conditional model
+        without ``label`` gets the null label."""
         B = batch_size or self.num_save_images
         H, W, C = self.shape
         gen = torch.Generator(device=self.device).manual_seed(seed)
         x_T = torch.randn((B, H, W, C), generator=gen, device=self.device)
+        label = self._dummy_label(B) if label is None else label
         y = None if label is None else torch.as_tensor(label, device=self.device)
         with torch.inference_mode():
             x = self.diffusion.p_sample(self.sampling_model(), x_T, label=y, use_ddim=use_ddim,
@@ -334,8 +347,13 @@ class Trainer:
         return x.float().cpu().numpy()
 
     def sample_labels(self):
-        """A balanced class grid: labels 1..K, each repeated ~n/K times."""
+        """A balanced class grid: labels 1..K, each repeated ~n/K times; for a
+        multi-tag model, n tag rows of the training set drawn with
+        ``RandomState(seed)`` (JAX draws them with its label key)."""
         n, K = self.num_save_images, self.num_classes
+        if self.multitags:
+            targets = np.asarray(self.trainloader.dataset.targets, np.float32)
+            return targets[np.random.RandomState(self.seed).randint(len(targets), size=(n,))]
         labels = np.arange(K, dtype=np.float32) + 1
         repeats = np.asarray([n // K + int(i < n % K) for i in range(K)])
         return np.repeat(labels, repeats)
