@@ -5,14 +5,29 @@
 
 Phases, one output line each (any failure raises and exits non-zero):
   1. card: the GPU's name and power limit as nvidia-smi reports them;
-  2. kernels: builds the CUDA attention kernels from vdiff_tpu_torch/csrc and
-     holds each sampling kernel against its plain PyTorch twin at the
+  2. kernels: builds the CUDA kernels from vdiff_tpu_torch/csrc and holds
+     each sampling attention kernel against its plain PyTorch twin at the
      sampler's shapes, f32 and bf16, and times both with CUDA events;
   3. unet: the full-width cifar10_cond UNet (random weights, zero-init layers
      perturbed) in f32 on the GPU against the same UNet on the CPU;
   4. sample: the port's CLI (vdiff_tpu_torch.generate) draws 256-step DDIM
      samples at w=0 (B=64, two batches) and with CFG at w=0.1 (B=32), and the
      kernels' launch counters must show 17 + 1 launches per UNet forward;
+  4a. fused-kernels: gn_film_silu_kernel (B10) and fused_gn_silu_conv3x3 (B11)
+     against their twins at the fused sampling path's shapes (B=64: 32x32,
+     16x16, 8x8; B10 at C=256 and 512 with and without SiLU and once with
+     FiLM; B11 at 256->256 in its conv1 and conv2 forms) and, off the path, at
+     celeba's fusable widths, one C_in != C_out case, the bare conv and odd
+     shapes (groups of 6 and 42, a non-square image, ragged tiles); f32
+     and bf16, then timed in bf16 beside the twin, the card's bound and, for
+     the bare GroupNorm, F.group_norm;
+  4b. fused-unet: the full-width bf16 cifar10_cond UNet at B=2 with
+     VDIFF_FUSED_CONV=1 and VDIFF_FUSED_GN=1 against the same model with both
+     off; one forward must launch B11 38 times and B10 35 times (B10 73 times
+     with VDIFF_FUSED_GN=1 alone) beside the unchanged 17 + 1 of attention;
+  4c. fused-sample: the generate CLI with both switches on (DDIM-256, w=0,
+     B=64, one batch, bf16), then with VDIFF_FUSED_GN=1 alone: finite PNGs,
+     the per-forward counts times 256, and samples/s beside the default path's;
   5. train-kernels: the training forward (attn_fwd_train; attn_fwd_qblk at
      T=1024) and the two-pass backward (attn_bwd_rows + attn_bwd_cols)
      against their twins at the train step's shapes (B=128; T=64/256/1024 at
@@ -44,8 +59,8 @@ Phases, one output line each (any failure raises and exits non-zero):
      multi-hot tags, each with CELEBA_STEP_LAUNCHES, a finite loss and the
      peak device memory.
 Every kernel's launches in the JSON record are counted on the main paths
-(phases 4, 7, 11, 12), each run with the counts set to 0 just before it and
-read just after: "launches" is their sum over the four paths, and
+(phases 4, 4c, 7, 11, 12), each run with the counts set to 0 just before it and
+read just after: "launches" is their sum over the paths, and
 "launches_by_path" each path's own count. The line before last is the kernels' JSON record (with each
 kernel's time, its twin's, one PyTorch call's where there is one, and the
 card's bound for the same work); the last line is {"ok": true, "device":
@@ -53,6 +68,7 @@ card's bound for the same work); the last line is {"ok": true, "device":
 """
 
 import collections
+import contextlib
 import copy
 import glob
 import json
@@ -71,9 +87,10 @@ TRAIN_CONFIG = os.path.join(CONFIGS, "synthetic_flagship.json")
 CELEBA_CONFIG = os.path.join(CONFIGS, "celeba.json")
 STEPS = 256
 CELEBA_STEPS, CELEBA_SAMPLE_B, CELEBA_TRAIN_B, CELEBA_TRAIN_STEPS = 16, 32, 48, 3
+FUSED_KERNELS = ("gn_film_silu_kernel", "fused_gn_silu_conv3x3")
 KERNELS = ("attn_fwd_online", "attn_fwd_qblk", "attn_fwd_train", "attn_bwd_rows",
            "attn_bwd_cols", "attn_fwd_pack1", "attn_fwd_pack1_lse", "attn_bwd_pack1",
-           "attn_bwd_pack1_kv")
+           "attn_bwd_pack1_kv") + FUSED_KERNELS
 
 
 def _launches(**counts):
@@ -88,6 +105,17 @@ def _launches(**counts):
 ONLINE_PER_FWD, QBLK_PER_FWD = 17, 1
 TRAIN_STEP_LAUNCHES = _launches(attn_fwd_train=17, attn_fwd_qblk=1, attn_bwd_rows=18,
                                 attn_bwd_cols=18)
+# the fused inference kernels per cifar10_cond forward (27 residual and 18
+# attention blocks). With both switches on: conv1 of the 11 blocks that
+# neither resample nor take an up-path skip and all 27 conv2 go through
+# fused_gn_silu_conv3x3; the 18 attention norms, out_norm and norm1 of the 4
+# resampling and 12 up blocks through gn_film_silu_kernel. With VDIFF_FUSED_GN=1
+# alone all 73 GroupNorms do. The attention counts do not move.
+FUSED_FWD_LAUNCHES = _launches(attn_fwd_online=ONLINE_PER_FWD, attn_fwd_qblk=QBLK_PER_FWD,
+                               fused_gn_silu_conv3x3=38, gn_film_silu_kernel=35)
+FUSED_GN_FWD_LAUNCHES = _launches(attn_fwd_online=ONLINE_PER_FWD, attn_fwd_qblk=QBLK_PER_FWD,
+                                  gn_film_silu_kernel=73)
+FUSED_B = 64  # the fused sampling path's batch
 # the celeba UNet's 27 attention calls (head dim 64), routed as JAX routes
 # them on a TPU without head padding: one forward launches the head-dim 64
 # forward 10 times (T=1024 and T=256 at N=6, T=256 at N=12, T=4096 in
@@ -140,6 +168,19 @@ BWD_F32_RTOL = 1e-4
 # move a rounding by one step. One bf16 step of each output (2^-7 relative),
 # plus 2^-8 of the slot's scale for P/dS operands that round the other way.
 BWD_BF16_RTOL, BWD_BF16_SCALE = 2.0 ** -7, 2.0 ** -8
+# fused kernels in f32 vs their twins: both sides do f32 math in another order
+# (the conv sums 9·C_in products), relative to the output's scale.
+FUSED_F32_RTOL = 1e-4
+# fused conv in bf16 vs its twin before the twin's one cast: half a bf16 ulp
+# of the output (BF16_RTOL) + the f32 allowance + one y operand that the
+# kernel's and the twin's f32 SiLU round to neighbouring bf16 values, which
+# moves one product by a bf16 step of y times a weight: 2^-7·max|y|·max|w|.
+FUSED_FLIP_RTOL = 2.0 ** -7
+# the bf16 UNet with both switches on vs the same model with both off: the
+# fused forms keep A and B in f32 and round once where the default chain
+# rounds at every step, so the two differ by bf16 noise grown over ~60 layers;
+# the bound of the CPU tests' bf16 UNet comparisons, 2^-4 of the output's scale.
+FUSED_UNET_RTOL = 2.0 ** -4
 # one f32 train step on the GPU vs the CPU: the loss relative to itself and
 # the gradients relative to the largest one (the UNet bound's reasoning, over a
 # forward and a backward); the updated params relative to the step's size, lr.
@@ -392,17 +433,21 @@ def phase_unet(cfg):
     return model
 
 
-def _counts():
-    from vdiff_tpu_torch.ops import attention as A
+def _wrappers():
+    """Every kernel wrapper by name (each carries its ``launches`` count)."""
+    from vdiff_tpu_torch.ops import attention, conv3x3, groupnorm
 
-    return {name: getattr(A, name).launches for name in KERNELS}
+    homes = {"gn_film_silu_kernel": groupnorm, "fused_gn_silu_conv3x3": conv3x3}
+    return {name: getattr(homes.get(name, attention), name) for name in KERNELS}
+
+
+def _counts():
+    return {name: fn.launches for name, fn in _wrappers().items()}
 
 
 def _reset_counts():
-    from vdiff_tpu_torch.ops import attention as A
-
-    for name in KERNELS:
-        getattr(A, name).launches = 0
+    for fn in _wrappers().values():
+        fn.launches = 0
 
 
 def _train_step_parity(name, cfg, model, x, y, keep, want):
@@ -496,7 +541,8 @@ def phase_train_cli(tmp):
 
 
 def phase_sample(model, tmp):
-    """The CLI end to end; returns the launch counts of the whole phase."""
+    """The CLI end to end; returns the launch counts of the whole phase, the
+    checkpoint it wrote and the w=0 run's samples/s."""
     from vdiff_tpu_torch import generate
     from vdiff_tpu_torch.ops import attention as A
 
@@ -504,6 +550,7 @@ def phase_sample(model, tmp):
     sd = model.state_dict()
     torch.save({"model": sd, "ema": {"shadow": sd}}, ckpt)
     runs = [("w=0", "0", 64, 128), ("cfg w=0.1", "0.1", 32, 32)]
+    rates = {}
     _reset_counts()
     for name, w, bs, total in runs:
         n_on, n_q = A.attn_fwd_online.launches, A.attn_fwd_qblk.launches
@@ -515,6 +562,7 @@ def phase_sample(model, tmp):
         forwards = STEPS * (total // bs)
         d_on, d_q = A.attn_fwd_online.launches - n_on, A.attn_fwd_qblk.launches - n_q
         pngs = len(glob.glob(os.path.join(summary["save_dir"], "*.png")))
+        rates[name] = summary["images"] / summary["seconds"]
         print(f"sample: {name} B={bs} x{total // bs} batches, {STEPS} DDIM steps: "
               f"{summary['images'] / summary['seconds']} samples/s, {pngs} PNGs, "
               f"finite={summary['finite']}, launches online={d_on} qblk={d_q}", flush=True)
@@ -524,9 +572,245 @@ def phase_sample(model, tmp):
             fail(f"sample {name}: launches online={d_on} qblk={d_q}, expected "
                  f"{ONLINE_PER_FWD * forwards} and {QBLK_PER_FWD * forwards}")
     launched = _counts()
-    if any(launched[k] for k in TRAINING_KERNELS):
-        fail(f"sample: the sampler launched training kernels: {launched}")
-    return launched
+    if any(launched[k] for k in TRAINING_KERNELS + FUSED_KERNELS):
+        fail(f"sample: the default sampler launched training or fused kernels: {launched}")
+    return launched, ckpt, rates["w=0"]
+
+
+def _gn_bound(B, H, W, C, dtype, film):
+    """B10's least time: x read and y written once in ``dtype`` (plus the f32
+    gamma/beta and the FiLM rows) over the memory rate, against ~10 f32
+    operations per element (two for the sums' FMA and add, the multiply-add,
+    the SiLU) over the f32 peak."""
+    size = 2 if dtype == torch.bfloat16 else 4
+    nbytes = 2 * B * H * W * C * size + 2 * C * 4 + (2 * B * C * size if film else 0)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 10 * B * H * W * C / PEAK_FLOPS[torch.float32]
+    return {"bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def _conv_bound(B, H, W, C, CO, dtype, gn, film, skip):
+    """B11's least time: 2·9·C_in·C_out operations per output pixel over the
+    peak for the activations' type, against its inputs read once (x, the f32
+    OIHW weights and bias, gamma/beta, FiLM rows, skip) and its output written
+    once over the memory rate."""
+    size = 2 if dtype == torch.bfloat16 else 4
+    nbytes = (B * H * W * (C + CO * (2 if skip else 1)) * size + (9 * C * CO + CO) * 4
+              + (2 * C * 4 if gn else 0) + (2 * B * C * size if film else 0))
+    t_ops = 2 * B * H * W * 9 * C * CO / PEAK_FLOPS[dtype]
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return {"bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def _fused_inputs(B, H, W, C, CO, dtype, gen, film, skip):
+    """Seeded inputs as the UNet hands them over: x with a mean and a spread,
+    FiLM rows as the two strided halves of one (B, 2C) projection in x's type,
+    f32 parameters, LeCun-scaled OIHW weights."""
+    x = (torch.randn(B, H, W, C, device="cuda", generator=gen) * 2 + 0.5).to(dtype)
+    gamma = torch.randn(C, device="cuda", generator=gen) * 0.1 + 1
+    beta = torch.randn(C, device="cuda", generator=gen) * 0.1
+    shift = scale = None
+    if film:
+        shift, scale = (torch.randn(B, 2 * C, device="cuda", generator=gen) * 0.2).to(dtype).chunk(
+            2, dim=-1)
+    w = torch.randn(CO, C, 3, 3, device="cuda", generator=gen) * (9 * C) ** -0.5
+    bias = torch.randn(CO, device="cuda", generator=gen) * 0.1
+    res = torch.randn(B, H, W, CO, device="cuda", generator=gen).to(dtype) if skip else None
+    return x, gamma, beta, shift, scale, w, bias, res
+
+
+def _check_fused(name, out, ref, dtype, extra_atol=0.0):
+    """A fused kernel's output vs its twin in f32 (for bf16: the twin on the
+    same bf16 values before its one cast); returns the largest absolute error."""
+    torch.cuda.synchronize()
+    if out.shape != ref.shape or out.dtype != dtype or ref.dtype != torch.float32:
+        fail(f"{name}: got {tuple(out.shape)} {out.dtype} against {tuple(ref.shape)} {ref.dtype}")
+    err = (out.float() - ref).abs()
+    if dtype == torch.float32:
+        tol = torch.full_like(ref, FUSED_F32_RTOL * max(1.0, ref.abs().max().item()))
+    else:
+        tol = BF16_RTOL * ref.abs() + F32_ATOL + extra_atol
+    if not bool(torch.isfinite(out).all()) or bool((err > tol).any()):
+        fail(f"{name}: max err {err.max().item()} over tolerance (largest excess "
+             f"{(err - tol).max().item()})")
+    return err.max().item()
+
+
+def phase_fused_kernels():
+    """gn_film_silu_kernel (B10) and fused_gn_silu_conv3x3 (B11) vs their
+    twins, f32 and bf16, then timed in bf16. Returns the per-kernel records:
+    B10 at (64, 32, 32, 256) without FiLM or SiLU (the attention norm of
+    up_1_us, the one form F.group_norm computes too), B11 at (64, 32, 32)
+    256->256 with FiLM and skip (conv2 of the level-0 blocks)."""
+    from torch.nn.functional import group_norm
+
+    from vdiff_tpu_torch.ops import conv3x3 as C3
+    from vdiff_tpu_torch.ops import groupnorm as G
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    record = {}
+    B = FUSED_B
+    # (B, H, W, C, film, silu): the path's shapes, then off the path groups of
+    # 6 on a non-square image and groups of 42 (wider than a warp)
+    gn_cases = [(B, H, H, C, False, silu) for H in (32, 16, 8) for C in (256, 512)
+                for silu in (False, True)]
+    gn_cases += [(B, 32, 32, 256, True, True), (3, 5, 7, 192, True, True),
+                 (2, 8, 8, 1344, False, True)]
+    for Bc, H, W, C, film, silu in gn_cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            x, gamma, beta, shift, scale, *_ = _fused_inputs(Bc, H, W, C, 1, dtype, gen, film, False)
+            tag = (f"gn_film_silu_kernel B={Bc} {H}x{W} C={C} film={film} silu={silu} "
+                   f"{str(dtype)[6:]}")
+            ref = G.gn_film_silu_kernel_reference(
+                x.float(), gamma, beta, None if shift is None else shift.float(),
+                None if scale is None else scale.float(), apply_silu=silu)
+            err = _check_fused(tag, G.gn_film_silu_kernel(x, gamma, beta, shift, scale,
+                                                          apply_silu=silu), ref, dtype)
+            del ref
+            if dtype == torch.float32:
+                print(f"fused-kernels: {tag}: max_abs_err={err}", flush=True)
+                continue
+            library = None
+            if not film and not silu:  # the one form a single PyTorch call computes
+                nchw, g16, b16 = x.permute(0, 3, 1, 2), gamma.to(dtype), beta.to(dtype)
+                library = cuda_ms(lambda: group_norm(nchw, 32, g16, b16, 1e-6))
+            rec = {"max_abs_err": err,
+                   "ms": cuda_ms(lambda: G.gn_film_silu_kernel(x, gamma, beta, shift, scale,
+                                                               apply_silu=silu)),
+                   "plain_ms": cuda_ms(lambda: G.gn_film_silu_kernel_reference(
+                       x, gamma, beta, shift, scale, apply_silu=silu)),
+                   "library_ms": library, **_gn_bound(Bc, H, W, C, dtype, film)}
+            chain = cuda_ms(lambda: G.gn_film_silu(x, gamma, beta, shift, scale, apply_silu=silu,
+                                                   use_kernel=False))
+            print(f"fused-kernels: {tag}: {_fmt(rec)} default_chain_ms={chain}", flush=True)
+            if (Bc, H, C, film, silu) == (B, 32, 256, False, False):
+                record["gn_film_silu_kernel"] = rec
+
+    # (B, H, W, C_in, C_out, film, skip, gn): conv1 and conv2 forms on the path
+    conv_cases = [(B, H, H, 256, 256, film, film, True) for H in (32, 16, 8)
+                  for film in (False, True)]
+    conv_cases += [(32, 32, 32, 384, 384, True, True, True),   # celeba's fusable widths
+                   (32, 8, 8, 768, 768, True, True, True),
+                   (B, 16, 16, 512, 256, False, False, True),  # C_in != C_out
+                   (B, 16, 16, 256, 256, False, True, False),  # the bare conv (+ skip)
+                   (3, 5, 7, 192, 72, True, True, True),       # ragged tiles, groups of 6
+                   (2, 9, 9, 32, 33, False, False, True)]
+    for Bc, H, W, C, CO, film, skip, gn in conv_cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            x, gamma, beta, shift, scale, w, bias, res = _fused_inputs(Bc, H, W, C, CO, dtype, gen,
+                                                                       film, skip)
+            if not gn:
+                gamma = beta = None
+            args = (x, w, bias, gamma, beta, shift, scale, res)
+            tag = (f"fused_gn_silu_conv3x3 B={Bc} {H}x{W} {C}->{CO} gn={gn} film={film} "
+                   f"skip={skip} {str(dtype)[6:]}")
+            flip = 0.0
+            if gn and dtype == torch.bfloat16:
+                y_max = G.gn_film_silu_kernel_reference(x, gamma, beta, shift, scale).abs().max()
+                flip = FUSED_FLIP_RTOL * y_max.item() * w.abs().max().item()
+            ref = C3.fused_gn_silu_conv3x3_reference_f32(*args)
+            err = _check_fused(tag, C3.fused_gn_silu_conv3x3(*args), ref, dtype, flip)
+            del ref
+            if dtype == torch.float32:
+                print(f"fused-kernels: {tag}: max_abs_err={err}", flush=True)
+                continue
+            rec = {"max_abs_err": err,
+                   "ms": cuda_ms(lambda: C3.fused_gn_silu_conv3x3(*args), iters=5, warmup=1),
+                   "plain_ms": cuda_ms(lambda: C3.fused_gn_silu_conv3x3_reference(*args), iters=5,
+                                       warmup=1),
+                   "library_ms": None, **_conv_bound(Bc, H, W, C, CO, dtype, gn, film, skip)}
+            relayout = cuda_ms(lambda: w.permute(2, 3, 1, 0).reshape(9 * C, CO).to(dtype).contiguous())
+            print(f"fused-kernels: {tag}: {_fmt(rec)} weight_relayout_ms={relayout} "
+                  f"(inside ms; flip allowance {flip})", flush=True)
+            if (Bc, H, C, film) == (B, 32, 256, True):
+                record["fused_gn_silu_conv3x3"] = rec
+            del x, w, res, args
+    torch.cuda.empty_cache()
+    return record
+
+
+@contextlib.contextmanager
+def _switches(conv, gn):
+    """VDIFF_FUSED_CONV / VDIFF_FUSED_GN set for a block, restored after it."""
+    want = {"VDIFF_FUSED_CONV": conv, "VDIFF_FUSED_GN": gn}
+    before = {k: os.environ.get(k) for k in want}
+    os.environ.update({k: "1" if v else "0" for k, v in want.items()})
+    try:
+        yield
+    finally:
+        for k, v in before.items():
+            if v is None:
+                del os.environ[k]
+            else:
+                os.environ[k] = v
+
+
+def phase_fused_unet(cfg):
+    """The full-width bf16 UNet at B=2: both switches on against both off,
+    and the launch counts of one forward with both on and with GN alone."""
+    model = _perturbed_unet(cfg, dtype=torch.bfloat16).cuda()
+    gen = torch.Generator().manual_seed(7)
+    x, t = torch.randn(2, 32, 32, 3, generator=gen).cuda(), torch.rand(2, generator=gen).cuda()
+    y = torch.tensor([3.0, 0.0]).cuda()
+
+    def forward(conv, gn):
+        with _switches(conv, gn), torch.inference_mode():
+            _reset_counts()
+            out = model(x, t, y)
+            torch.cuda.synchronize()
+            return out, _counts()
+
+    base, launched = forward(False, False)
+    if launched != _launches(attn_fwd_online=ONLINE_PER_FWD, attn_fwd_qblk=QBLK_PER_FWD):
+        fail(f"fused-unet: the default forward launched {launched}")
+    scale = base.abs().max().item()
+    for name, conv, gn, want in (("both switches", True, True, FUSED_FWD_LAUNCHES),
+                                 ("VDIFF_FUSED_GN alone", False, True, FUSED_GN_FWD_LAUNCHES)):
+        out, launched = forward(conv, gn)
+        err = (out - base).abs().max().item()
+        print(f"fused-unet: full width B=2 bf16, {name} vs both off: max_abs_err={err} "
+              f"(|out|max={scale}, limit {FUSED_UNET_RTOL * scale}), launches {launched}",
+              flush=True)
+        if not bool(torch.isfinite(out).all()) or err > FUSED_UNET_RTOL * scale:
+            fail(f"fused-unet: {name}: max err {err} > {FUSED_UNET_RTOL} * {scale}")
+        if launched != want:
+            fail(f"fused-unet: {name}: one forward launched {launched}, expected {want}")
+
+
+def phase_fused_sample(ckpt, tmp, default_rate):
+    """The generate CLI with the switches set in the environment for each run
+    only: DDIM-256, w=0, B=64, one batch, bf16. Returns each run's launch
+    counts: both switches (path cifar_sample_fused) and VDIFF_FUSED_GN alone."""
+    from vdiff_tpu_torch import generate
+
+    by_path = {}
+    for path, name, conv, gn, per_fwd in (
+            ("cifar_sample_fused", "VDIFF_FUSED_CONV=1 VDIFF_FUSED_GN=1", True, True,
+             FUSED_FWD_LAUNCHES),
+            ("cifar_sample_fused_gn", "VDIFF_FUSED_GN=1", False, True, FUSED_GN_FWD_LAUNCHES)):
+        with _switches(conv, gn):
+            _reset_counts()
+            summary = generate.main([
+                "--config-path", CONFIG, "--ckpt-path", ckpt, "--save-dir",
+                os.path.join(tmp, path), "--use-ema", "--use-ddim", "--allow-bf16",
+                "--sample-timesteps", str(STEPS), "--w-guide", "0", "--batch-size", str(FUSED_B),
+                "--total-size", str(FUSED_B), "--seed", "0",
+            ])
+            launched = _counts()
+        pngs = len(glob.glob(os.path.join(summary["save_dir"], "*.png")))
+        print(f"fused-sample: {name} w=0 B={FUSED_B}, {STEPS} DDIM steps, finite="
+              f"{summary['finite']}, {pngs} PNGs, launches {launched}", flush=True)
+        print(f"fused-sample: {name}: {summary['images'] / summary['seconds']} samples/s against "
+              f"{default_rate} samples/s of the default path (sample phase, w=0 B=64, two batches)",
+              flush=True)
+        if pngs != FUSED_B or not summary["finite"]:
+            fail(f"fused-sample {name}: {pngs} PNGs (want {FUSED_B}), finite={summary['finite']}")
+        want = {k: v * STEPS for k, v in per_fwd.items()}
+        if launched != want:
+            fail(f"fused-sample {name}: launches {launched}, expected {want}")
+        by_path[path] = launched
+    return by_path
 
 
 def phase_celeba_kernels():
@@ -738,8 +1022,11 @@ def main():
     model = phase_unet(cfg)
     by_path = {}  # each main path's counts, read just after its run
     with tempfile.TemporaryDirectory() as tmp:
-        by_path["cifar_sample"] = phase_sample(model, tmp)
+        by_path["cifar_sample"], ckpt, default_rate = phase_sample(model, tmp)
         del model
+        record.update(phase_fused_kernels())
+        phase_fused_unet(cfg)
+        by_path.update(phase_fused_sample(ckpt, tmp, default_rate))
         for name, r in phase_train_kernels().items():  # the sampling shape's record stays
             record.setdefault(name, r)
         phase_train_unet(cfg)
@@ -777,6 +1064,11 @@ def main():
                            "vdiff_tpu/ops/attention.py:470"),
         "attn_bwd_pack1_kv": ("vdiff_tpu_torch/csrc/attn_bwd_pack1_kv.cu",
                               "vdiff_tpu/ops/attention.py:567"),
+        # B11's statistics pass is gn_common.cuh's kernel, shared with B10
+        "gn_film_silu_kernel": ("vdiff_tpu_torch/csrc/gn_film_silu.cu",
+                                "vdiff_tpu/ops/groupnorm.py:79"),
+        "fused_gn_silu_conv3x3": ("vdiff_tpu_torch/csrc/gn_silu_conv3x3.cu",
+                                  "vdiff_tpu/ops/conv3x3.py:58"),
     }
     kernels = []
     for name, (source, replaces) in meta.items():

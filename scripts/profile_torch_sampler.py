@@ -1,7 +1,7 @@
 """Where the port's sampling step spends its time on the GPU.
 
     python scripts/profile_torch_sampler.py [--config cifar10_cond|celeba] [--steps 4]
-        [--out profile_sampler.txt]
+        [--fused] [--out profile_sampler.txt]
 
 Builds the full-width UNet of ``vdiff_tpu_torch`` for ``--config`` (random
 weights), then for its sampling cells of the JAX bench — cifar10_cond: DDIM
@@ -10,7 +10,11 @@ tags (bench.py:336-346) — in bf16 activations, runs a few warm-up steps and
 then ``--steps`` reverse steps under ``torch.profiler``. Prints per cell the step
 time (host clock around synchronised steps), the device-busy share (summed
 kernel time over wall time) and the kernels by total device time; the full
-tables go to ``--out``. Needs a CUDA device.
+tables go to ``--out``. ``--fused`` sets ``VDIFF_FUSED_CONV=1`` and
+``VDIFF_FUSED_GN=1`` first, so the same profile comes back for the fused
+inference kernels (set ``VDIFF_FUSED_GN=1`` alone in the environment for the
+one-kernel GroupNorm without the fused conv); the first line printed says
+which switches were on. Needs a CUDA device.
 """
 
 import argparse
@@ -24,6 +28,7 @@ from torch.profiler import ProfilerActivity, profile
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from vdiff_tpu_torch.factory import build_diffusion, build_unet, load_experiment_config  # noqa: E402
+from vdiff_tpu_torch.generate import fused_note  # noqa: E402
 
 CONFIG_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                           "vdiff_tpu", "configs")
@@ -84,10 +89,15 @@ def main():
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--config", choices=sorted(SETUPS), default="cifar10_cond")
     p.add_argument("--steps", type=int, default=4)
+    p.add_argument("--fused", action="store_true",
+                   help="set VDIFF_FUSED_CONV=1 and VDIFF_FUSED_GN=1 for this run")
     p.add_argument("--out", default="profile_sampler.txt")
     args = p.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_sampler: needs a CUDA device")
+    if args.fused:
+        os.environ["VDIFF_FUSED_CONV"] = os.environ["VDIFF_FUSED_GN"] = "1"
+    print(fused_note())
     num_classes, multitags, res, cells = SETUPS[args.config]
     cfg, _ = load_experiment_config(os.path.join(CONFIG_DIR, f"{args.config}.json"))
     model = build_unet(cfg["model"], in_channels=3, model_out_type=cfg["diffusion"]["model_out_type"],
@@ -95,6 +105,7 @@ def main():
                        generator=torch.Generator().manual_seed(0)).cuda().eval()
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:
+        f.write(fused_note() + "\n")
         for name, w, batch in cells:
             step_ms, busy, kernel_ms, events = profile_cell(model, cfg, w, batch, args.steps,
                                                             num_classes, multitags, res)

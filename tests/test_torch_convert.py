@@ -17,7 +17,7 @@ from tests import torch_parity as P  # noqa: E402
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT_MODULES = [
     "vdiff_tpu_torch", "vdiff_tpu_torch.kernels", "vdiff_tpu_torch.ops.attention",
-    "vdiff_tpu_torch.ops.groupnorm", "vdiff_tpu_torch.ops.numerics",
+    "vdiff_tpu_torch.ops.groupnorm", "vdiff_tpu_torch.ops.conv3x3", "vdiff_tpu_torch.ops.numerics",
     "vdiff_tpu_torch.models.layers", "vdiff_tpu_torch.models.unet",
     "vdiff_tpu_torch.models.convert", "vdiff_tpu_torch.diffusion", "vdiff_tpu_torch.factory",
     "vdiff_tpu_torch.generate", "vdiff_tpu_torch.utils.config", "vdiff_tpu_torch.data",

@@ -92,6 +92,14 @@ def write_pngs(save_dir: str, x: np.ndarray) -> None:
             f.write(encode_png(img))
 
 
+def fused_note() -> str:
+    """Which of the two fused-inference switches this process runs with
+    (``ops/conv3x3.py::fusable``, ``ops/groupnorm.py::gn_film_silu``)."""
+    on = {name: os.environ.get(name, "0") == "1" for name in ("VDIFF_FUSED_CONV", "VDIFF_FUSED_GN")}
+    return ("fused inference kernels: "
+            + ", ".join(f"{name}={'1 (on)' if v else 'off'}" for name, v in on.items()))
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--data-root", type=str, default="~/datasets")
@@ -156,6 +164,7 @@ def main(argv=None) -> dict:
     )
     if heads_note(config["model"]):
         print(heads_note(config["model"]))
+    print(fused_note())
     load_weights(model, state_dict)
     model = model.to(device).eval()
 

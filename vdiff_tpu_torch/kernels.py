@@ -1,6 +1,7 @@
 """Build and load the port's hand-written CUDA kernels.
 
-The sources under ``csrc/`` expose plain C entry points. At first use each is
+The sources under ``csrc/`` (attention, GroupNorm+FiLM+SiLU and the fused
+GN→SiLU→conv3x3) expose plain C entry points. At first use each is
 compiled with ``nvcc`` for Hopper (``sm_90a``), all of them at once in parallel
 processes, then linked into one shared library under ``_build/`` and loaded
 with :mod:`ctypes`. The library's file name carries a hash of the sources and
@@ -22,8 +23,8 @@ CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 
 SOURCES = ("attn_fwd_online.cu", "attn_fwd_qblk.cu", "attn_fwd_train.cu", "attn_bwd_rows.cu",
-           "attn_bwd_cols.cu", "attn_bwd_pack1_kv.cu")
-HEADERS = ("attn_common.cuh", "attn_direct_fwd.cuh")
+           "attn_bwd_cols.cu", "attn_bwd_pack1_kv.cu", "gn_film_silu.cu", "gn_silu_conv3x3.cu")
+HEADERS = ("attn_common.cuh", "attn_direct_fwd.cuh", "gn_common.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -31,7 +32,7 @@ NVCC_FLAGS = (
 
 # argtypes of every C entry point; each returns an int: the launches their
 # cudaError_t, the *_max_t functions the largest token count a kernel takes.
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ATTN_ARGS = [_P, _P] + [_I] * 5 + [_P]
 _ENTRY_POINTS = {
     "vdiff_attn_fwd_online": _ATTN_ARGS,
@@ -43,6 +44,11 @@ _ENTRY_POINTS = {
     "vdiff_attn_bwd_cols": [_P] * 5 + [_I] * 5 + [_P],
     "vdiff_attn_fwd_pack1_lse": [_P] * 3 + [_I] * 5 + [_P],
     "vdiff_attn_bwd_pack1_kv": [_P] * 6 + [_I] * 5 + [_P],
+    # x, gamma, beta, shift, scale, film_stride, film_f32, out, B, HW, C, G, eps, silu, bf16, stream
+    "vdiff_gn_film_silu": [_P] * 5 + [_I] * 2 + [_P] + [_I] * 4 + [_F] + [_I] * 2 + [_P],
+    # x, w, bias, gamma, beta, shift, scale, film_stride, film_f32, skip, out, coef,
+    # B, H, W, C, CO, G, eps, bf16, stream
+    "vdiff_gn_silu_conv3x3": [_P] * 7 + [_I] * 2 + [_P] * 3 + [_I] * 6 + [_F, _I, _P],
 }
 
 

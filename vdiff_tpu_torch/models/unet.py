@@ -17,9 +17,14 @@ the bf16 activation with its f32 kernel there).
 
 ``train=True`` is JAX's training mode: dropout between norm2 and conv2 of each
 residual block (bits from the ``generator`` passed in) and differentiable
-attention (``spatial_attention_qkv(train=True)``). JAX's other use of the flag,
-``fuse = not train``, selects Pallas inference kernels that are off on this
-path, so it has nothing to port.
+attention (``spatial_attention_qkv(train=True)``). Its other use, as in JAX,
+is ``fuse = not train``: at inference a residual block sends conv1 (when
+nothing resamples between norm1 and the conv, and the block is not one that
+JAX runs concat-free) and conv2 (with FiLM and the residual add) to the fused
+GN→SiLU→conv3x3 kernel wherever ``ops.conv3x3.fusable`` holds
+(``VDIFF_FUSED_CONV=1``), and every GroupNorm that stays alone leaves the choice
+of the one-kernel form to ``ops.groupnorm.gn_film_silu`` (``VDIFF_FUSED_GN=1``).
+Both switches are off by default, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import spatial_attention_qkv
+from ..ops.conv3x3 import fusable, fused_gn_silu_conv3x3
 from ..ops.groupnorm import gn_film_silu
 from ..ops.numerics import get_timestep_embedding
 from .layers import (
@@ -57,10 +63,22 @@ class GroupNorm32(nn.Module):
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
 
-    def forward(self, x, shift=None, scale=None, *, silu: bool):
+    def forward(self, x, shift=None, scale=None, *, silu: bool, fuse: bool = False):
+        """``fuse`` (inference) leaves the one-kernel form to
+        :func:`gn_film_silu`'s switch; without it the default chain runs."""
         y = gn_film_silu(x.permute(0, 2, 3, 1), self.weight, self.bias, shift, scale,
-                         num_groups=32, eps=1e-6, apply_silu=silu)
+                         num_groups=32, eps=1e-6, apply_silu=silu,
+                         use_kernel=None if fuse else False)
         return y.permute(0, 3, 1, 2)
+
+
+def _fused_conv(x, conv, norm, shift=None, scale=None, skip=None):
+    """GN(+FiLM)→SiLU→``conv`` (+skip) of NCHW ``channels_last`` tensors
+    through the fused kernel, which works on their NHWC views."""
+    out = fused_gn_silu_conv3x3(
+        x.permute(0, 2, 3, 1), conv.weight, conv.bias, norm.weight, norm.bias, shift, scale,
+        None if skip is None else skip.permute(0, 2, 3, 1), num_groups=32, eps=1e-6)
+    return out.permute(0, 3, 1, 2)
 
 
 class ResidualBlock(nn.Module):
@@ -70,9 +88,21 @@ class ResidualBlock(nn.Module):
 
     def __init__(self, in_channels: int, out_channels: int, embed_dim: int,
                  resampling: str = "none", dtype: torch.dtype = torch.float32,
-                 drop_rate: float = 0.0):
+                 drop_rate: float = 0.0, skip_in_channels: int = 0):
+        """``skip_in_channels`` of the ``in_channels`` are an up-path skip
+        concatenated onto the input. JAX runs the front of such a block
+        concat-free (per-part GN and convs) when it has a 1x1 skip conv and
+        no GroupNorm group straddles the seam; the port concatenates, the same
+        math, and only keeps conv1 of those blocks out of the fused kernel,
+        as JAX does."""
         super().__init__()
         self.dtype = dtype
+        self.resampling = resampling
+        cg = in_channels // 32
+        self.concat_free_in_jax = (
+            skip_in_channels > 0 and resampling == "none" and in_channels != out_channels
+            and in_channels % 32 == 0 and (in_channels - skip_in_channels) % cg == 0
+            and skip_in_channels % cg == 0)
         self.dropout = EfficientDropout(drop_rate)
         self.resample = {"upsample": nearest_upsample, "downsample": avg_pool_2x,
                          "none": lambda a: a}[resampling]
@@ -84,12 +114,20 @@ class ResidualBlock(nn.Module):
         self.skip = nn.Conv2d(in_channels, out_channels, 1) if in_channels != out_channels else None
 
     def forward(self, x, t_emb, train=False, generator=None):
+        fuse = not train  # the inference kernels: no autograd through them, no dropout
+        c_out = self.conv1.out_channels
         skip = self.resample(x)
         if self.skip is not None:
             skip = conv2d(skip, self.skip, self.dtype)
-        h = conv2d(self.resample(self.norm1(x, silu=True)), self.conv1, self.dtype)
+        if (fuse and self.resampling == "none" and not self.concat_free_in_jax
+                and fusable(x.permute(0, 2, 3, 1), c_out)):
+            h = _fused_conv(x, self.conv1, self.norm1)
+        else:
+            h = conv2d(self.resample(self.norm1(x, silu=True, fuse=fuse)), self.conv1, self.dtype)
         shift, scale = linear(F.silu(t_emb), self.fc, self.dtype).chunk(2, dim=-1)
-        h = self.norm2(h, shift, scale, silu=True)
+        if fuse and fusable(h.permute(0, 2, 3, 1), c_out):
+            return _fused_conv(h, self.conv2, self.norm2, shift, scale, skip.to(h.dtype))
+        h = self.norm2(h, shift, scale, silu=True, fuse=fuse)
         h = self.dropout(h, train, generator)
         return conv2d(h, self.conv2, self.dtype) + skip
 
@@ -116,7 +154,7 @@ class AttentionBlock(nn.Module):
 
     def forward(self, x, train=False):
         B, C, H, W = x.shape
-        tokens = self.norm(x, silu=False).permute(0, 2, 3, 1).reshape(B, H * W, C)
+        tokens = self.norm(x, silu=False, fuse=not train).permute(0, 2, 3, 1).reshape(B, H * W, C)
         dt = tokens.dtype
         qkv = F.linear(tokens, self.proj_in.weight.flatten(1).to(dt), self.proj_in.bias.to(dt))
         out = spatial_attention_qkv(qkv, self.num_heads, train=train)
@@ -175,8 +213,8 @@ class UNet(nn.Module):
         embed_dim = embedding_dim or 4 * hid_channels
         chs = [m * hid_channels for m in ch_multipliers]
 
-        def block(level, in_ch, out_ch, resampling="none"):
-            res = ResidualBlock(in_ch, out_ch, embed_dim, resampling, dtype, drop_rate)
+        def block(level, in_ch, out_ch, resampling="none", skip_in=0):
+            res = ResidualBlock(in_ch, out_ch, embed_dim, resampling, dtype, drop_rate, skip_in)
             if not attn_flags[level]:
                 return res
             return _ResAttn(res, AttentionBlock(out_ch, head_dim, num_heads))
@@ -210,9 +248,10 @@ class UNet(nn.Module):
         for i in range(levels):
             nxt = hid_channels if i == 0 else chs[i - 1]
             prev = chs[-1] if i == levels - 1 else chs[i + 1]
-            mods = [block(i, prev + chs[i], chs[i])]
-            mods += [block(i, 2 * chs[i], chs[i]) for _ in range(1, num_res_blocks)]
-            mods.append(block(i, nxt + chs[i], chs[i]))
+            mods = [block(i, prev + chs[i], chs[i], skip_in=chs[i])]
+            mods += [block(i, 2 * chs[i], chs[i], skip_in=chs[i])
+                     for _ in range(1, num_res_blocks)]
+            mods.append(block(i, nxt + chs[i], chs[i], skip_in=nxt))
             if i != 0:
                 mods.append(block(i, chs[i], chs[i], "upsample"))
             self.upsamples[f"level_{i}"] = nn.ModuleList(mods)
@@ -264,6 +303,6 @@ class UNet(nn.Module):
                 h = blk(h, t_emb, train, generator)
         assert not hs
 
-        h = self.out_conv[0](h, silu=True)
+        h = self.out_conv[0](h, silu=True, fuse=not train)
         h = conv2d(h, self.out_conv[2], torch.float32)
         return h.permute(0, 2, 3, 1)
