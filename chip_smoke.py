@@ -7,12 +7,16 @@ Phases, one output line each (any failure raises and exits non-zero):
   1. card: the GPU's name and power limit as nvidia-smi reports them;
   2. kernels: builds the CUDA kernels from vdiff_tpu_torch/csrc and holds
      each sampling attention kernel against its plain PyTorch twin at the
-     sampler's shapes, f32 and bf16, and times both with CUDA events;
+     sampler's shapes, f32 and bf16, and times both with CUDA events; B2's
+     bf16 calls run the tensor-core attn_fwd_tc (held to the f32 twin within
+     2^-8·|ref| + 2^-8·(P·|v|) + 1e-4, at the CIFAR and celeba sampling
+     shapes), timed beside the f32-FMA kernel it replaced on the same inputs;
   3. unet: the full-width cifar10_cond UNet (random weights, zero-init layers
      perturbed) in f32 on the GPU against the same UNet on the CPU;
   4. sample: the port's CLI (vdiff_tpu_torch.generate) draws 256-step DDIM
      samples at w=0 (B=64, two batches) and with CFG at w=0.1 (B=32), and the
-     kernels' launch counters must show 17 + 1 launches per UNet forward;
+     kernels' launch counters must show 17 (attn_fwd_online) + 1 (attn_fwd_tc)
+     launches per UNet forward;
   4a. fused-kernels: gn_film_silu_kernel (B10) and fused_gn_silu_conv3x3 (B11)
      against their twins at the fused sampling path's shapes (B=64: 32x32,
      16x16, 8x8; B10 at C=256 and 512 with and without SiLU and once with
@@ -28,43 +32,53 @@ Phases, one output line each (any failure raises and exits non-zero):
   4c. fused-sample: the generate CLI with both switches on (DDIM-256, w=0,
      B=64, one batch, bf16), then with VDIFF_FUSED_GN=1 alone: finite PNGs,
      the per-forward counts times 256, and samples/s beside the default path's;
-  5. train-kernels: the training forward (attn_fwd_train; attn_fwd_qblk at
-     T=1024) and the two-pass backward (attn_bwd_rows + attn_bwd_cols)
+  5. train-kernels: the training forward (attn_fwd_train; at T=1024
+     attn_fwd_qblk in f32, attn_fwd_tc in bf16) and the backward (the
+     two-pass attn_bwd_rows + attn_bwd_cols; attn_bwd_tc for bf16 at T=1024)
      against their twins at the train step's shapes (B=128; T=64/256/1024 at
-     C=256, and two heads of 128), f32 and bf16, timed with CUDA events;
+     C=256, two heads of 128, and celeba's T=1024 with nine heads of 64 at
+     B=48), f32 and bf16, timed with CUDA events, the tensor-core kernels
+     beside the f32-FMA ones they replaced on the same bf16 inputs; at B4's
+     bf16 shapes attn_bwd_tc is also checked and timed, off the path;
   6. train-unet: one full-width train step (loss, backward, clip, AdamW, EMA)
      in f32 at B=2 on the GPU against the same step on the CPU, same weights,
      t, noise and CFG mask, dropout off; one step must launch attn_fwd_train
      17 times, attn_fwd_qblk once, each backward pass 18 times and
-     attn_fwd_online never;
+     attn_fwd_online never (f32 keeps the FMA kernels);
   7. train-cli: the port's train CLI (vdiff_tpu_torch.train) on
      synthetic_flagship.json with --allow-bf16 --epochs 1 (4 steps of 128, the
      epoch-end sample grid, ckpt_last), then generate samples from ckpt_last;
+     a bf16 step launches attn_fwd_tc and attn_bwd_tc once each;
   8. celeba-kernels: the head-dim 64 kernels (attn_fwd_pack1, attn_fwd_pack1_lse,
      attn_bwd_pack1, attn_bwd_pack1_kv) run at the shapes the celeba paths give
      them (CELEBA_KERNEL_SHAPES: the sampler's B=32, the train step's B=48)
      and are held against their twins, f32 and bf16: on the whole batch at
      T <= 1024, and at T=4096 on four batch slices of the same inputs and
      outputs (the twins' (B, N, T, T) f32 scores take 19 GB at B=48); then
-     timed in bf16 there beside the twin, SDPA and the card's bound;
+     timed in bf16 there beside the twin, SDPA and the card's bound, and
+     attn_bwd_tc checked and timed off the path at B8's shapes;
   9. celeba-unet: the full-width celeba UNet (301 M parameters, 40 multi-hot
      tags, 'both' head) in f32 at B=1 on the GPU against the CPU; one forward
-     must launch attn_fwd_pack1 10 times, attn_fwd_qblk 8 and attn_fwd_online 9;
+     must launch attn_fwd_pack1 10 times, attn_fwd_qblk 8 and attn_fwd_online 9
+     (in bf16, phase 11, attn_fwd_tc takes attn_fwd_qblk's 8);
  10. celeba-train-unet: one full-width f32 train step at B=1 on the GPU against
      the CPU, dropout off, with the per-step launch counts of CELEBA_STEP_LAUNCHES;
  11. celeba-sample: the generate CLI on the random-weight model with
      celeba.json, B=32, 16 DDIM steps at w=0, bf16, tags drawn from a written
-     list_attr_celeba.txt: finite PNGs and 10 / 8 / 9 launches per forward;
+     list_attr_celeba.txt: finite PNGs and 10 / 8 / 9 launches per forward
+     (attn_fwd_pack1 / attn_fwd_tc / attn_fwd_online);
  12. celeba-train: 3 steps of the bf16 train step at B=48 on seeded images and
-     multi-hot tags, each with CELEBA_STEP_LAUNCHES, a finite loss and the
-     peak device memory.
+     multi-hot tags, each with CELEBA_STEP_LAUNCHES_BF16, a finite loss and
+     the peak device memory.
 Every kernel's launches in the JSON record are counted on the main paths
 (phases 4, 4c, 7, 11, 12), each run with the counts set to 0 just before it and
 read just after: "launches" is their sum over the paths, and
-"launches_by_path" each path's own count. The line before last is the kernels' JSON record (with each
-kernel's time, its twin's, one PyTorch call's where there is one, and the
-card's bound for the same work); the last line is {"ok": true, "device":
-{...}}. Imports nothing of JAX.
+"launches_by_path" each path's own count. The line before last is the
+kernels' JSON record (with each kernel's time, its twin's, one PyTorch
+call's where there is one, the card's bound for the same work, and for B2's
+and B5's tensor-core kernels the FMA kernel's time on the same inputs,
+"before_ms"); the last line is {"ok": true, "device": {...}}. Imports
+nothing of JAX.
 """
 
 import collections
@@ -89,8 +103,8 @@ STEPS = 256
 CELEBA_STEPS, CELEBA_SAMPLE_B, CELEBA_TRAIN_B, CELEBA_TRAIN_STEPS = 16, 32, 48, 3
 FUSED_KERNELS = ("gn_film_silu_kernel", "fused_gn_silu_conv3x3")
 KERNELS = ("attn_fwd_online", "attn_fwd_qblk", "attn_fwd_train", "attn_bwd_rows",
-           "attn_bwd_cols", "attn_fwd_pack1", "attn_fwd_pack1_lse", "attn_bwd_pack1",
-           "attn_bwd_pack1_kv") + FUSED_KERNELS
+           "attn_bwd_cols", "attn_fwd_tc", "attn_bwd_tc", "attn_fwd_pack1", "attn_fwd_pack1_lse",
+           "attn_bwd_pack1", "attn_bwd_pack1_kv") + FUSED_KERNELS
 
 
 def _launches(**counts):
@@ -100,20 +114,24 @@ def _launches(**counts):
 
 # attention calls per cifar10_cond UNet forward: 17 at T <= 512 (8 at T=256,
 # 9 at T=64) go to the online kernel (attn_fwd_train when training), 1 at
-# T=1024 (up_1_us) to the q-blocked one; a training backward runs each
-# backward pass once per call
+# T=1024 (up_1_us) to B2: the q-blocked FMA kernel in f32, the tensor-core
+# attn_fwd_tc in bf16. A training backward runs each backward pass once per
+# call in f32; in bf16 the T=1024 call runs attn_bwd_tc instead.
 ONLINE_PER_FWD, QBLK_PER_FWD = 17, 1
 TRAIN_STEP_LAUNCHES = _launches(attn_fwd_train=17, attn_fwd_qblk=1, attn_bwd_rows=18,
                                 attn_bwd_cols=18)
+TRAIN_STEP_LAUNCHES_BF16 = _launches(attn_fwd_train=17, attn_fwd_tc=1, attn_bwd_rows=17,
+                                     attn_bwd_cols=17, attn_bwd_tc=1)
+SAMPLE_FWD_LAUNCHES_BF16 = _launches(attn_fwd_online=ONLINE_PER_FWD, attn_fwd_tc=QBLK_PER_FWD)
 # the fused inference kernels per cifar10_cond forward (27 residual and 18
 # attention blocks). With both switches on: conv1 of the 11 blocks that
 # neither resample nor take an up-path skip and all 27 conv2 go through
 # fused_gn_silu_conv3x3; the 18 attention norms, out_norm and norm1 of the 4
 # resampling and 12 up blocks through gn_film_silu_kernel. With VDIFF_FUSED_GN=1
 # alone all 73 GroupNorms do. The attention counts do not move.
-FUSED_FWD_LAUNCHES = _launches(attn_fwd_online=ONLINE_PER_FWD, attn_fwd_qblk=QBLK_PER_FWD,
+FUSED_FWD_LAUNCHES = _launches(attn_fwd_online=ONLINE_PER_FWD, attn_fwd_tc=QBLK_PER_FWD,
                                fused_gn_silu_conv3x3=38, gn_film_silu_kernel=35)
-FUSED_GN_FWD_LAUNCHES = _launches(attn_fwd_online=ONLINE_PER_FWD, attn_fwd_qblk=QBLK_PER_FWD,
+FUSED_GN_FWD_LAUNCHES = _launches(attn_fwd_online=ONLINE_PER_FWD, attn_fwd_tc=QBLK_PER_FWD,
                                   gn_film_silu_kernel=73)
 FUSED_B = 64  # the fused sampling path's batch
 # the celeba UNet's 27 attention calls (head dim 64), routed as JAX routes
@@ -124,11 +142,16 @@ FUSED_B = 64  # the fused sampling path's batch
 # (forward + full-row backward) at 9 calls, the kv-streamed pair at T=4096,
 # and B3/B2 + the two backward passes at the other 17. attn_fwd_pack1 runs
 # B1's kernel, attn_bwd_pack1 the two backward passes and attn_bwd_pack1_kv
-# the column pass; each wrapper counts only its own launches.
+# the column pass; each wrapper counts only its own launches. In bf16 B2's
+# calls and the T=1024 backward go to attn_fwd_tc and attn_bwd_tc.
 CELEBA_FWD_LAUNCHES = _launches(attn_fwd_pack1=10, attn_fwd_qblk=8, attn_fwd_online=9)
+CELEBA_FWD_LAUNCHES_BF16 = _launches(attn_fwd_pack1=10, attn_fwd_tc=8, attn_fwd_online=9)
 CELEBA_STEP_LAUNCHES = _launches(attn_fwd_pack1=9, attn_fwd_pack1_lse=1, attn_bwd_pack1=9,
                                  attn_bwd_pack1_kv=1, attn_fwd_train=16, attn_fwd_qblk=1,
                                  attn_bwd_rows=17, attn_bwd_cols=17)
+CELEBA_STEP_LAUNCHES_BF16 = _launches(attn_fwd_pack1=9, attn_fwd_pack1_lse=1, attn_bwd_pack1=9,
+                                      attn_bwd_pack1_kv=1, attn_fwd_train=16, attn_fwd_tc=1,
+                                      attn_bwd_rows=16, attn_bwd_cols=16, attn_bwd_tc=1)
 # (B, T, N, kernels) at head dim 64: every shape the celeba paths give the
 # head-dim 64 kernels, the sampler's B6 at T=4096 and the train step's at B=48
 # (the sampler's B6 at T <= 1024 runs the same code at a smaller batch)
@@ -141,8 +164,8 @@ CELEBA_KERNEL_SHAPES = (
 )
 # above this T the twins run on the batch slices 0, 1, B-2 and B-1 only
 TWIN_FULL_BATCH_MAX_T = 1024
-TRAINING_KERNELS = ("attn_fwd_train", "attn_bwd_rows", "attn_bwd_cols", "attn_fwd_pack1_lse",
-                    "attn_bwd_pack1", "attn_bwd_pack1_kv")
+TRAINING_KERNELS = ("attn_fwd_train", "attn_bwd_rows", "attn_bwd_cols", "attn_bwd_tc",
+                    "attn_fwd_pack1_lse", "attn_bwd_pack1", "attn_bwd_pack1_kv")
 
 # the card's peaks (NVIDIA H100 SXM data sheet, dense): bf16 on the tensor
 # cores, f32 outside them; HBM3 bandwidth
@@ -261,8 +284,11 @@ def phase_card():
 
 
 def phase_kernels():
-    """Each kernel vs attention_qkv_reference on the same inputs. Returns the
-    per-kernel record at the sampler's shape (bf16, as --allow-bf16 runs)."""
+    """Each kernel vs attention_qkv_reference on the same inputs. B2's bf16
+    calls run attn_fwd_tc (held by _check_tc_fwd and timed beside the f32-FMA
+    kernel on the same inputs, ``before_ms``), at the CIFAR and celeba
+    sampling shapes. Returns the per-kernel record at the sampler's shape
+    (bf16, as --allow-bf16 runs)."""
     from vdiff_tpu_torch import kernels
     from vdiff_tpu_torch.ops import attention as A
 
@@ -275,24 +301,53 @@ def phase_kernels():
         (A.attn_fwd_online, 64, 256, 1, 256),
         (A.attn_fwd_online, 64, 64, 1, 256),
         (A.attn_fwd_online, 64, 256, 2, 128),
-        (A.attn_fwd_qblk, 64, 1024, 1, 256),
+        (A.attn_fwd_qblk, 64, 1024, 1, 256),  # CIFAR sampling, up_1_us
         (A.attn_fwd_qblk, 64, 1024, 2, 128),
+        (A.attn_fwd_qblk, 32, 256, 9, 64),    # celeba sampling, the N=9 levels
+        (A.attn_fwd_qblk, 32, 1024, 9, 64),   # celeba sampling, up_2_us
     ]
     record = {}
     for fn, B, T, N, C in cases:
         for dtype in (torch.float32, torch.bfloat16):
             qkv = torch.randn(B, T, 3 * N * C, device="cuda", generator=gen).to(dtype)
-            tag = f"{fn.__name__} B={B} T={T} N={N} C={C} {str(dtype)[6:]}"
-            rec = {"max_abs_err": _check_fwd(tag, fn(qkv, N),
-                                             A.attention_qkv_reference(qkv.float(), N), dtype),
-                   "ms": cuda_ms(lambda: fn(qkv, N)),
+            tc = fn is A.attn_fwd_qblk and dtype == torch.bfloat16  # B2's bf16 dispatch
+            name = "attn_fwd_tc" if tc else fn.__name__
+            tag = f"{name} B={B} T={T} N={N} C={C} {str(dtype)[6:]}"
+            out = fn(qkv, N)
+            err = (_check_tc_fwd(tag, out, qkv, N) if tc else
+                   _check_fwd(tag, out, A.attention_qkv_reference(qkv.float(), N), dtype))
+            del out
+            rec = {"max_abs_err": err, "ms": cuda_ms(lambda: fn(qkv, N)),
+                   **({"before_ms": cuda_ms(lambda: fma_fwd(qkv, N))} if tc else {}),
                    "plain_ms": cuda_ms(lambda: A.attention_qkv_reference(qkv, N)),
                    "library_ms": cuda_ms(_sdpa(qkv, N)), **_bound("fwd", B, T, N, C, dtype)}
             print(f"kernels: {tag}: " + _fmt(rec), flush=True)
-            if dtype == torch.bfloat16 and fn.__name__ not in record:
-                record[fn.__name__] = rec
+            if dtype == torch.bfloat16 and name not in record:
+                record[name] = rec
             del qkv
+    torch.cuda.empty_cache()
     return record
+
+
+def fma_fwd(qkv, N):
+    """B2's f32-FMA kernel (attn_fwd_qblk.cu) on the same inputs, uncounted:
+    what bf16 calls ran before attn_fwd_tc, timed beside it."""
+    from vdiff_tpu_torch.ops import attention as A
+
+    B, T, C = A._shape(qkv, N)
+    return A._launch("vdiff_attn_fwd_qblk", qkv, N, B, T, C)
+
+
+def fma_bwd(qkv, g, N):
+    """The f32-FMA backward pair (attn_bwd_rows.cu, then attn_bwd_cols.cu) on
+    the same inputs, uncounted: what B5's bf16 calls ran before attn_bwd_tc."""
+    from vdiff_tpu_torch.ops import attention as A
+
+    B, T, C = A._shape(qkv, N)
+    dqkv = torch.empty_like(qkv)
+    lse, delta = A._bwd_rows(qkv, g, N, dqkv, B, T, C)
+    A._bwd_cols(qkv, g, N, lse, delta, dqkv, B, T, C)
+    return dqkv
 
 
 def _fmt(rec):
@@ -310,6 +365,30 @@ def _check_fwd(name, out, ref, dtype):
     if not bool(torch.isfinite(out).all()) or bool((err > tol).any()):
         fail(f"{name}: max err {err.max().item()} over tolerance "
              f"({'atol 1e-4' if dtype == torch.float32 else '2^-8 rel + 1e-4'})")
+    return err.max().item()
+
+
+def _check_tc_fwd(name, out, qkv, N):
+    """attn_fwd_tc's bf16 output vs the twin run in f32 on the same values,
+    per element within 2^-8·|ref| + 2^-8·(P·|v|) + 1e-4, where P·|v| is the
+    twin run with |v| in place of v: rounding each weight e to bf16 moves it
+    by at most 2^-9 relative, so an output moves by at most 2^-9·Σ p|v|; the
+    factor 2 and the output's own half ulp (2^-9·|ref|) give the limit.
+    Returns the largest absolute error."""
+    from vdiff_tpu_torch.ops import attention as A
+
+    torch.cuda.synchronize()  # a fault during the launch surfaces here
+    x = qkv.float()
+    ref = A.attention_qkv_reference(x, N)
+    if out.shape != ref.shape or out.dtype != torch.bfloat16:
+        fail(f"{name}: got {tuple(out.shape)} {out.dtype}")
+    v = x[..., 2 * x.shape[-1] // 3:]
+    v.abs_()
+    tol = BF16_RTOL * ref.abs() + BF16_RTOL * A.attention_qkv_reference(x, N) + F32_ATOL
+    err = (out.float() - ref).abs()
+    if not bool(torch.isfinite(out).all()) or bool((err > tol).any()):
+        fail(f"{name}: max err {err.max().item()} over tolerance (2^-8 |ref| + 2^-8 P|v| + 1e-4; "
+             f"largest excess {(err - tol).max().item()})")
     return err.max().item()
 
 
@@ -339,52 +418,92 @@ def _check_bwd(name, got, ref, dtype):
     return worst
 
 
+def _bwd_tc_off_path(tag, qkv, g, N, pair_ms):
+    """attn_bwd_tc at a bf16 shape where the FMA pair still runs (B4's and
+    B8's calls): held to the bf16 twin and timed beside the pair, the data
+    for routing those calls to it later. Its launches here are no path's."""
+    from vdiff_tpu_torch.ops import attention as A
+
+    err = _check_bwd(f"attn_bwd_tc (off the path) {tag}", A.attn_bwd_tc(qkv, g, N),
+                     A.attention_qkv_bwd_reference(qkv, g, N), torch.bfloat16)
+    ms = cuda_ms(lambda: A.attn_bwd_tc(qkv, g, N), iters=10)
+    print(f"attn_bwd_tc (off the path) {tag}: max_abs_err={err} ms={ms} against the FMA "
+          f"pair's {pair_ms}", flush=True)
+
+
 def phase_train_kernels():
     """The training kernels vs their twins at the train step's shapes (B=128,
-    the config's batch), f32 and bf16, timed with CUDA events; the forward at
-    T=1024 is B2's attn_fwd_qblk, whose record stays phase 2's. Returns the
-    per-kernel record at T=256, C=256 in bf16 (8 of the 18 attention calls of
-    a training forward; --allow-bf16)."""
+    the config's batch; celeba's N=9 level at T=1024, B=48), f32 and bf16,
+    timed with CUDA events. The forward at T=1024 is B2 (attn_fwd_qblk in
+    f32, attn_fwd_tc in bf16, whose sampling record stays phase 2's), the
+    backward there B5 (the FMA pair in f32, attn_bwd_tc in bf16, timed beside
+    the pair on the same inputs, ``before_ms``). Returns the per-kernel
+    records in bf16: B3 and the pair at T=256, C=256 (8 of the 18 attention
+    calls of a training forward; --allow-bf16), attn_bwd_tc at T=1024."""
     from vdiff_tpu_torch.ops import attention as A
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     cases = [(128, 256, 1, 256), (128, 64, 1, 256), (128, 1024, 1, 256),
-             (128, 256, 2, 128), (128, 1024, 2, 128)]
+             (128, 256, 2, 128), (128, 1024, 2, 128), (CELEBA_TRAIN_B, 1024, 9, 64)]
     record = {}
     for B, T, N, C in cases:
         for dtype in (torch.float32, torch.bfloat16):
             tag = f"B={B} T={T} N={N} C={C} {str(dtype)[6:]}"
             qkv = torch.randn(B, T, 3 * N * C, device="cuda", generator=gen).to(dtype)
             g = torch.randn(B, T, N * C, device="cuda", generator=gen).to(dtype)
+            tc = dtype == torch.bfloat16 and T > A.QBLK_THRESHOLD  # B2/B5's bf16 dispatch
             # the training forward: B3's kernel at T <= 512, B2's above
             fwd = A.attn_fwd_train if T <= A.QBLK_THRESHOLD else A.attn_fwd_qblk
-            err = _check_fwd(f"{fwd.__name__} {tag}", fwd(qkv, N),
-                             A.attention_qkv_reference(qkv.float(), N), dtype)
-            rec = {fwd.__name__: {
+            name = "attn_fwd_tc" if tc else fwd.__name__
+            out = fwd(qkv, N)
+            err = (_check_tc_fwd(f"{name} {tag}", out, qkv, N) if tc else _check_fwd(
+                f"{name} {tag}", out, A.attention_qkv_reference(qkv.float(), N), dtype))
+            del out
+            rec = {name: {
                 "max_abs_err": err, "ms": cuda_ms(lambda: fwd(qkv, N), iters=10),
+                **({"before_ms": cuda_ms(lambda: fma_fwd(qkv, N), iters=10)} if tc else {}),
                 "plain_ms": cuda_ms(lambda: A.attention_qkv_reference(qkv, N), iters=10),
                 "library_ms": cuda_ms(_sdpa(qkv, N), iters=10), **_bound("fwd", B, T, N, C, dtype)}}
+            bwd_name = "attn_bwd_tc" if tc else "attn_bwd"
             dqkv = A.attn_bwd(qkv, g, N)
-            err = _check_bwd(f"attn_bwd {tag}", dqkv, A.attention_qkv_bwd_reference(qkv, g, N), dtype)
-            lse, delta = A.attn_bwd_rows(qkv, g, N, dqkv)
+            err = _check_bwd(f"{bwd_name} {tag}", dqkv, A.attention_qkv_bwd_reference(qkv, g, N),
+                             dtype)
             plain = cuda_ms(lambda: A.attention_qkv_bwd_reference(qkv, g, N), iters=10)
-            # no one PyTorch call computes either pass alone: SDPA's forward +
-            # backward, the yardstick of the pair, is printed beside them
-            pair_library = cuda_ms(_sdpa(qkv, N, g), iters=10)
-            rec["attn_bwd_rows"] = {"max_abs_err": err, "plain_ms": plain, "library_ms": None,
-                                    "ms": cuda_ms(lambda: A.attn_bwd_rows(qkv, g, N, dqkv), iters=10),
-                                    **_bound("bwd_rows", B, T, N, C, dtype)}
-            rec["attn_bwd_cols"] = {"max_abs_err": err, "plain_ms": plain, "library_ms": None, "ms": cuda_ms(
-                lambda: A.attn_bwd_cols(qkv, g, N, lse, delta, dqkv), iters=10),
-                **_bound("bwd_cols", B, T, N, C, dtype)}
+            # SDPA's forward + backward, the yardstick of the whole backward
+            library = cuda_ms(_sdpa(qkv, N, g), iters=10)
+            if tc:
+                rec["attn_bwd_tc"] = {"max_abs_err": err,
+                                      "ms": cuda_ms(lambda: A.attn_bwd(qkv, g, N), iters=10),
+                                      "before_ms": cuda_ms(lambda: fma_bwd(qkv, g, N), iters=10),
+                                      "plain_ms": plain, "library_ms": library,
+                                      **_bound("bwd", B, T, N, C, dtype)}
+            else:
+                # no one PyTorch call computes either pass alone: SDPA's forward
+                # + backward is printed beside them
+                lse, delta = A.attn_bwd_rows(qkv, g, N, dqkv)
+                rec["attn_bwd_rows"] = {"max_abs_err": err, "plain_ms": plain, "library_ms": None,
+                                        "ms": cuda_ms(lambda: A.attn_bwd_rows(qkv, g, N, dqkv),
+                                                      iters=10),
+                                        **_bound("bwd_rows", B, T, N, C, dtype)}
+                rec["attn_bwd_cols"] = {"max_abs_err": err, "plain_ms": plain, "library_ms": None,
+                                        "ms": cuda_ms(lambda: A.attn_bwd_cols(
+                                            qkv, g, N, lse, delta, dqkv), iters=10),
+                                        **_bound("bwd_cols", B, T, N, C, dtype)}
+                del lse, delta
+                if dtype == torch.bfloat16:  # B4's shapes
+                    _bwd_tc_off_path(tag, qkv, g, N, rec["attn_bwd_rows"]["ms"]
+                                     + rec["attn_bwd_cols"]["ms"])
             for name, r in rec.items():
+                pair = name in ("attn_bwd_rows", "attn_bwd_cols")
                 print(f"train-kernels: {name} {tag}: " + _fmt(r)
-                      + (f" (plain: whole backward; SDPA forward+backward {pair_library} ms, "
+                      + (f" (plain: whole backward; SDPA forward+backward {library} ms, "
                          f"bound of the whole backward {_bound('bwd', B, T, N, C, dtype)})"
-                         if "bwd" in name else ""), flush=True)
+                         if pair else " (library: SDPA forward+backward)" if "bwd" in name else ""),
+                      flush=True)
                 if dtype == torch.bfloat16 and name not in record:
                     record[name] = r
-            del qkv, g, dqkv, lse, delta
+            del qkv, g, dqkv
+            torch.cuda.empty_cache()
     return record
 
 
@@ -524,10 +643,10 @@ def phase_train_cli(tmp):
         fail(f"train-cli: {steps} steps, loss {summary['loss']}")
     if not (os.path.exists(ckpt) and os.path.exists(os.path.join(summary["image_dir"], "1.png"))):
         fail("train-cli: no ckpt_last.pt or sample grid")
-    want = {k: v * steps for k, v in TRAIN_STEP_LAUNCHES.items()}
+    want = {k: v * steps for k, v in TRAIN_STEP_LAUNCHES_BF16.items()}
     # the epoch-end sample grid: one inference forward per sampling step
     want["attn_fwd_online"] += ONLINE_PER_FWD * STEPS
-    want["attn_fwd_qblk"] += QBLK_PER_FWD * STEPS
+    want["attn_fwd_tc"] += QBLK_PER_FWD * STEPS
     if launched != want:
         fail(f"train-cli: launches {launched}, expected {want}")
     out = generate.main(["--config-path", TRAIN_CONFIG, "--ckpt-path", ckpt, "--use-ema",
@@ -553,27 +672,28 @@ def phase_sample(model, tmp):
     rates = {}
     _reset_counts()
     for name, w, bs, total in runs:
-        n_on, n_q = A.attn_fwd_online.launches, A.attn_fwd_qblk.launches
+        n_on, n_q = A.attn_fwd_online.launches, A.attn_fwd_tc.launches
         summary = generate.main([
             "--config-path", CONFIG, "--ckpt-path", ckpt, "--save-dir", os.path.join(tmp, "out"),
             "--use-ema", "--use-ddim", "--allow-bf16", "--sample-timesteps", str(STEPS),
             "--w-guide", w, "--batch-size", str(bs), "--total-size", str(total), "--seed", "0",
         ])
         forwards = STEPS * (total // bs)
-        d_on, d_q = A.attn_fwd_online.launches - n_on, A.attn_fwd_qblk.launches - n_q
+        d_on, d_q = A.attn_fwd_online.launches - n_on, A.attn_fwd_tc.launches - n_q
         pngs = len(glob.glob(os.path.join(summary["save_dir"], "*.png")))
         rates[name] = summary["images"] / summary["seconds"]
         print(f"sample: {name} B={bs} x{total // bs} batches, {STEPS} DDIM steps: "
               f"{summary['images'] / summary['seconds']} samples/s, {pngs} PNGs, "
-              f"finite={summary['finite']}, launches online={d_on} qblk={d_q}", flush=True)
+              f"finite={summary['finite']}, launches online={d_on} tc={d_q}", flush=True)
         if pngs != total or not summary["finite"]:
             fail(f"sample {name}: {pngs} PNGs (want {total}), finite={summary['finite']}")
         if (d_on, d_q) != (ONLINE_PER_FWD * forwards, QBLK_PER_FWD * forwards):
-            fail(f"sample {name}: launches online={d_on} qblk={d_q}, expected "
+            fail(f"sample {name}: launches online={d_on} tc={d_q}, expected "
                  f"{ONLINE_PER_FWD * forwards} and {QBLK_PER_FWD * forwards}")
     launched = _counts()
-    if any(launched[k] for k in TRAINING_KERNELS + FUSED_KERNELS):
-        fail(f"sample: the default sampler launched training or fused kernels: {launched}")
+    forwards = STEPS * sum(total // bs for _, _, bs, total in runs)
+    if launched != {k: v * forwards for k, v in SAMPLE_FWD_LAUNCHES_BF16.items()}:
+        fail(f"sample: the bf16 sampler launched {launched}: B1 and attn_fwd_tc alone expected")
     return launched, ckpt, rates["w=0"]
 
 
@@ -762,7 +882,7 @@ def phase_fused_unet(cfg):
             return out, _counts()
 
     base, launched = forward(False, False)
-    if launched != _launches(attn_fwd_online=ONLINE_PER_FWD, attn_fwd_qblk=QBLK_PER_FWD):
+    if launched != SAMPLE_FWD_LAUNCHES_BF16:
         fail(f"fused-unet: the default forward launched {launched}")
     scale = base.abs().max().item()
     for name, conv, gn, want in (("both switches", True, True, FUSED_FWD_LAUNCHES),
@@ -889,6 +1009,8 @@ def phase_celeba_kernels():
                           + (" (library: SDPA forward+backward)" if "bwd" in name else ""),
                           flush=True)
                     record.setdefault(name, rec)
+                    if name == "attn_bwd_pack1":  # B8's shapes
+                        _bwd_tc_off_path(tag, qkv, g, N, rec["ms"])
                     torch.cuda.empty_cache()
             del qkv, g, timed
             out = lse = None
@@ -962,7 +1084,7 @@ def phase_celeba_sample(model, tmp):
           flush=True)
     if pngs != B or not summary["finite"]:
         fail(f"celeba-sample: {pngs} PNGs (want {B}), finite={summary['finite']}")
-    want = {k: v * CELEBA_STEPS for k, v in CELEBA_FWD_LAUNCHES.items()}
+    want = {k: v * CELEBA_STEPS for k, v in CELEBA_FWD_LAUNCHES_BF16.items()}
     if launched != want:
         fail(f"celeba-sample: launches {launched}, expected {want}")
     return launched
@@ -1000,8 +1122,9 @@ def phase_celeba_train(cfg):
               f"({CELEBA_TRAIN_B / seconds:.1f} img/s), loss {loss}, launches {launched}", flush=True)
         if not math.isfinite(loss):
             fail(f"celeba-train: step {i} loss {loss}")
-        if launched != CELEBA_STEP_LAUNCHES:
-            fail(f"celeba-train: step {i} launched {launched}, expected {CELEBA_STEP_LAUNCHES}")
+        if launched != CELEBA_STEP_LAUNCHES_BF16:
+            fail(f"celeba-train: step {i} launched {launched}, expected "
+                 f"{CELEBA_STEP_LAUNCHES_BF16}")
         total.update(launched)
     print(f"celeba-train: peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
           flush=True)
@@ -1046,14 +1169,18 @@ def main():
     meta = {
         "attn_fwd_online": ("vdiff_tpu_torch/csrc/attn_fwd_online.cu",
                             "vdiff_tpu/ops/attention.py:37"),
-        "attn_fwd_qblk": ("vdiff_tpu_torch/csrc/attn_fwd_qblk.cu",
-                          "vdiff_tpu/ops/attention.py:224"),
+        # B2 and B5 in bf16, the paths' type: the tensor-core kernels (their
+        # f32 calls keep the FMA kernels, off these paths); the pair is B4's
+        "attn_fwd_tc": ("vdiff_tpu_torch/csrc/attn_fwd_tc.cu",
+                        "vdiff_tpu/ops/attention.py:224"),
+        "attn_bwd_tc": ("vdiff_tpu_torch/csrc/attn_bwd_tc.cu",
+                        "vdiff_tpu/ops/attention.py:240"),
         "attn_fwd_train": ("vdiff_tpu_torch/csrc/attn_fwd_train.cu",
                            "vdiff_tpu/ops/attention.py:184"),
         "attn_bwd_rows": ("vdiff_tpu_torch/csrc/attn_bwd_rows.cu",
                           "vdiff_tpu/ops/attention.py:204"),
         "attn_bwd_cols": ("vdiff_tpu_torch/csrc/attn_bwd_cols.cu",
-                          "vdiff_tpu/ops/attention.py:240"),
+                          "vdiff_tpu/ops/attention.py:204"),
         # B6 launches B1's kernel, B7 its lse entry, B8 the two backward
         # passes (attn_bwd_rows.cu, then attn_bwd_cols.cu): each counted apart
         "attn_fwd_pack1": ("vdiff_tpu_torch/csrc/attn_fwd_online.cu",

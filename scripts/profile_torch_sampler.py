@@ -13,12 +13,14 @@ kernel time over wall time) and the kernels by total device time; the full
 tables go to ``--out``. ``--fused`` sets ``VDIFF_FUSED_CONV=1`` and
 ``VDIFF_FUSED_GN=1`` first, so the same profile comes back for the fused
 inference kernels (set ``VDIFF_FUSED_GN=1`` alone in the environment for the
-one-kernel GroupNorm without the fused conv); the first line printed says
-which switches were on. Needs a CUDA device.
+one-kernel GroupNorm without the fused conv); the first lines printed give
+the card's name and power limit and say which switches were on. Needs a
+CUDA device.
 """
 
 import argparse
 import os
+import subprocess
 import sys
 import time
 
@@ -95,6 +97,9 @@ def main():
     args = p.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_sampler: needs a CUDA device")
+    print("card: " + subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0])
     if args.fused:
         os.environ["VDIFF_FUSED_CONV"] = os.environ["VDIFF_FUSED_GN"] = "1"
     print(fused_note())

@@ -9,7 +9,8 @@ cifar10_cond model at the default B=128, or celeba at the JAX bench's B=48
 (bench.py:380-408: no remat, multi-hot tags). Its train step (loss, backward,
 clip, AdamW, EMA; the config's optimizer settings) runs on seeded images and
 labels: 3 warm-up steps (each timed on its own), then ``--steps`` steps timed
-(host clock around synchronised steps), then 2 steps profiled with ``torch.profiler``. Prints the step time,
+(host clock around synchronised steps), then 2 steps profiled with ``torch.profiler``. Prints the
+card's name and power limit, the step time,
 images/s, the device-busy share (summed kernel time over the profiled wall
 time, which the profiler's own host cost lengthens, and over the unprofiled
 step), peak device memory and the kernels by total device time; the full
@@ -21,6 +22,7 @@ table goes to ``--out``. TF32 is off and cuDNN's autotuner is off unless
 import argparse
 import copy
 import os
+import subprocess
 import sys
 import time
 
@@ -57,6 +59,9 @@ def main():
     args = p.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_train: needs a CUDA device")
+    print("card: " + subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0])
     torch.backends.cudnn.benchmark = args.cudnn_benchmark
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     num_classes, multitags, res, batch = SETUPS[args.config]

@@ -1,0 +1,426 @@
+"""The bf16 tensor-core attention kernels of the port (``attn_fwd_tc.cu`` for
+B2, ``attn_bwd_tc.cu`` for B5) on the CPU, where no CUDA kernel runs.
+
+Each kernel's tile algorithm is written out here in torch at the kernel's
+tile sizes and held, on bf16 inputs made from a numpy seed, against JAX's
+Pallas ``_attn_fwd_kernel_qblk`` (B2) and ``_attn_bwd_kernel_qblk`` (B5) in
+interpret mode, within the limits chip_smoke.py holds the kernels to on the
+card: the public JAX functions at T=1024 (``flash_attention_qkv`` and the VJP
+of ``flash_attention_trainable``, as tests/test_torch_attention_train.py runs
+them), and the kernels' own bodies in a one-block ``pallas_call`` at ragged T
+(a multiple of 32 and not of 64). The emulations follow the kernels' f32
+arithmetic step by step (online softmax in the log2 domain, the scale on f32
+S, P and dS rounded to bf16 as operands); only the order of each product's f32
+sums differs. Then the wrappers: the CPU calls return the twins and count no
+launch, bf16 CUDA calls dispatch to the new kernels (meta tensors into a stub
+library), the refusals, and the build registration.
+"""
+
+import functools
+import math
+import os
+import re
+import types
+
+import numpy as np
+import pytest
+
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+import torch  # noqa: E402
+
+from tests import torch_parity as P  # noqa: E402
+from vdiff_tpu_torch import kernels  # noqa: E402
+from vdiff_tpu_torch.ops import attention as A  # noqa: E402
+
+# chip_smoke.py's limits. Forward: per element 2^-8·|ref| + 2^-8·(P·|v|) +
+# 1e-4 against the f32 twin (e rounded to bf16 moves an output by at most
+# 2^-9·Σ p|v|; the output's own rounding by half an ulp). Backward: per
+# d(qkv) slot 2^-7·|ref| + 2^-8·max|ref| against the bf16 twin.
+FWD_RTOL, FWD_ATOL = 2.0 ** -8, 1e-4
+BWD_RTOL, BWD_SCALE = 2.0 ** -7, 2.0 ** -8
+
+# the kernels' tile sizes by head dim: keys per tile of the forward and of the
+# backward's row kernel (FwdShape::kBk, RowShape::kBk), q rows per step of the
+# column kernel (ColShape::kBq); 64 q rows a forward / row block, 64 keys a
+# column block
+KEY_TILE = {32: 64, 64: 64, 128: 64, 256: 32}
+COL_Q_TILE = {32: 64, 64: 64, 128: 32, 256: 32}
+LOG2E, LN2 = np.float32(1.4426950408889634), np.float32(0.6931471805599453)
+
+
+def _split(qkv, N):
+    """(B, T, 3·N·C) → f32 q, k, v as (B, N, T, C)."""
+    B, T, three_nc = qkv.shape
+    C = three_nc // (3 * N)
+    return [a.float().permute(0, 2, 1, 3) for a in qkv.reshape(B, T, 3, N, C).unbind(2)]
+
+
+def _bf16(x):
+    return x.to(torch.bfloat16).float()
+
+
+def emulate_fwd_tc(qkv, N):
+    """attn_fwd_tc.cu's algorithm: per key tile s = (q·kᵀ)·(log2e/√C) in f32
+    (keys past T at -inf), running max m and sum l rescaled by exp2(m_old −
+    m_new), o += bf16(exp2(s − m))·v; out = o / l, one cast to bf16."""
+    q, k, v = _split(qkv, N)
+    B, _, T, C = q.shape
+    bk, scale_log2 = KEY_TILE[C], LOG2E / np.sqrt(np.float32(C))
+    m = torch.full((B, N, T, 1), -math.inf)
+    l = torch.zeros(B, N, T, 1)
+    o = torch.zeros(B, N, T, C)
+    for j in range(0, T, bk):
+        s = (q @ k[:, :, j:j + bk].transpose(-1, -2)) * float(scale_log2)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(s - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        o = o * alpha + _bf16(p) @ v[:, :, j:j + bk]
+        m = m_new
+    return (o / l).permute(0, 2, 1, 3).reshape(B, T, N * C).to(torch.bfloat16)
+
+
+def emulate_bwd_tc(qkv, g, N):
+    """attn_bwd_tc.cu's algorithm. Row kernel, sweep 1 over key tiles: s as in
+    the forward, running max m, l = Σ exp2(s − m) and d = Σ exp2(s − m)·dP,
+    both rescaled as m grows; lse = (m + log2 l)·ln2 and δ = d / l (f32,
+    the full row). Sweep 2: P = exp2(s − m − log2 l), dS = bf16(P∘(dP − δ)),
+    dQ += dS·k, scaled by 1/√C at the end. Column kernel, per q tile:
+    P = exp2(S·log2e/√C − lse·log2e), dS as above, dV += bf16(P)ᵀ·dO,
+    dK += dSᵀ·q, scaled at the end. One cast of each to bf16."""
+    q, k, v = _split(qkv, N)
+    do = g.float().reshape(g.shape[0], g.shape[1], N, -1).permute(0, 2, 1, 3)
+    B, _, T, C = q.shape
+    bk, bq = KEY_TILE[C], COL_Q_TILE[C]
+    scale = np.float32(1.0) / np.sqrt(np.float32(C))
+    scale_log2 = float(scale * LOG2E)
+    m = torch.full((B, N, T, 1), -math.inf)
+    l = torch.zeros(B, N, T, 1)
+    d = torch.zeros(B, N, T, 1)
+    for j in range(0, T, bk):
+        s = (q @ k[:, :, j:j + bk].transpose(-1, -2)) * scale_log2
+        dp = do @ v[:, :, j:j + bk].transpose(-1, -2)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(s - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        d = d * alpha + (p * dp).sum(-1, keepdim=True)
+        m = m_new
+    lse2 = m + torch.log2(l)
+    delta = d / l
+    lse = lse2 * float(LN2)  # as written to device memory
+    dq = torch.zeros_like(q)
+    for j in range(0, T, bk):
+        s = (q @ k[:, :, j:j + bk].transpose(-1, -2)) * scale_log2
+        dp = do @ v[:, :, j:j + bk].transpose(-1, -2)
+        ds = _bf16(torch.exp2(s - lse2) * (dp - delta))
+        dq = dq + ds @ k[:, :, j:j + bk]
+    dk, dv = torch.zeros_like(k), torch.zeros_like(v)
+    for i in range(0, T, bq):
+        rows = slice(i, i + bq)
+        s = k @ q[:, :, rows].transpose(-1, -2)  # (B, N, keys, q rows)
+        p = torch.exp2(s * scale_log2 - (lse[:, :, rows] * float(LOG2E)).transpose(-1, -2))
+        dp = v @ do[:, :, rows].transpose(-1, -2)
+        ds = _bf16(p * (dp - delta[:, :, rows].transpose(-1, -2)))
+        dv = dv + _bf16(p) @ do[:, :, rows]
+        dk = dk + ds @ q[:, :, rows]
+    out = [a.permute(0, 2, 1, 3) for a in (dq * float(scale), dk * float(scale), dv)]
+    return torch.stack(out, dim=2).reshape(B, T, 3 * N * C).to(torch.bfloat16)
+
+
+def _bf16_inputs(B, T, N, C, seed):
+    """Seeded bf16 qkv (B, T, 3·N·C) and d(out) (B, T, N·C), drawn with numpy."""
+    rng = np.random.RandomState(seed)
+    qkv = torch.from_numpy((rng.randn(B, T, 3 * N * C) * 0.5).astype(np.float32)).bfloat16()
+    g = torch.from_numpy(rng.randn(B, T, N * C).astype(np.float32)).bfloat16()
+    return qkv, g
+
+
+def _fold(a, N):
+    """(B, T, N·C) → (B·N, T, C), JAX's head folding."""
+    B, T, NC = a.shape
+    return a.reshape(B, T, N, NC // N).transpose(0, 2, 1, 3).reshape(B * N, T, NC // N)
+
+
+def _unfold(a, B, N):
+    BN, T, C = a.shape
+    return a.reshape(B, N, T, C).transpose(0, 2, 1, 3).reshape(B, T, N * C)
+
+
+def _jax_bf16(t):
+    return jnp.asarray(t.float().numpy(), jnp.bfloat16)
+
+
+def _np(a):
+    return np.asarray(jnp.asarray(a, jnp.float32))
+
+
+def _check_fwd(got, ref, qkv, N):
+    """chip_smoke's forward limit, with the f32 twin and P·|v| on qkv."""
+    x = qkv.float()
+    twin = A.attention_qkv_reference(x, N).numpy()
+    x[..., 2 * x.shape[-1] // 3:] = x[..., 2 * x.shape[-1] // 3:].abs()
+    pv = A.attention_qkv_reference(x, N).numpy()
+    tol = FWD_RTOL * np.abs(twin) + FWD_RTOL * pv + FWD_ATOL
+    for name, other in (("reference", ref), ("f32 twin", twin)):
+        err = np.abs(got.float().numpy() - other)
+        assert (err <= tol).all(), f"vs {name}: largest excess {(err - tol).max()}"
+
+
+def _check_bwd(got, ref):
+    """chip_smoke's backward limit, slot by slot."""
+    got = got.float().numpy()
+    for a, r in zip(np.split(got, 3, -1), np.split(ref, 3, -1)):
+        tol = BWD_RTOL * np.abs(r) + BWD_SCALE * np.abs(r).max()
+        assert (np.abs(a - r) <= tol).all(), f"largest excess {(np.abs(a - r) - tol).max()}"
+
+
+@pytest.mark.parametrize("B,T,N,C", [(1, 1024, 1, 256), (1, 1024, 2, 128)])
+def test_fwd_tiles_match_pallas_qblk_through_flash_attention_qkv(B, T, N, C):
+    """T=1024 reaches _attn_fwd_kernel_qblk through flash_attention_qkv;
+    C=256 runs 32-key tiles, C=128 64-key tiles."""
+    from jax.experimental.pallas import tpu as pltpu
+
+    from vdiff_tpu.ops.attention import flash_attention_qkv
+
+    qkv, _ = _bf16_inputs(B, T, N, C, seed=C)
+    with pltpu.force_tpu_interpret_mode():
+        ref = _np(flash_attention_qkv(_jax_bf16(qkv), N))
+    got = emulate_fwd_tc(qkv, N)
+    assert got.dtype == torch.bfloat16 and got.shape == (B, T, N * C)
+    _check_fwd(got, ref, qkv, N)
+
+
+@pytest.mark.parametrize("B,T,N,C", [(2, 96, 2, 64), (1, 160, 3, 32), (1, 1056, 1, 256)])
+def test_fwd_tiles_match_pallas_qblk_at_ragged_t(B, T, N, C):
+    """T a multiple of 32 and not of 64: the last 64-key tile is half masked
+    (C ≤ 128) and the last q tile half past T. The Pallas kernel runs in one
+    q block of all T rows through JAX's own _qblk_fwd_call."""
+    from vdiff_tpu.ops.attention import _qblk_fwd_call
+
+    qkv, _ = _bf16_inputs(B, T, N, C, seed=T)
+    q, k, v = (_fold(a, N) for a in np.split(qkv.float().numpy(), 3, axis=-1))
+    ref = _np(_qblk_fwd_call(*(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)), T,
+                             interpret=True))
+    _check_fwd(emulate_fwd_tc(qkv, N), _unfold(ref, B, N), qkv, N)
+
+
+@pytest.mark.parametrize("B,T,N,C", [(1, 1024, 1, 32), (1, 1024, 1, 256)])
+def test_bwd_tiles_match_pallas_qblk_through_flash_attention_trainable(B, T, N, C):
+    """T=1024 reaches _attn_bwd_kernel_qblk through flash_attention_trainable's
+    VJP in bf16 (two q blocks of 512, dK/dV carried in f32)."""
+    from vdiff_tpu.ops.attention import flash_attention_trainable
+
+    qkv, g = _bf16_inputs(B, T, N, C, seed=T + C)
+    q, k, v = (_fold(a, N) for a in np.split(qkv.float().numpy(), 3, axis=-1))
+    _, vjp = jax.vjp(lambda q, k, v: flash_attention_trainable(q, k, v, True),
+                     *(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)))
+    dref = np.concatenate([_unfold(_np(d), B, N)
+                           for d in vjp(jnp.asarray(_fold(g.float().numpy(), N), jnp.bfloat16))], -1)
+    got = emulate_bwd_tc(qkv, g, N)
+    assert got.dtype == torch.bfloat16 and got.shape == qkv.shape
+    _check_bwd(got, dref)
+    _check_bwd(got, A.attention_qkv_bwd_reference(qkv, g, N).float().numpy())
+
+
+def _pallas_bwd_one_block(q, k, v, g):
+    """JAX's _attn_bwd_kernel_qblk over one q block of all T rows, as
+    _flash_trainable_bwd calls it (dK/dV accumulated in f32 outputs)."""
+    from jax.experimental import pallas as pl
+    from jax.experimental.pallas import tpu as pltpu
+
+    from vdiff_tpu.ops.attention import _attn_bwd_kernel_qblk
+
+    BN, T, C = q.shape
+    spec = pl.BlockSpec((1, T, C), lambda b, i: (b, i, 0), memory_space=pltpu.VMEM)
+    dq, dk, dv = pl.pallas_call(
+        functools.partial(_attn_bwd_kernel_qblk, scale=1.0 / math.sqrt(C)),
+        grid=(BN, 1), in_specs=[spec] * 4, out_specs=[spec] * 3,
+        out_shape=[jax.ShapeDtypeStruct((BN, T, C), q.dtype),
+                   jax.ShapeDtypeStruct((BN, T, C), jnp.float32),
+                   jax.ShapeDtypeStruct((BN, T, C), jnp.float32)],
+        interpret=True,
+    )(q, k, v, g)
+    return dq, dk.astype(k.dtype), dv.astype(v.dtype)
+
+
+@pytest.mark.parametrize("B,T,N,C", [(2, 96, 2, 64), (1, 160, 1, 128), (1, 96, 1, 256)])
+def test_bwd_tiles_match_pallas_qblk_at_ragged_t(B, T, N, C):
+    """Ragged T: half-masked key tiles in the row kernel, a q tile half past T
+    in the column kernel (C = 64), and a key block half past T."""
+    qkv, g = _bf16_inputs(B, T, N, C, seed=T + C)
+    q, k, v = (_fold(a, N) for a in np.split(qkv.float().numpy(), 3, axis=-1))
+    d = _pallas_bwd_one_block(*(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)),
+                              jnp.asarray(_fold(g.float().numpy(), N), jnp.bfloat16))
+    dref = np.concatenate([_unfold(_np(a), B, N) for a in d], -1)
+    got = emulate_bwd_tc(qkv, g, N)
+    _check_bwd(got, dref)
+    _check_bwd(got, A.attention_qkv_bwd_reference(qkv, g, N).float().numpy())
+
+
+def test_emulations_round_p_where_the_twins_do_not():
+    """The forward's one departure is real and small: the emulation differs
+    from the f32 twin (bf16 e) but by less than the limit's P·|v| term."""
+    qkv, _ = _bf16_inputs(1, 128, 1, 64, seed=9)
+    got = emulate_fwd_tc(qkv, 1).float()
+    f32 = A.attention_qkv_reference(qkv.float(), 1)
+    assert not torch.equal(got, f32.to(torch.bfloat16).float())
+    _check_fwd(got.to(torch.bfloat16), f32.numpy(), qkv, 1)
+
+
+# ---------------------------------------------------------------------------
+# the wrappers
+# ---------------------------------------------------------------------------
+
+COUNTERS = ("attn_fwd_tc", "attn_bwd_tc", "attn_fwd_qblk", "attn_bwd_rows", "attn_bwd_cols",
+            "attn_fwd_train", "attn_fwd_online")
+
+
+def _counts():
+    return {name: getattr(A, name).launches for name in COUNTERS}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cpu_calls_return_the_twins_and_count_no_launch(dtype):
+    qkv, g = (a.to(dtype) for a in _bf16_inputs(1, 1024, 1, 32, seed=2))
+    before = _counts()
+    fwd, bwd = A.attention_qkv_reference(qkv, 1), A.attention_qkv_bwd_reference(qkv, g, 1)
+    calls = [(A.attn_fwd_qblk(qkv, 1), fwd), (A.attn_bwd(qkv, g, 1), bwd)]
+    if dtype == torch.bfloat16:
+        calls += [(A.attn_fwd_tc(qkv, 1), fwd), (A.attn_bwd_tc(qkv, g, 1), bwd)]
+    x = qkv.clone().requires_grad_()
+    out = A.spatial_attention_qkv(x, 1, train=True)
+    out.backward(g)
+    calls += [(out.detach(), fwd), (x.grad, bwd)]
+    for got, ref in calls:
+        assert got.dtype == dtype
+        torch.testing.assert_close(got, ref, rtol=0, atol=0)
+    assert _counts() == before
+
+
+@pytest.fixture
+def stub_kernels(monkeypatch):
+    """Meta tensors take the wrappers' launch path into the stub library;
+    returns a function that reads the counts and sets them to 0."""
+    monkeypatch.setattr(kernels, "library", P.StubLibrary)
+    monkeypatch.setattr(A, "_need_cuda", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda *a: types.SimpleNamespace(cuda_stream=0))
+    for name in COUNTERS:
+        monkeypatch.setattr(getattr(A, name), "launches", 0)
+
+    def read():
+        counts = _counts()
+        for name in COUNTERS:
+            getattr(A, name).launches = 0
+        return {k: v for k, v in counts.items() if v}
+
+    return read
+
+
+@pytest.mark.parametrize("T", [256, 1024])
+def test_cuda_dispatch_on_dtype(stub_kernels, T):
+    """B2 (attn_fwd_qblk) and B5 (attn_bwd at T > 512) send bf16 calls to the
+    tensor-core kernels and f32 calls to the FMA kernels; B4 (T ≤ 512)
+    stays on the FMA pair in both types."""
+    for dtype in (torch.float32, torch.bfloat16):
+        qkv = torch.empty(2, T, 3 * 2 * 64, dtype=dtype, device="meta")
+        g = torch.empty(2, T, 2 * 64, dtype=dtype, device="meta")
+        assert A.attn_fwd_qblk(qkv, 2).shape == (2, T, 128)
+        assert stub_kernels() == ({"attn_fwd_tc": 1} if dtype == torch.bfloat16 else
+                                  {"attn_fwd_qblk": 1})
+        assert A.attn_bwd(qkv, g, 2).shape == qkv.shape
+        tc = dtype == torch.bfloat16 and T > A.QBLK_THRESHOLD
+        assert stub_kernels() == ({"attn_bwd_tc": 1} if tc else
+                                  {"attn_bwd_rows": 1, "attn_bwd_cols": 1})
+
+
+def _full_width(name, dtype):
+    from vdiff_tpu_torch.factory import CONFIG_DIR, build_unet, load_experiment_config
+
+    cfg, _ = load_experiment_config(f"{CONFIG_DIR}/{name}.json")
+    celeba = name == "celeba"
+    with torch.device("meta"):
+        return build_unet(dict(cfg["model"], drop_rate=0.0), in_channels=3,
+                          model_out_type=cfg["diffusion"]["model_out_type"],
+                          num_classes=40 if celeba else 10, multitags=celeba, dtype=dtype)
+
+
+# one forward, then one training forward and backward, of each full-width
+# model in bf16: the counts chip_smoke.py asserts on the card's bf16 paths
+BF16_COUNTS = {
+    "cifar10_cond": ({"attn_fwd_online": 17, "attn_fwd_tc": 1},
+                     {"attn_fwd_train": 17, "attn_fwd_tc": 1, "attn_bwd_rows": 17,
+                      "attn_bwd_cols": 17, "attn_bwd_tc": 1}),
+    "celeba": ({"attn_fwd_online": 9, "attn_fwd_tc": 8},
+               {"attn_fwd_train": 16, "attn_fwd_tc": 1, "attn_bwd_rows": 16,
+                "attn_bwd_cols": 16, "attn_bwd_tc": 1}),
+}
+
+
+@pytest.mark.parametrize("name", sorted(BF16_COUNTS))
+def test_bf16_paths_launch_the_tensor_core_kernels(stub_kernels, name):
+    """cifar10_cond: B2 ×1 per forward, B2 ×1 and B5 ×1 per train step;
+    celeba: B2 ×8 per forward, B2 ×1 and B5 ×1 per train step (its pack1
+    calls, counted elsewhere, do not move)."""
+    celeba = name == "celeba"
+    model = _full_width(name, torch.bfloat16)
+    res = 64 if celeba else 32
+    x, t = torch.empty(2, res, res, 3, device="meta"), torch.empty(2, device="meta")
+    y = torch.empty(2, 40, device="meta") if celeba else torch.empty(2, device="meta")
+    fwd, step = BF16_COUNTS[name]
+    with torch.no_grad():
+        model(x, t, y)
+    assert stub_kernels() == fwd
+    model(x, t, y, train=True).float().sum().backward()
+    assert stub_kernels() == step
+
+
+@pytest.mark.parametrize("bad", ["float32", "float16", "head_dim", "tokens", "layout", "device",
+                                 "misaligned", "grad"])
+def test_tc_wrappers_refuse_what_the_kernels_do_not_take(bad):
+    qkv = torch.zeros(1, 64, 3 * 64, dtype=torch.bfloat16)
+    g = torch.zeros(1, 64, 64, dtype=torch.bfloat16)
+    err = ValueError
+    if bad in ("float32", "float16"):
+        qkv, g, err = qkv.to(getattr(torch, bad)), g.to(getattr(torch, bad)), TypeError
+    elif bad == "head_dim":
+        qkv, g = torch.zeros(1, 64, 3 * 48).bfloat16(), torch.zeros(1, 64, 48).bfloat16()
+    elif bad == "tokens":
+        qkv, g = qkv[:, :48], g[:, :48]
+    elif bad == "layout":
+        qkv = torch.zeros(1, 64, 2 * 3 * 64, dtype=torch.bfloat16)[..., ::2]
+    elif bad == "device":
+        qkv, g, err = qkv.to("meta"), g.to("meta"), RuntimeError
+    elif bad == "misaligned":  # contiguous, but 2 bytes past a 16-byte boundary
+        qkv = torch.zeros(1 + 64 * 3 * 64, dtype=torch.bfloat16)[1:].view(1, 64, 3 * 64)
+        g = torch.zeros(1 + 64 * 64, dtype=torch.bfloat16)[1:].view(1, 64, 64)
+    else:
+        g = torch.zeros(1, 64, 2 * 64, dtype=torch.bfloat16)[..., ::2]
+    with pytest.raises(err):
+        if bad != "grad":
+            A.attn_fwd_tc(qkv, 1)
+        A.attn_bwd_tc(qkv, g, 1)
+
+
+def test_new_sources_and_entry_points_are_built():
+    """kernels.py compiles the two sources (and hashes their header) and binds
+    both entry points; the sources use the tensor cores and asynchronous
+    copies, and the tile sizes the emulations above assume."""
+    assert {"attn_fwd_tc.cu", "attn_bwd_tc.cu"} <= set(kernels.SOURCES)
+    assert "attn_tc.cuh" in kernels.HEADERS
+    for name in kernels.SOURCES + kernels.HEADERS:
+        assert os.path.isfile(os.path.join(kernels.CSRC_DIR, name)), name
+    assert len(kernels._ENTRY_POINTS["vdiff_attn_fwd_tc"]) == 7  # qkv, out, B, T, N, C, stream
+    assert len(kernels._ENTRY_POINTS["vdiff_attn_bwd_tc"]) == 10
+    src = {n: open(os.path.join(kernels.CSRC_DIR, n)).read()
+           for n in ("attn_tc.cuh", "attn_fwd_tc.cu", "attn_bwd_tc.cu")}
+    for token in ("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32", "ldmatrix", "cp.async"):
+        assert token in src["attn_tc.cuh"]
+    for n in ("attn_fwd_tc.cu", "attn_bwd_tc.cu"):
+        assert re.search(r'extern "C" int vdiff_attn_(fwd|bwd)_tc\(', src[n])
+        assert not re.search(r"cublas|cudnn|scaled_dot_product", src[n], re.I)
+    assert "kBk = C == 256 ? 32 : 64" in src["attn_fwd_tc.cu"]
+    assert "kBk = C == 256 ? 32 : 64" in src["attn_bwd_tc.cu"]
+    assert "kBq = C >= 128 ? 32 : 64" in src["attn_bwd_tc.cu"]

@@ -19,6 +19,7 @@ jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 import torch  # noqa: E402
 
+from tests import torch_parity as P  # noqa: E402
 from vdiff_tpu_torch.ops import attention as A  # noqa: E402
 
 # f32: both sides do f32 math on the same values; only the summation order
@@ -232,17 +233,9 @@ def test_route_pickers_agree_with_jax():
     assert {A.route(T, 1, 256, True) for T in (64, 256, 1024)} == {"train"}
 
 
-class _StubLibrary:
-    """Stands in for the kernel library: every launch succeeds and does
-    nothing; the *_max_t queries allow any T."""
-
-    def __getattr__(self, name):
-        return (lambda *a: 1 << 20) if name.endswith("_max_t") else (lambda *a: 0)
-
-
 KERNELS = ("attn_fwd_online", "attn_fwd_qblk", "attn_fwd_train", "attn_bwd_rows",
-           "attn_bwd_cols", "attn_fwd_pack1", "attn_fwd_pack1_lse", "attn_bwd_pack1",
-           "attn_bwd_pack1_kv")
+           "attn_bwd_cols", "attn_fwd_tc", "attn_bwd_tc", "attn_fwd_pack1", "attn_fwd_pack1_lse",
+           "attn_bwd_pack1", "attn_bwd_pack1_kv")
 
 
 @pytest.fixture
@@ -251,7 +244,7 @@ def stub_kernels(monkeypatch):
     not CPU tensors) into the stub library; counters start at 0."""
     from vdiff_tpu_torch import kernels
 
-    monkeypatch.setattr(kernels, "library", lambda: _StubLibrary())
+    monkeypatch.setattr(kernels, "library", P.StubLibrary)
     monkeypatch.setattr(A, "_need_cuda", lambda *a: None)
     monkeypatch.setattr(torch.cuda, "current_stream", lambda *a: types.SimpleNamespace(cuda_stream=0))
     for name in KERNELS:

@@ -212,17 +212,9 @@ def test_fusable_keeps_jax_gates(monkeypatch, dtype, H, W, C, c_out, want):
     assert C3.fusable(tx, c_out) == JC.fusable(jx, c_out) == want
 
 
-KERNELS = ("attn_fwd_online", "attn_fwd_qblk", "attn_fwd_pack1", "gn_film_silu_kernel",
-           "fused_gn_silu_conv3x3")
+KERNELS = ("attn_fwd_online", "attn_fwd_qblk", "attn_fwd_tc", "attn_fwd_pack1",
+           "gn_film_silu_kernel", "fused_gn_silu_conv3x3")
 _HOME = {"gn_film_silu_kernel": G, "fused_gn_silu_conv3x3": C3}
-
-
-class _StubLibrary:
-    """Stands in for the kernel library: every launch succeeds and does
-    nothing; the *_max_t queries allow any T."""
-
-    def __getattr__(self, name):
-        return (lambda *a: 1 << 20) if name.endswith("_max_t") else (lambda *a: 0)
 
 
 @pytest.fixture
@@ -232,7 +224,7 @@ def stub_kernels(monkeypatch):
     from vdiff_tpu_torch import kernels
     from vdiff_tpu_torch.models import layers
 
-    monkeypatch.setattr(kernels, "library", lambda: _StubLibrary())
+    monkeypatch.setattr(kernels, "library", P.StubLibrary)
     monkeypatch.setattr(A, "_need_cuda", lambda *a: None)
     monkeypatch.setattr(G, "need_cuda", lambda *a: None)
     monkeypatch.setattr(C3, "need_cuda", lambda *a: None)
@@ -288,8 +280,10 @@ def test_full_width_launch_counts(stub_kernels, monkeypatch, name):
     res = 64 if celeba else 32
     x, t = torch.empty(2, res, res, 3, device="meta"), torch.empty(2, device="meta")
     y = torch.empty(2, 40, device="meta") if celeba else torch.empty(2, device="meta")
-    attn = ({"attn_fwd_online": 9, "attn_fwd_qblk": 8, "attn_fwd_pack1": 10} if celeba else
-            {"attn_fwd_online": 17, "attn_fwd_qblk": 1, "attn_fwd_pack1": 0})
+    # the bf16 model's B2 calls run the tensor-core kernel (attn_fwd_tc)
+    attn = ({"attn_fwd_online": 9, "attn_fwd_qblk": 0, "attn_fwd_tc": 8, "attn_fwd_pack1": 10}
+            if celeba else
+            {"attn_fwd_online": 17, "attn_fwd_qblk": 0, "attn_fwd_tc": 1, "attn_fwd_pack1": 0})
     for (gn, conv), (n_gn, n_conv) in FULL_WIDTH_COUNTS[name].items():
         monkeypatch.setenv("VDIFF_FUSED_GN", gn)
         monkeypatch.setenv("VDIFF_FUSED_CONV", conv)

@@ -1,6 +1,8 @@
 """Shared fixtures of the port's parity tests: one small UNet configuration,
 its JAX params (every constant leaf perturbed, so zero-init layers and biases
-all carry signal) and the port UNet loaded with the same weights."""
+all carry signal) and the port UNet loaded with the same weights; and a stub
+of the kernel library for tests that drive the launch path on the meta
+device."""
 
 import functools
 
@@ -82,3 +84,11 @@ def inputs(B=2, seed=0):
     t = rng.rand(B).astype(np.float32)
     y = np.arange(B, dtype=np.float32) % (SMALL["num_classes"] + 1)
     return x, t, y
+
+
+class StubLibrary:
+    """Stands in for the kernel library: every launch succeeds and does
+    nothing; the *_max_t queries allow any T."""
+
+    def __getattr__(self, name):
+        return (lambda *a: 1 << 20) if name.endswith("_max_t") else (lambda *a: 0)

@@ -1,7 +1,7 @@
 """Build and load the port's hand-written CUDA kernels.
 
-The sources under ``csrc/`` (attention, GroupNorm+FiLM+SiLU and the fused
-GN→SiLU→conv3x3) expose plain C entry points. At first use each is
+The sources under ``csrc/`` (attention, among them the bf16 tensor-core
+forward and backward, GroupNorm+FiLM+SiLU and the fused GN→SiLU→conv3x3) expose plain C entry points. At first use each is
 compiled with ``nvcc`` for Hopper (``sm_90a``), all of them at once in parallel
 processes, then linked into one shared library under ``_build/`` and loaded
 with :mod:`ctypes`. The library's file name carries a hash of the sources and
@@ -23,8 +23,9 @@ CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 
 SOURCES = ("attn_fwd_online.cu", "attn_fwd_qblk.cu", "attn_fwd_train.cu", "attn_bwd_rows.cu",
-           "attn_bwd_cols.cu", "attn_bwd_pack1_kv.cu", "gn_film_silu.cu", "gn_silu_conv3x3.cu")
-HEADERS = ("attn_common.cuh", "attn_direct_fwd.cuh", "gn_common.cuh")
+           "attn_bwd_cols.cu", "attn_bwd_pack1_kv.cu", "attn_fwd_tc.cu", "attn_bwd_tc.cu",
+           "gn_film_silu.cu", "gn_silu_conv3x3.cu")
+HEADERS = ("attn_common.cuh", "attn_direct_fwd.cuh", "attn_tc.cuh", "gn_common.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -44,6 +45,9 @@ _ENTRY_POINTS = {
     "vdiff_attn_bwd_cols": [_P] * 5 + [_I] * 5 + [_P],
     "vdiff_attn_fwd_pack1_lse": [_P] * 3 + [_I] * 5 + [_P],
     "vdiff_attn_bwd_pack1_kv": [_P] * 6 + [_I] * 5 + [_P],
+    # the bf16 tensor-core kernels take no dtype flag
+    "vdiff_attn_fwd_tc": [_P, _P] + [_I] * 4 + [_P],
+    "vdiff_attn_bwd_tc": [_P] * 5 + [_I] * 4 + [_P],
     # x, gamma, beta, shift, scale, film_stride, film_f32, out, B, HW, C, G, eps, silu, bf16, stream
     "vdiff_gn_film_silu": [_P] * 5 + [_I] * 2 + [_P] + [_I] * 4 + [_F] + [_I] * 2 + [_P],
     # x, w, bias, gamma, beta, shift, scale, film_stride, film_f32, skip, out, coef,

@@ -17,7 +17,11 @@ d(qkv) in the same layout as one buffer:
   ``csrc/attn_fwd_qblk.cu``, ``csrc/attn_fwd_train.cu``);
   :func:`attn_bwd_rows` and :func:`attn_bwd_cols` the two passes of the
   backward (``csrc/attn_bwd_rows.cu``, ``csrc/attn_bwd_cols.cu``), which
-  :func:`attn_bwd` runs in turn.
+  :func:`attn_bwd` runs in turn. These run f32 FMAs.
+* :func:`attn_fwd_tc` and :func:`attn_bwd_tc` wrap the bf16 tensor-core
+  kernels (``csrc/attn_fwd_tc.cu``, ``csrc/attn_bwd_tc.cu``). B2's bf16
+  calls (:func:`attn_fwd_qblk`) and B5's (:func:`attn_bwd` at T > 512) go to
+  them by an explicit dispatch on dtype; f32 calls keep the FMA kernels.
 * :func:`attn_fwd_pack1`, :func:`attn_fwd_pack1_lse`, :func:`attn_bwd_pack1`
   and :func:`attn_bwd_pack1_kv` are the counterparts of JAX's head-dim 32/64
   ``pack1`` kernels B6–B9. B6 launches B1's online kernel and B8 the two
@@ -129,16 +133,19 @@ attn_fwd_online.launches = 0
 
 
 def attn_fwd_qblk(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
-    """Direct-softmax q-blocked attention forward (CUDA kernel
-    ``attn_fwd_qblk.cu``).
+    """Direct-softmax q-blocked attention forward: the counterpart of JAX's
+    Pallas ``_attn_fwd_kernel_qblk`` (B2; ops/attention.py, used by
+    ``flash_attention_qkv`` at T > 512).
 
-    Replaces JAX's Pallas ``_attn_fwd_kernel_qblk`` (ops/attention.py, used by
-    ``flash_attention_qkv`` at T > 512). Each block keeps its whole (16, T)
-    f32 score row in shared memory, so T is capped by the 227 KB a block may
-    use (2848 at C=256); compute bound, f32 FMAs in this first version."""
+    A bf16 CUDA tensor goes to :func:`attn_fwd_tc` (tensor cores, counted
+    there). An f32 one launches ``attn_fwd_qblk.cu``, counted here: each
+    block keeps its whole (16, T) f32 score row in shared memory, so T is
+    capped by the 227 KB a block may use (2848 at C=256); f32 FMAs."""
     B, T, C = _check_kernel_input(qkv, num_heads, "attn_fwd_qblk")
     if qkv.device.type == "cpu":
         return attention_qkv_reference(qkv, num_heads)
+    if qkv.dtype == torch.bfloat16:
+        return attn_fwd_tc(qkv, num_heads)
     _need_cuda("attn_fwd_qblk", qkv)
     _check_max_t("attn_fwd_qblk", T, C, "vdiff_attn_fwd_qblk_max_t")
     out = _launch("vdiff_attn_fwd_qblk", qkv, num_heads, B, T, C)
@@ -147,6 +154,45 @@ def attn_fwd_qblk(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
 
 
 attn_fwd_qblk.launches = 0
+
+
+def _check_tc(name: str, qkv: torch.Tensor, *others: torch.Tensor):
+    """The tensor-core kernels' gates on top of the shape checks: bf16 only,
+    and every tensor on a 16-byte boundary (their tiles arrive by 16-byte
+    ``cp.async`` copies)."""
+    if qkv.dtype != torch.bfloat16:
+        raise TypeError(f"{name}: dtype {qkv.dtype} not supported (bfloat16; float32 calls "
+                        "take the FMA kernels)")
+    if any(t.data_ptr() % 16 for t in (qkv, *others)):
+        raise ValueError(f"{name}: every tensor must start on a 16-byte boundary")
+
+
+def attn_fwd_tc(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """bf16 attention forward on the tensor cores (CUDA kernel
+    ``attn_fwd_tc.cu``): B2's bf16 calls.
+
+    Replaces JAX's Pallas ``_attn_fwd_kernel_qblk`` (B2) for bf16: per
+    64-row q tile, mma.sync products over 64-key tiles (32 at C=256) that
+    cp.async double-buffers, an online softmax in f32 registers and the
+    output divided once, so any T that is a multiple of 32 runs. Scale on
+    f32 S after the product; e is rounded to bf16 as the operand of e·v, the
+    one departure from the Pallas kernel's f32 e·v (at most 2^-9·Σ p|v| per
+    output). Its CPU twin is :func:`attention_qkv_reference`."""
+    B, T, C = _check_kernel_input(qkv, num_heads, "attn_fwd_tc")
+    _check_tc("attn_fwd_tc", qkv)
+    if qkv.device.type == "cpu":
+        return attention_qkv_reference(qkv, num_heads)
+    _need_cuda("attn_fwd_tc", qkv)
+    out = torch.empty(B, T, num_heads * C, dtype=qkv.dtype, device=qkv.device)
+    err = kernels.library().vdiff_attn_fwd_tc(
+        qkv.data_ptr(), out.data_ptr(), B, T, num_heads, C,
+        torch.cuda.current_stream(qkv.device).cuda_stream)
+    kernels.check(err, "vdiff_attn_fwd_tc")
+    attn_fwd_tc.launches += 1
+    return out
+
+
+attn_fwd_tc.launches = 0
 
 
 def attn_fwd_train(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -256,17 +302,50 @@ def attn_bwd_cols(qkv: torch.Tensor, g: torch.Tensor, num_heads: int, lse: torch
 attn_bwd_cols.launches = 0
 
 
+def attn_bwd_tc(qkv: torch.Tensor, g: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """bf16 attention backward on the tensor cores (entry ``vdiff_attn_bwd_tc``
+    of ``attn_bwd_tc.cu``): d(qkv) (B, T, 3·N·C) from qkv and d(out) alone.
+
+    Replaces JAX's Pallas ``_attn_bwd_kernel_qblk`` (B5) for bf16. The entry
+    runs a row kernel (per 64-row q tile: a sweep for the f32 row max, sum
+    and δ = rowsum(P∘dP), then dS and dQ) and a column kernel (per 64-key
+    tile: dK and dV in f32 registers), all products mma.sync with P and dS
+    rounded to bf16 as operands; no atomics, any T that is a multiple of 32,
+    head dims 32-256. One count per call. Its CPU twin is
+    :func:`attention_qkv_bwd_reference`."""
+    B, T, C = _check_bwd_input(qkv, g, num_heads, "attn_bwd_tc")
+    _check_tc("attn_bwd_tc", qkv, g)
+    if qkv.device.type == "cpu":
+        return attention_qkv_bwd_reference(qkv, g, num_heads)
+    _need_cuda("attn_bwd_tc", qkv, g)
+    dqkv = torch.empty_like(qkv)
+    lse = torch.empty(B, num_heads, T, dtype=torch.float32, device=qkv.device)
+    delta = torch.empty_like(lse)
+    err = kernels.library().vdiff_attn_bwd_tc(
+        qkv.data_ptr(), g.data_ptr(), dqkv.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+        B, T, num_heads, C, torch.cuda.current_stream(qkv.device).cuda_stream)
+    kernels.check(err, "vdiff_attn_bwd_tc")
+    attn_bwd_tc.launches += 1
+    return dqkv
+
+
+attn_bwd_tc.launches = 0
+
+
 def attn_bwd(qkv: torch.Tensor, g: torch.Tensor, num_heads: int) -> torch.Tensor:
     """d(qkv) (B, T, 3·N·C) from qkv and d(out), at any T the kernels take.
 
-    Replaces JAX's Pallas ``_attn_bwd_kernel`` (T ≤ 512) and
-    ``_attn_bwd_kernel_qblk`` (T > 512): both compute this one backward. On a
-    CPU tensor returns :func:`attention_qkv_bwd_reference`; on a CUDA tensor
-    runs the row pass (dQ, lse, δ) and then the column pass (dK, dV) into one
-    buffer, deterministically (no atomics)."""
-    _check_bwd_input(qkv, g, num_heads, "attn_bwd")
+    Replaces JAX's Pallas ``_attn_bwd_kernel`` (B4, T ≤ 512) and
+    ``_attn_bwd_kernel_qblk`` (B5, T > 512): both compute this one backward.
+    On a CPU tensor returns :func:`attention_qkv_bwd_reference`. B5's bf16
+    calls go to :func:`attn_bwd_tc`; every other CUDA call runs the row pass
+    (dQ, lse, δ) and then the column pass (dK, dV) into one buffer,
+    deterministically (no atomics)."""
+    B, T, C = _check_bwd_input(qkv, g, num_heads, "attn_bwd")
     if qkv.device.type == "cpu":
         return attention_qkv_bwd_reference(qkv, g, num_heads)
+    if qkv.dtype == torch.bfloat16 and T > QBLK_THRESHOLD:
+        return attn_bwd_tc(qkv, g, num_heads)
     dqkv = torch.empty_like(qkv)
     lse, delta = attn_bwd_rows(qkv, g, num_heads, dqkv)
     attn_bwd_cols(qkv, g, num_heads, lse, delta, dqkv)
@@ -411,7 +490,7 @@ def attn_bwd_pack1(qkv: torch.Tensor, g: torch.Tensor, num_heads: int) -> torch.
     ``_pack1_bwd_call``), which computes B4's function. Runs the row and
     column kernels of :func:`attn_bwd_rows` / :func:`attn_bwd_cols`
     (``attn_bwd_rows.cu``, ``attn_bwd_cols.cu``; T ≤ 1664 at C=64) and counts
-    one launch here; their own counts stay B4/B5's."""
+    one launch here; their own counts stay the pair's (B4, and B5 in f32)."""
     B, T, C = _check_bwd_input(qkv, g, num_heads, "attn_bwd_pack1")
     if C not in _SUBLANE_HEAD_DIMS:
         raise ValueError(f"attn_bwd_pack1: head dim {C} not supported {_SUBLANE_HEAD_DIMS}")
@@ -438,7 +517,7 @@ def attn_bwd_pack1_kv(qkv: torch.Tensor, out: torch.Tensor, lse: torch.Tensor, g
     Replaces JAX's Pallas ``_attn_bwd_kernel_pack1_kv`` (B9, through
     ``_pack1_bwd_kv_call``). The entry runs its own dQ/δ kernel, then the
     column kernel of :func:`attn_bwd_cols` for dK/dV; it counts its own
-    launches here, and the column kernel's count stays B4/B5's."""
+    launches here, and the column kernel's count stays the pair's."""
     B, T, C = _check_bwd_input(qkv, g, num_heads, "attn_bwd_pack1_kv")
     if C not in _SUBLANE_HEAD_DIMS:
         raise ValueError(f"attn_bwd_pack1_kv: head dim {C} not supported {_SUBLANE_HEAD_DIMS}")
