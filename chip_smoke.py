@@ -55,8 +55,10 @@ Phases, one output line each (any failure raises and exits non-zero):
      and are held against their twins, f32 and bf16: on the whole batch at
      T <= 1024, and at T=4096 on four batch slices of the same inputs and
      outputs (the twins' (B, N, T, T) f32 scores take 19 GB at B=48); then
-     timed in bf16 there beside the twin, SDPA and the card's bound, and
-     attn_bwd_tc checked and timed off the path at B8's shapes;
+     timed in bf16 there beside the twin, SDPA and the card's bound; B7's
+     and B8's bf16 calls run the tensor-core kernels (attn_fwd_tc.cu's lse
+     entry, held to B2's P·|v| limit, and attn_bwd_tc.cu), timed beside the
+     f32-FMA kernels they replaced on the same inputs;
   9. celeba-unet: the full-width celeba UNet (301 M parameters, 40 multi-hot
      tags, 'both' head) in f32 at B=1 on the GPU against the CPU; one forward
      must launch attn_fwd_pack1 10 times, attn_fwd_qblk 8 and attn_fwd_online 9
@@ -75,10 +77,10 @@ Every kernel's launches in the JSON record are counted on the main paths
 read just after: "launches" is their sum over the paths, and
 "launches_by_path" each path's own count. The line before last is the
 kernels' JSON record (with each kernel's time, its twin's, one PyTorch
-call's where there is one, the card's bound for the same work, and for B2's
-and B5's tensor-core kernels the FMA kernel's time on the same inputs,
-"before_ms"); the last line is {"ok": true, "device": {...}}. Imports
-nothing of JAX.
+call's where there is one, the card's bound for the same work, and for the
+tensor-core kernels of B2, B5, B7 and B8 the FMA kernel's time on the same
+inputs, "before_ms"); the last line is {"ok": true, "device": {...}}.
+Imports nothing of JAX.
 """
 
 import collections
@@ -141,9 +143,11 @@ FUSED_B = 64  # the fused sampling path's batch
 # and the online kernel 9 times (T=64); a train step runs the pack1 pair
 # (forward + full-row backward) at 9 calls, the kv-streamed pair at T=4096,
 # and B3/B2 + the two backward passes at the other 17. attn_fwd_pack1 runs
-# B1's kernel, attn_bwd_pack1 the two backward passes and attn_bwd_pack1_kv
-# the column pass; each wrapper counts only its own launches. In bf16 B2's
-# calls and the T=1024 backward go to attn_fwd_tc and attn_bwd_tc.
+# B1's kernel and attn_bwd_pack1_kv the column pass; attn_fwd_pack1_lse and
+# attn_bwd_pack1 run the tensor-core kernels in bf16 (the lse entry of
+# attn_fwd_tc.cu, attn_bwd_tc.cu) and in f32 the online kernel's lse entry
+# and the two backward passes; each wrapper counts only its own launches. In
+# bf16 B2's calls and the T=1024 backward go to attn_fwd_tc and attn_bwd_tc.
 CELEBA_FWD_LAUNCHES = _launches(attn_fwd_pack1=10, attn_fwd_qblk=8, attn_fwd_online=9)
 CELEBA_FWD_LAUNCHES_BF16 = _launches(attn_fwd_pack1=10, attn_fwd_tc=8, attn_fwd_online=9)
 CELEBA_STEP_LAUNCHES = _launches(attn_fwd_pack1=9, attn_fwd_pack1_lse=1, attn_bwd_pack1=9,
@@ -340,7 +344,8 @@ def fma_fwd(qkv, N):
 
 def fma_bwd(qkv, g, N):
     """The f32-FMA backward pair (attn_bwd_rows.cu, then attn_bwd_cols.cu) on
-    the same inputs, uncounted: what B5's bf16 calls ran before attn_bwd_tc."""
+    the same inputs, uncounted: what B5's and B8's bf16 calls ran before
+    attn_bwd_tc.cu."""
     from vdiff_tpu_torch.ops import attention as A
 
     B, T, C = A._shape(qkv, N)
@@ -348,6 +353,23 @@ def fma_bwd(qkv, g, N):
     lse, delta = A._bwd_rows(qkv, g, N, dqkv, B, T, C)
     A._bwd_cols(qkv, g, N, lse, delta, dqkv, B, T, C)
     return dqkv
+
+
+def fma_fwd_lse(qkv, N):
+    """B7's f32-FMA kernel (the lse entry of attn_fwd_online.cu) on the same
+    inputs, uncounted: what B7's bf16 calls ran before attn_fwd_tc.cu's lse
+    entry."""
+    from vdiff_tpu_torch import kernels
+    from vdiff_tpu_torch.ops import attention as A
+
+    B, T, C = A._shape(qkv, N)
+    out = torch.empty(B, T, N * C, dtype=qkv.dtype, device=qkv.device)
+    lse = torch.empty(B, N, T, dtype=torch.float32, device=qkv.device)
+    err = kernels.library().vdiff_attn_fwd_pack1_lse(
+        qkv.data_ptr(), out.data_ptr(), lse.data_ptr(), B, T, N, C,
+        int(qkv.dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream)
+    kernels.check(err, "vdiff_attn_fwd_pack1_lse")
+    return out, lse
 
 
 def _fmt(rec):
@@ -419,9 +441,9 @@ def _check_bwd(name, got, ref, dtype):
 
 
 def _bwd_tc_off_path(tag, qkv, g, N, pair_ms):
-    """attn_bwd_tc at a bf16 shape where the FMA pair still runs (B4's and
-    B8's calls): held to the bf16 twin and timed beside the pair, the data
-    for routing those calls to it later. Its launches here are no path's."""
+    """attn_bwd_tc at a bf16 shape where the FMA pair still runs (B4's
+    calls): held to the bf16 twin and timed beside the pair, the data for
+    routing those calls to it later. Its launches here are no path's."""
     from vdiff_tpu_torch.ops import attention as A
 
     err = _check_bwd(f"attn_bwd_tc (off the path) {tag}", A.attn_bwd_tc(qkv, g, N),
@@ -938,10 +960,14 @@ def phase_celeba_kernels():
     attn_bwd_pack1_kv (B9) at CELEBA_KERNEL_SHAPES, f32 and bf16, against
     their twins: on the whole batch at T <= TWIN_FULL_BATCH_MAX_T, else on
     batch slices 0, 1, B-2, B-1 of the same inputs and of the kernels'
-    outputs. B9 takes B7's own (out, lse), its twin their slices. In bf16
-    each kernel is then timed on the whole batch beside its twin, SDPA and
-    the card's bound. Returns the per-kernel records (each kernel's first
-    shape; max_abs_err the largest over its bf16 shapes)."""
+    outputs. B9 takes B7's own (out, lse), its twin their slices. B7's bf16
+    output comes from the tensor-core kernel and is held by _check_tc_fwd's
+    P·|v| limit (its lse within LSE_ATOL as in f32); B8's bf16 d(qkv) by the
+    bf16 backward limit. In bf16 each kernel is then timed on the whole batch
+    beside its twin, SDPA and the card's bound, B7 and B8 also beside the
+    f32-FMA kernels they replaced (``before_ms``). Returns the per-kernel
+    records (each kernel's first shape; max_abs_err the largest over its bf16
+    shapes)."""
     from vdiff_tpu_torch.ops import attention as A
 
     torch.cuda.empty_cache()
@@ -958,19 +984,23 @@ def phase_celeba_kernels():
             g = torch.randn(B, T, N * C, device="cuda", generator=gen).to(dtype)
             sq, sg = qkv[idx], g[idx]
             errs, timed = {}, {}
+            # (kernel, twin, library, bound kind, the FMA kernel it replaced
+            # or None) of each wrapper to time
             if "attn_fwd_pack1" in names:
                 ref_out, _ = A.attention_qkv_lse_reference(sq.float(), N)
                 errs["attn_fwd_pack1"] = _check_fwd(f"attn_fwd_pack1 {tag}{on}",
                                                     A.attn_fwd_pack1(qkv, N)[idx], ref_out, dtype)
                 timed["attn_fwd_pack1"] = (lambda: A.attn_fwd_pack1(qkv, N),
                                            lambda: A.attention_qkv_lse_reference(qkv, N),
-                                           _sdpa(qkv, N), "fwd")
+                                           _sdpa(qkv, N), "fwd", None)
                 del ref_out
             if "attn_fwd_pack1_lse" in names:
                 ref_out, ref_lse = A.attention_qkv_lse_reference(sq.float(), N)
                 out, lse = A.attn_fwd_pack1_lse(qkv, N)
-                errs["attn_fwd_pack1_lse"] = _check_fwd(f"attn_fwd_pack1_lse {tag}{on}", out[idx],
-                                                        ref_out, dtype)
+                label = f"attn_fwd_pack1_lse {tag}{on}"
+                errs["attn_fwd_pack1_lse"] = (
+                    _check_tc_fwd(label, out[idx], sq, N) if dtype == torch.bfloat16
+                    else _check_fwd(label, out[idx], ref_out, dtype))
                 lse_err = (lse[idx] - ref_lse).abs().max().item()
                 if lse.shape != (B, N, T) or not lse_err <= LSE_ATOL:
                     fail(f"attn_fwd_pack1_lse {tag}: lse {tuple(lse.shape)} max err {lse_err}")
@@ -978,7 +1008,8 @@ def phase_celeba_kernels():
                       flush=True)
                 timed["attn_fwd_pack1_lse"] = (lambda: A.attn_fwd_pack1_lse(qkv, N),
                                                lambda: A.attention_qkv_lse_reference(qkv, N),
-                                               _sdpa(qkv, N), "fwd_lse")
+                                               _sdpa(qkv, N), "fwd_lse",
+                                               lambda: fma_fwd_lse(qkv, N))
                 del ref_out, ref_lse
             if "attn_bwd_pack1" in names:
                 errs["attn_bwd_pack1"] = _check_bwd(
@@ -986,7 +1017,7 @@ def phase_celeba_kernels():
                     A.attention_qkv_bwd_reference(sq, sg, N), dtype)
                 timed["attn_bwd_pack1"] = (lambda: A.attn_bwd_pack1(qkv, g, N),
                                            lambda: A.attention_qkv_bwd_reference(qkv, g, N),
-                                           _sdpa(qkv, N, g), "bwd")
+                                           _sdpa(qkv, N, g), "bwd", lambda: fma_bwd(qkv, g, N))
             if "attn_bwd_pack1_kv" in names:
                 errs["attn_bwd_pack1_kv"] = _check_bwd(
                     f"attn_bwd_pack1_kv {tag}{on}", A.attn_bwd_pack1_kv(qkv, out, lse, g, N)[idx],
@@ -994,14 +1025,15 @@ def phase_celeba_kernels():
                 timed["attn_bwd_pack1_kv"] = (
                     lambda: A.attn_bwd_pack1_kv(qkv, out, lse, g, N),
                     lambda: A.attention_qkv_bwd_kv_reference(qkv, out, lse, g, N),
-                    _sdpa(qkv, N, g), "bwd_kv")
+                    _sdpa(qkv, N, g), "bwd_kv", None)
             print(f"celeba-kernels: {tag}{on}: max_abs_err {errs}", flush=True)
             del sq, sg
             torch.cuda.empty_cache()
             if dtype == torch.bfloat16:
-                for name, (fn, plain, library, kind) in timed.items():
+                for name, (fn, plain, library, kind, before) in timed.items():
                     worst[name] = max(worst[name], errs[name])
                     rec = {"ms": cuda_ms(fn, iters=3, warmup=1),
+                           **({"before_ms": cuda_ms(before, iters=3, warmup=1)} if before else {}),
                            "plain_ms": cuda_ms(plain, iters=3, warmup=1),
                            "library_ms": cuda_ms(library, iters=3, warmup=1),
                            **_bound(kind, B, T, N, C, dtype)}
@@ -1009,8 +1041,6 @@ def phase_celeba_kernels():
                           + (" (library: SDPA forward+backward)" if "bwd" in name else ""),
                           flush=True)
                     record.setdefault(name, rec)
-                    if name == "attn_bwd_pack1":  # B8's shapes
-                        _bwd_tc_off_path(tag, qkv, g, N, rec["ms"])
                     torch.cuda.empty_cache()
             del qkv, g, timed
             out = lse = None
@@ -1181,13 +1211,15 @@ def main():
                           "vdiff_tpu/ops/attention.py:204"),
         "attn_bwd_cols": ("vdiff_tpu_torch/csrc/attn_bwd_cols.cu",
                           "vdiff_tpu/ops/attention.py:204"),
-        # B6 launches B1's kernel, B7 its lse entry, B8 the two backward
-        # passes (attn_bwd_rows.cu, then attn_bwd_cols.cu): each counted apart
+        # B6 launches B1's kernel; B7 and B8 in bf16, the paths' type, the
+        # tensor-core kernels: attn_fwd_tc.cu's lse entry and attn_bwd_tc.cu
+        # (their f32 calls keep the FMA sources, attn_fwd_online.cu's lse
+        # entry and attn_bwd_rows.cu + attn_bwd_cols.cu); each counted apart
         "attn_fwd_pack1": ("vdiff_tpu_torch/csrc/attn_fwd_online.cu",
                            "vdiff_tpu/ops/attention.py:318"),
-        "attn_fwd_pack1_lse": ("vdiff_tpu_torch/csrc/attn_fwd_online.cu",
+        "attn_fwd_pack1_lse": ("vdiff_tpu_torch/csrc/attn_fwd_tc.cu",
                                "vdiff_tpu/ops/attention.py:407"),
-        "attn_bwd_pack1": ("vdiff_tpu_torch/csrc/attn_bwd_rows.cu",
+        "attn_bwd_pack1": ("vdiff_tpu_torch/csrc/attn_bwd_tc.cu",
                            "vdiff_tpu/ops/attention.py:470"),
         "attn_bwd_pack1_kv": ("vdiff_tpu_torch/csrc/attn_bwd_pack1_kv.cu",
                               "vdiff_tpu/ops/attention.py:567"),

@@ -8,9 +8,13 @@ kernel library; the largest error of attn_fwd_tc (B2, bf16) against the f32
 twin with its limit 2^-8·|ref| + 2^-8·(P·|v|) + 1e-4, and of attn_bwd_tc (B5,
 bf16) against the bf16 backward twin with chip_smoke's limit, at small and
 ragged shapes (T a multiple of 32 and not of 64, every head dim) and at the
-paths' shapes. With --time, the new kernels' times beside the f32-FMA kernels
-they replace on the same bf16 inputs, SDPA and the bound. A short check
-before a full chip_smoke run. Needs a CUDA device.
+paths' shapes; then B7's and B8's bf16 calls, which run the same kernels
+(attn_fwd_pack1_lse: the lse entry of attn_fwd_tc.cu, its output held to the
+same limit, its lse to chip_smoke's LSE_ATOL, and its output bit for bit
+equal to attn_fwd_tc's; attn_bwd_pack1), at ragged and path shapes (twins on
+batch slices 0 and B-1 at T=4096). With --time, the new kernels' times beside
+the f32-FMA kernels they replace on the same bf16 inputs, SDPA and the bound.
+A short check before a full chip_smoke run. Needs a CUDA device.
 """
 
 import argparse
@@ -31,6 +35,11 @@ FWD_SHAPES = [(2, 96, 1, 64), (2, 160, 3, 32), (2, 1056, 1, 256), (2, 1024, 2, 1
               (32, 256, 9, 64), (32, 1024, 9, 64), (64, 1024, 1, 256)]
 BWD_SHAPES = [(2, 96, 2, 64), (2, 160, 1, 128), (2, 1056, 1, 256), (2, 1024, 1, 32),
               (48, 1024, 9, 64), (128, 1024, 1, 256)]
+# B7 (head dims 32/64): ragged T, then the celeba train step's up_1_us
+LSE_SHAPES = [(2, 96, 2, 64), (2, 160, 4, 32), (48, 4096, 6, 64)]
+# B8: ragged T, then the celeba train step's three shapes
+PACK1_BWD_SHAPES = [(2, 96, 2, 64), (2, 160, 4, 32), (48, 1024, 6, 64), (48, 256, 6, 64),
+                    (48, 256, 12, 64)]
 
 
 def ptxas_report():
@@ -74,6 +83,38 @@ def main():
                    "library_ms": S.cuda_ms(S._sdpa(qkv, N, g), iters=10),
                    **S._bound("bwd", B, T, N, C, torch.bfloat16)}
             print(f"bwd {(B, T, N, C)}: max_abs_err {err} " + S._fmt(rec), flush=True)
+        del qkv, g
+        torch.cuda.empty_cache()
+    for B, T, N, C in LSE_SHAPES:
+        qkv = torch.randn(B, T, 3 * N * C, device="cuda", generator=gen).to(torch.bfloat16)
+        idx = list(range(B)) if T <= 1024 else [0, B - 1]
+        out, lse = A.attn_fwd_pack1_lse(qkv, N)
+        err = S._check_tc_fwd(f"attn_fwd_pack1_lse {(B, T, N, C)}", out[idx], qkv[idx], N)
+        lse_err = (lse[idx] - A.attention_qkv_lse_reference(qkv[idx].float(), N)[1]).abs().max().item()
+        same = torch.equal(out, A.attn_fwd_tc(qkv, N))
+        print(f"fwd_lse {(B, T, N, C)}: max_abs_err {err} lse_err {lse_err} "
+              f"out equal to attn_fwd_tc's: {same}", flush=True)
+        if lse_err > S.LSE_ATOL or not same:
+            S.fail(f"attn_fwd_pack1_lse {(B, T, N, C)}: lse err {lse_err}, equal {same}")
+        if args.time and T >= 1024:
+            rec = {"ms": S.cuda_ms(lambda: A.attn_fwd_pack1_lse(qkv, N), iters=5),
+                   "fma_ms": S.cuda_ms(lambda: S.fma_fwd_lse(qkv, N), iters=3, warmup=1),
+                   "library_ms": S.cuda_ms(S._sdpa(qkv, N), iters=5),
+                   **S._bound("fwd_lse", B, T, N, C, torch.bfloat16)}
+            print(f"fwd_lse {(B, T, N, C)}: " + S._fmt(rec), flush=True)
+        del qkv, out, lse
+        torch.cuda.empty_cache()
+    for B, T, N, C in PACK1_BWD_SHAPES:
+        qkv = torch.randn(B, T, 3 * N * C, device="cuda", generator=gen).to(torch.bfloat16)
+        g = torch.randn(B, T, N * C, device="cuda", generator=gen).to(torch.bfloat16)
+        err = S._check_bwd(f"attn_bwd_pack1 {(B, T, N, C)}", A.attn_bwd_pack1(qkv, g, N),
+                           A.attention_qkv_bwd_reference(qkv, g, N), torch.bfloat16)
+        if args.time and B > 2:
+            rec = {"ms": S.cuda_ms(lambda: A.attn_bwd_pack1(qkv, g, N), iters=10),
+                   "fma_ms": S.cuda_ms(lambda: S.fma_bwd(qkv, g, N), iters=5),
+                   "library_ms": S.cuda_ms(S._sdpa(qkv, N, g), iters=10),
+                   **S._bound("bwd", B, T, N, C, torch.bfloat16)}
+            print(f"bwd_pack1 {(B, T, N, C)}: max_abs_err {err} " + S._fmt(rec), flush=True)
         del qkv, g
         torch.cuda.empty_cache()
 

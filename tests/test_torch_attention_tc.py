@@ -1,8 +1,9 @@
 """The bf16 tensor-core attention kernels of the port (``attn_fwd_tc.cu`` for
 B2, ``attn_bwd_tc.cu`` for B5) on the CPU, where no CUDA kernel runs.
 
-Each kernel's tile algorithm is written out here in torch at the kernel's
-tile sizes and held, on bf16 inputs made from a numpy seed, against JAX's
+Each kernel's tile algorithm is written out in torch at the kernel's tile
+sizes (``tests/torch_parity.py``, shared with tests/test_torch_pack1_tc.py)
+and held, on bf16 inputs made from a numpy seed, against JAX's
 Pallas ``_attn_fwd_kernel_qblk`` (B2) and ``_attn_bwd_kernel_qblk`` (B5) in
 interpret mode, within the limits chip_smoke.py holds the kernels to on the
 card: the public JAX functions at T=1024 (``flash_attention_qkv`` and the VJP
@@ -33,109 +34,6 @@ from tests import torch_parity as P  # noqa: E402
 from vdiff_tpu_torch import kernels  # noqa: E402
 from vdiff_tpu_torch.ops import attention as A  # noqa: E402
 
-# chip_smoke.py's limits. Forward: per element 2^-8·|ref| + 2^-8·(P·|v|) +
-# 1e-4 against the f32 twin (e rounded to bf16 moves an output by at most
-# 2^-9·Σ p|v|; the output's own rounding by half an ulp). Backward: per
-# d(qkv) slot 2^-7·|ref| + 2^-8·max|ref| against the bf16 twin.
-FWD_RTOL, FWD_ATOL = 2.0 ** -8, 1e-4
-BWD_RTOL, BWD_SCALE = 2.0 ** -7, 2.0 ** -8
-
-# the kernels' tile sizes by head dim: keys per tile of the forward and of the
-# backward's row kernel (FwdShape::kBk, RowShape::kBk), q rows per step of the
-# column kernel (ColShape::kBq); 64 q rows a forward / row block, 64 keys a
-# column block
-KEY_TILE = {32: 64, 64: 64, 128: 64, 256: 32}
-COL_Q_TILE = {32: 64, 64: 64, 128: 32, 256: 32}
-LOG2E, LN2 = np.float32(1.4426950408889634), np.float32(0.6931471805599453)
-
-
-def _split(qkv, N):
-    """(B, T, 3·N·C) → f32 q, k, v as (B, N, T, C)."""
-    B, T, three_nc = qkv.shape
-    C = three_nc // (3 * N)
-    return [a.float().permute(0, 2, 1, 3) for a in qkv.reshape(B, T, 3, N, C).unbind(2)]
-
-
-def _bf16(x):
-    return x.to(torch.bfloat16).float()
-
-
-def emulate_fwd_tc(qkv, N):
-    """attn_fwd_tc.cu's algorithm: per key tile s = (q·kᵀ)·(log2e/√C) in f32
-    (keys past T at -inf), running max m and sum l rescaled by exp2(m_old −
-    m_new), o += bf16(exp2(s − m))·v; out = o / l, one cast to bf16."""
-    q, k, v = _split(qkv, N)
-    B, _, T, C = q.shape
-    bk, scale_log2 = KEY_TILE[C], LOG2E / np.sqrt(np.float32(C))
-    m = torch.full((B, N, T, 1), -math.inf)
-    l = torch.zeros(B, N, T, 1)
-    o = torch.zeros(B, N, T, C)
-    for j in range(0, T, bk):
-        s = (q @ k[:, :, j:j + bk].transpose(-1, -2)) * float(scale_log2)
-        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
-        alpha = torch.exp2(m - m_new)
-        p = torch.exp2(s - m_new)
-        l = l * alpha + p.sum(-1, keepdim=True)
-        o = o * alpha + _bf16(p) @ v[:, :, j:j + bk]
-        m = m_new
-    return (o / l).permute(0, 2, 1, 3).reshape(B, T, N * C).to(torch.bfloat16)
-
-
-def emulate_bwd_tc(qkv, g, N):
-    """attn_bwd_tc.cu's algorithm. Row kernel, sweep 1 over key tiles: s as in
-    the forward, running max m, l = Σ exp2(s − m) and d = Σ exp2(s − m)·dP,
-    both rescaled as m grows; lse = (m + log2 l)·ln2 and δ = d / l (f32,
-    the full row). Sweep 2: P = exp2(s − m − log2 l), dS = bf16(P∘(dP − δ)),
-    dQ += dS·k, scaled by 1/√C at the end. Column kernel, per q tile:
-    P = exp2(S·log2e/√C − lse·log2e), dS as above, dV += bf16(P)ᵀ·dO,
-    dK += dSᵀ·q, scaled at the end. One cast of each to bf16."""
-    q, k, v = _split(qkv, N)
-    do = g.float().reshape(g.shape[0], g.shape[1], N, -1).permute(0, 2, 1, 3)
-    B, _, T, C = q.shape
-    bk, bq = KEY_TILE[C], COL_Q_TILE[C]
-    scale = np.float32(1.0) / np.sqrt(np.float32(C))
-    scale_log2 = float(scale * LOG2E)
-    m = torch.full((B, N, T, 1), -math.inf)
-    l = torch.zeros(B, N, T, 1)
-    d = torch.zeros(B, N, T, 1)
-    for j in range(0, T, bk):
-        s = (q @ k[:, :, j:j + bk].transpose(-1, -2)) * scale_log2
-        dp = do @ v[:, :, j:j + bk].transpose(-1, -2)
-        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
-        alpha = torch.exp2(m - m_new)
-        p = torch.exp2(s - m_new)
-        l = l * alpha + p.sum(-1, keepdim=True)
-        d = d * alpha + (p * dp).sum(-1, keepdim=True)
-        m = m_new
-    lse2 = m + torch.log2(l)
-    delta = d / l
-    lse = lse2 * float(LN2)  # as written to device memory
-    dq = torch.zeros_like(q)
-    for j in range(0, T, bk):
-        s = (q @ k[:, :, j:j + bk].transpose(-1, -2)) * scale_log2
-        dp = do @ v[:, :, j:j + bk].transpose(-1, -2)
-        ds = _bf16(torch.exp2(s - lse2) * (dp - delta))
-        dq = dq + ds @ k[:, :, j:j + bk]
-    dk, dv = torch.zeros_like(k), torch.zeros_like(v)
-    for i in range(0, T, bq):
-        rows = slice(i, i + bq)
-        s = k @ q[:, :, rows].transpose(-1, -2)  # (B, N, keys, q rows)
-        p = torch.exp2(s * scale_log2 - (lse[:, :, rows] * float(LOG2E)).transpose(-1, -2))
-        dp = v @ do[:, :, rows].transpose(-1, -2)
-        ds = _bf16(p * (dp - delta[:, :, rows].transpose(-1, -2)))
-        dv = dv + _bf16(p) @ do[:, :, rows]
-        dk = dk + ds @ q[:, :, rows]
-    out = [a.permute(0, 2, 1, 3) for a in (dq * float(scale), dk * float(scale), dv)]
-    return torch.stack(out, dim=2).reshape(B, T, 3 * N * C).to(torch.bfloat16)
-
-
-def _bf16_inputs(B, T, N, C, seed):
-    """Seeded bf16 qkv (B, T, 3·N·C) and d(out) (B, T, N·C), drawn with numpy."""
-    rng = np.random.RandomState(seed)
-    qkv = torch.from_numpy((rng.randn(B, T, 3 * N * C) * 0.5).astype(np.float32)).bfloat16()
-    g = torch.from_numpy(rng.randn(B, T, N * C).astype(np.float32)).bfloat16()
-    return qkv, g
-
 
 def _fold(a, N):
     """(B, T, N·C) → (B·N, T, C), JAX's head folding."""
@@ -156,26 +54,6 @@ def _np(a):
     return np.asarray(jnp.asarray(a, jnp.float32))
 
 
-def _check_fwd(got, ref, qkv, N):
-    """chip_smoke's forward limit, with the f32 twin and P·|v| on qkv."""
-    x = qkv.float()
-    twin = A.attention_qkv_reference(x, N).numpy()
-    x[..., 2 * x.shape[-1] // 3:] = x[..., 2 * x.shape[-1] // 3:].abs()
-    pv = A.attention_qkv_reference(x, N).numpy()
-    tol = FWD_RTOL * np.abs(twin) + FWD_RTOL * pv + FWD_ATOL
-    for name, other in (("reference", ref), ("f32 twin", twin)):
-        err = np.abs(got.float().numpy() - other)
-        assert (err <= tol).all(), f"vs {name}: largest excess {(err - tol).max()}"
-
-
-def _check_bwd(got, ref):
-    """chip_smoke's backward limit, slot by slot."""
-    got = got.float().numpy()
-    for a, r in zip(np.split(got, 3, -1), np.split(ref, 3, -1)):
-        tol = BWD_RTOL * np.abs(r) + BWD_SCALE * np.abs(r).max()
-        assert (np.abs(a - r) <= tol).all(), f"largest excess {(np.abs(a - r) - tol).max()}"
-
-
 @pytest.mark.parametrize("B,T,N,C", [(1, 1024, 1, 256), (1, 1024, 2, 128)])
 def test_fwd_tiles_match_pallas_qblk_through_flash_attention_qkv(B, T, N, C):
     """T=1024 reaches _attn_fwd_kernel_qblk through flash_attention_qkv;
@@ -184,12 +62,12 @@ def test_fwd_tiles_match_pallas_qblk_through_flash_attention_qkv(B, T, N, C):
 
     from vdiff_tpu.ops.attention import flash_attention_qkv
 
-    qkv, _ = _bf16_inputs(B, T, N, C, seed=C)
+    qkv, _ = P.bf16_inputs(B, T, N, C, seed=C)
     with pltpu.force_tpu_interpret_mode():
         ref = _np(flash_attention_qkv(_jax_bf16(qkv), N))
-    got = emulate_fwd_tc(qkv, N)
+    got, _ = P.emulate_fwd_tc(qkv, N)
     assert got.dtype == torch.bfloat16 and got.shape == (B, T, N * C)
-    _check_fwd(got, ref, qkv, N)
+    P.check_fwd_tc(got, ref, qkv, N)
 
 
 @pytest.mark.parametrize("B,T,N,C", [(2, 96, 2, 64), (1, 160, 3, 32), (1, 1056, 1, 256)])
@@ -199,11 +77,11 @@ def test_fwd_tiles_match_pallas_qblk_at_ragged_t(B, T, N, C):
     q block of all T rows through JAX's own _qblk_fwd_call."""
     from vdiff_tpu.ops.attention import _qblk_fwd_call
 
-    qkv, _ = _bf16_inputs(B, T, N, C, seed=T)
+    qkv, _ = P.bf16_inputs(B, T, N, C, seed=T)
     q, k, v = (_fold(a, N) for a in np.split(qkv.float().numpy(), 3, axis=-1))
     ref = _np(_qblk_fwd_call(*(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)), T,
                              interpret=True))
-    _check_fwd(emulate_fwd_tc(qkv, N), _unfold(ref, B, N), qkv, N)
+    P.check_fwd_tc(P.emulate_fwd_tc(qkv, N)[0], _unfold(ref, B, N), qkv, N)
 
 
 @pytest.mark.parametrize("B,T,N,C", [(1, 1024, 1, 32), (1, 1024, 1, 256)])
@@ -212,16 +90,16 @@ def test_bwd_tiles_match_pallas_qblk_through_flash_attention_trainable(B, T, N, 
     VJP in bf16 (two q blocks of 512, dK/dV carried in f32)."""
     from vdiff_tpu.ops.attention import flash_attention_trainable
 
-    qkv, g = _bf16_inputs(B, T, N, C, seed=T + C)
+    qkv, g = P.bf16_inputs(B, T, N, C, seed=T + C)
     q, k, v = (_fold(a, N) for a in np.split(qkv.float().numpy(), 3, axis=-1))
     _, vjp = jax.vjp(lambda q, k, v: flash_attention_trainable(q, k, v, True),
                      *(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)))
     dref = np.concatenate([_unfold(_np(d), B, N)
                            for d in vjp(jnp.asarray(_fold(g.float().numpy(), N), jnp.bfloat16))], -1)
-    got = emulate_bwd_tc(qkv, g, N)
+    got = P.emulate_bwd_tc(qkv, g, N)
     assert got.dtype == torch.bfloat16 and got.shape == qkv.shape
-    _check_bwd(got, dref)
-    _check_bwd(got, A.attention_qkv_bwd_reference(qkv, g, N).float().numpy())
+    P.check_bwd_tc(got, dref)
+    P.check_bwd_tc(got, A.attention_qkv_bwd_reference(qkv, g, N).float().numpy())
 
 
 def _pallas_bwd_one_block(q, k, v, g):
@@ -249,24 +127,24 @@ def _pallas_bwd_one_block(q, k, v, g):
 def test_bwd_tiles_match_pallas_qblk_at_ragged_t(B, T, N, C):
     """Ragged T: half-masked key tiles in the row kernel, a q tile half past T
     in the column kernel (C = 64), and a key block half past T."""
-    qkv, g = _bf16_inputs(B, T, N, C, seed=T + C)
+    qkv, g = P.bf16_inputs(B, T, N, C, seed=T + C)
     q, k, v = (_fold(a, N) for a in np.split(qkv.float().numpy(), 3, axis=-1))
     d = _pallas_bwd_one_block(*(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)),
                               jnp.asarray(_fold(g.float().numpy(), N), jnp.bfloat16))
     dref = np.concatenate([_unfold(_np(a), B, N) for a in d], -1)
-    got = emulate_bwd_tc(qkv, g, N)
-    _check_bwd(got, dref)
-    _check_bwd(got, A.attention_qkv_bwd_reference(qkv, g, N).float().numpy())
+    got = P.emulate_bwd_tc(qkv, g, N)
+    P.check_bwd_tc(got, dref)
+    P.check_bwd_tc(got, A.attention_qkv_bwd_reference(qkv, g, N).float().numpy())
 
 
 def test_emulations_round_p_where_the_twins_do_not():
     """The forward's one departure is real and small: the emulation differs
     from the f32 twin (bf16 e) but by less than the limit's P·|v| term."""
-    qkv, _ = _bf16_inputs(1, 128, 1, 64, seed=9)
-    got = emulate_fwd_tc(qkv, 1).float()
+    qkv, _ = P.bf16_inputs(1, 128, 1, 64, seed=9)
+    got = P.emulate_fwd_tc(qkv, 1)[0].float()
     f32 = A.attention_qkv_reference(qkv.float(), 1)
     assert not torch.equal(got, f32.to(torch.bfloat16).float())
-    _check_fwd(got.to(torch.bfloat16), f32.numpy(), qkv, 1)
+    P.check_fwd_tc(got.to(torch.bfloat16), f32.numpy(), qkv, 1)
 
 
 # ---------------------------------------------------------------------------
@@ -283,7 +161,7 @@ def _counts():
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cpu_calls_return_the_twins_and_count_no_launch(dtype):
-    qkv, g = (a.to(dtype) for a in _bf16_inputs(1, 1024, 1, 32, seed=2))
+    qkv, g = (a.to(dtype) for a in P.bf16_inputs(1, 1024, 1, 32, seed=2))
     before = _counts()
     fwd, bwd = A.attention_qkv_reference(qkv, 1), A.attention_qkv_bwd_reference(qkv, g, 1)
     calls = [(A.attn_fwd_qblk(qkv, 1), fwd), (A.attn_bwd(qkv, g, 1), bwd)]

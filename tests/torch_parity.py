@@ -1,12 +1,16 @@
 """Shared fixtures of the port's parity tests: one small UNet configuration,
 its JAX params (every constant leaf perturbed, so zero-init layers and biases
-all carry signal) and the port UNet loaded with the same weights; and a stub
-of the kernel library for tests that drive the launch path on the meta
+all carry signal) and the port UNet loaded with the same weights; torch
+emulations of the bf16 tensor-core attention kernels' tile algorithms
+(``attn_fwd_tc.cu``, ``attn_bwd_tc.cu``), which no CPU can run; and stubs of
+the kernel library for tests that drive the launch path on the meta
 device."""
 
 import functools
+import math
 
 import numpy as np
+import torch
 
 # hid 32 with one head of width 32; 32×32 inputs give attention at T=256 and
 # T=64, and at T=1024 in the up-resample block of level 1 — the flagship's
@@ -86,9 +90,153 @@ def inputs(B=2, seed=0):
     return x, t, y
 
 
+# chip_smoke.py's limits. Forward: per element 2^-8·|ref| + 2^-8·(P·|v|) +
+# 1e-4 against the f32 twin (e rounded to bf16 moves an output by at most
+# 2^-9·Σ p|v|; the output's own rounding by half an ulp). Backward: per
+# d(qkv) slot 2^-7·|ref| + 2^-8·max|ref| against the bf16 twin.
+FWD_RTOL, FWD_ATOL = 2.0 ** -8, 1e-4
+BWD_RTOL, BWD_SCALE = 2.0 ** -7, 2.0 ** -8
+
+
+def bf16_inputs(B, T, N, C, seed):
+    """Seeded bf16 qkv (B, T, 3·N·C) and d(out) (B, T, N·C), drawn with numpy."""
+    rng = np.random.RandomState(seed)
+    qkv = torch.from_numpy((rng.randn(B, T, 3 * N * C) * 0.5).astype(np.float32)).bfloat16()
+    g = torch.from_numpy(rng.randn(B, T, N * C).astype(np.float32)).bfloat16()
+    return qkv, g
+
+
+def check_fwd_tc(got, ref, qkv, N):
+    """chip_smoke's forward limit of the tensor-core kernels' bf16 output
+    ``got`` against ``ref`` and against the f32 twin, with P·|v| on qkv."""
+    from vdiff_tpu_torch.ops import attention as A
+
+    x = qkv.float()
+    twin = A.attention_qkv_reference(x, N).numpy()
+    x[..., 2 * x.shape[-1] // 3:] = x[..., 2 * x.shape[-1] // 3:].abs()
+    pv = A.attention_qkv_reference(x, N).numpy()
+    tol = FWD_RTOL * np.abs(twin) + FWD_RTOL * pv + FWD_ATOL
+    for name, other in (("reference", ref), ("f32 twin", twin)):
+        err = np.abs(got.float().numpy() - other)
+        assert (err <= tol).all(), f"vs {name}: largest excess {(err - tol).max()}"
+
+
+def check_bwd_tc(got, ref):
+    """chip_smoke's bf16 backward limit, slot by slot, of d(qkv) ``got``
+    against ``ref`` (numpy)."""
+    got = got.float().numpy()
+    for a, r in zip(np.split(got, 3, -1), np.split(ref, 3, -1)):
+        tol = BWD_RTOL * np.abs(r) + BWD_SCALE * np.abs(r).max()
+        assert (np.abs(a - r) <= tol).all(), f"largest excess {(np.abs(a - r) - tol).max()}"
+
+
+# the kernels' tile sizes by head dim: keys per tile of the forward and of the
+# backward's row kernel (FwdShape::kBk, RowShape::kBk), q rows per step of the
+# column kernel (ColShape::kBq); 64 q rows a forward / row block, 64 keys a
+# column block
+KEY_TILE = {32: 64, 64: 64, 128: 64, 256: 32}
+COL_Q_TILE = {32: 64, 64: 64, 128: 32, 256: 32}
+LOG2E, LN2 = np.float32(1.4426950408889634), np.float32(0.6931471805599453)
+
+
+def _split(qkv, N):
+    """(B, T, 3·N·C) → f32 q, k, v as (B, N, T, C)."""
+    B, T, three_nc = qkv.shape
+    C = three_nc // (3 * N)
+    return [a.float().permute(0, 2, 1, 3) for a in qkv.reshape(B, T, 3, N, C).unbind(2)]
+
+
+def _bf16(x):
+    return x.to(torch.bfloat16).float()
+
+
+def emulate_fwd_tc(qkv, N):
+    """attn_fwd_tc.cu's algorithm: per key tile s = (q·kᵀ)·(log2e/√C) in f32
+    (keys past T at -inf), running max m and sum l rescaled by exp2(m_old −
+    m_new), o += bf16(exp2(s − m))·v; out = o / l, one cast to bf16. Returns
+    (out (B, T, N·C) bf16, lse (B, N, T) f32), lse = (m + log2 l)·ln2 as the
+    kernel's lse entry writes it."""
+    q, k, v = _split(qkv, N)
+    B, _, T, C = q.shape
+    bk, scale_log2 = KEY_TILE[C], LOG2E / np.sqrt(np.float32(C))
+    m = torch.full((B, N, T, 1), -math.inf)
+    l = torch.zeros(B, N, T, 1)
+    o = torch.zeros(B, N, T, C)
+    for j in range(0, T, bk):
+        s = (q @ k[:, :, j:j + bk].transpose(-1, -2)) * float(scale_log2)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(s - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        o = o * alpha + _bf16(p) @ v[:, :, j:j + bk]
+        m = m_new
+    out = (o / l).permute(0, 2, 1, 3).reshape(B, T, N * C).to(torch.bfloat16)
+    return out, ((m + torch.log2(l)) * float(LN2)).squeeze(-1)
+
+
+def emulate_bwd_tc(qkv, g, N):
+    """attn_bwd_tc.cu's algorithm. Row kernel, sweep 1 over key tiles: s as in
+    the forward, running max m, l = Σ exp2(s − m) and d = Σ exp2(s − m)·dP,
+    both rescaled as m grows; lse = (m + log2 l)·ln2 and δ = d / l (f32,
+    the full row). Sweep 2: P = exp2(s − m − log2 l), dS = bf16(P∘(dP − δ)),
+    dQ += dS·k, scaled by 1/√C at the end. Column kernel, per q tile:
+    P = exp2(S·log2e/√C − lse·log2e), dS as above, dV += bf16(P)ᵀ·dO,
+    dK += dSᵀ·q, scaled at the end. One cast of each to bf16."""
+    q, k, v = _split(qkv, N)
+    do = g.float().reshape(g.shape[0], g.shape[1], N, -1).permute(0, 2, 1, 3)
+    B, _, T, C = q.shape
+    bk, bq = KEY_TILE[C], COL_Q_TILE[C]
+    scale = np.float32(1.0) / np.sqrt(np.float32(C))
+    scale_log2 = float(scale * LOG2E)
+    m = torch.full((B, N, T, 1), -math.inf)
+    l = torch.zeros(B, N, T, 1)
+    d = torch.zeros(B, N, T, 1)
+    for j in range(0, T, bk):
+        s = (q @ k[:, :, j:j + bk].transpose(-1, -2)) * scale_log2
+        dp = do @ v[:, :, j:j + bk].transpose(-1, -2)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(s - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        d = d * alpha + (p * dp).sum(-1, keepdim=True)
+        m = m_new
+    lse2 = m + torch.log2(l)
+    delta = d / l
+    lse = lse2 * float(LN2)  # as written to device memory
+    dq = torch.zeros_like(q)
+    for j in range(0, T, bk):
+        s = (q @ k[:, :, j:j + bk].transpose(-1, -2)) * scale_log2
+        dp = do @ v[:, :, j:j + bk].transpose(-1, -2)
+        ds = _bf16(torch.exp2(s - lse2) * (dp - delta))
+        dq = dq + ds @ k[:, :, j:j + bk]
+    dk, dv = torch.zeros_like(k), torch.zeros_like(v)
+    for i in range(0, T, bq):
+        rows = slice(i, i + bq)
+        s = k @ q[:, :, rows].transpose(-1, -2)  # (B, N, keys, q rows)
+        p = torch.exp2(s * scale_log2 - (lse[:, :, rows] * float(LOG2E)).transpose(-1, -2))
+        dp = v @ do[:, :, rows].transpose(-1, -2)
+        ds = _bf16(p * (dp - delta[:, :, rows].transpose(-1, -2)))
+        dv = dv + _bf16(p) @ do[:, :, rows]
+        dk = dk + ds @ q[:, :, rows]
+    out = [a.permute(0, 2, 1, 3) for a in (dq * float(scale), dk * float(scale), dv)]
+    return torch.stack(out, dim=2).reshape(B, T, 3 * N * C).to(torch.bfloat16)
+
+
 class StubLibrary:
     """Stands in for the kernel library: every launch succeeds and does
     nothing; the *_max_t queries allow any T."""
 
     def __getattr__(self, name):
         return (lambda *a: 1 << 20) if name.endswith("_max_t") else (lambda *a: 0)
+
+
+class RecordingStubLibrary(StubLibrary):
+    """:class:`StubLibrary` that records, in order, the name of every entry
+    point asked for (launches and *_max_t queries)."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        self.calls.append(name)
+        return super().__getattr__(name)

@@ -5,10 +5,15 @@
 // through flash_attention_qkv for T > 512 when sampling, through
 // _qblk_fwd_call for the training forward at T > 512 and for head dims 32/64
 // with unaligned N*C) for bf16 inputs; f32 inputs stay on attn_fwd_qblk.cu.
+// Its lse instantiation (entry vdiff_attn_fwd_tc_lse) replaces
+// _attn_fwd_kernel_pack1_lse (B7: the forward of pack1_attention_trainable_kv,
+// head dim 32/64 at T = 4096) for bf16; f32 stays on attn_fwd_online.cu.
 //
 // Bound on the H100: per (batch, head) 4*T*T*C operations on 4*T*C bf16
 // elements, T/2 operations per byte against the card's ~295 for bf16 on the
-// tensor cores: compute at T = 1024, bytes at T = 256. The f32-FMA kernel it replaces
+// tensor cores: compute at T = 1024, bytes at T = 256. B7 at (B, T, N, C) =
+// (48, 4096, 6, 64) does 1.24 TFLOP, 1.25 ms at the bf16 peak; its lse adds
+// 4.7 MB of f32 to the 0.6 GB read and written. The f32-FMA kernel it replaces
 // ran at ~11 TFLOP/s, bound by shared-memory reads, with a (16, T) f32 score
 // row in shared memory (one block per SM, T capped). What this design does:
 //   * both products run on the tensor cores (mma.sync.m16n8k16, bf16
@@ -30,7 +35,11 @@
 // sums and the rescales are f32. The one departure from the Pallas kernel,
 // which takes e . v in f32: e is rounded to bf16 as the A operand of e . v,
 // which moves each output by at most 2^-9 * sum_j p_j |v_j|. The output is
-// divided by the f32 row sum once and cast to bf16 once.
+// divided by the f32 row sum once and cast to bf16 once. lse (kLse) is the
+// natural-log logsumexp of the scaled scores, (m + log2 l) * ln2 from the f32
+// running max m and sum l of the log2 domain, written as f32 (B, N, T): the
+// convention of attn_bwd_tc.cu's row kernel and attn_bwd_pack1_kv.cu. Against
+// the Pallas kernel's max + log(sum) in f32 it moves f32 roundings only.
 
 #include "attn_tc.cuh"
 
@@ -51,10 +60,10 @@ struct FwdShape {
   static constexpr int kSmemBytes = (kBq * pitch<C>() + 4 * kTile) * 2;
 };
 
-template <int C>
+template <int C, bool kLse>
 __global__ void __launch_bounds__(kThreads)
-    attn_fwd_tc_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int T, int N,
-                       float scale_log2) {
+    attn_fwd_tc_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out,
+                       float* __restrict__ lse, int T, int N, float scale_log2) {
   constexpr int kBk = FwdShape<C>::kBk;
   constexpr int kTile = FwdShape<C>::kTile;
   constexpr int kNc = C / 8;    // n8 tiles of a warp's output rows
@@ -173,20 +182,29 @@ __global__ void __launch_bounds__(kThreads)
     o[i][3] /= l1;
   }
   const int r0 = q0 + warp * 16;
+  if constexpr (kLse) {
+    const int r = r0 + lane / 4;  // rows r and r + 8; m is the same in all four lanes
+    float* row = lse + ((long)b * N + n) * T;
+    if (t4 == 0 && r < T) row[r] = (m[0] + log2f(l0)) * kLn2;
+    if (t4 == 0 && r + 8 < T) row[r + 8] = (m[1] + log2f(l1)) * kLn2;
+  }
   store_rows<kNc>(out + ((long)b * T + r0) * N * C + n * C, (long)N * C, o, T - r0, lane);
 }
 
+// lse == nullptr launches the instantiation without the lse output.
 template <int C>
 struct FwdLauncher {
-  static int run(const void* qkv, void* out, int B, int T, int N, cudaStream_t stream) {
+  static int run(const void* qkv, void* out, float* lse, int B, int T, int N,
+                 cudaStream_t stream) {
     if (T <= 0 || T % 32) return static_cast<int>(cudaErrorInvalidValue);
     constexpr int bytes = FwdShape<C>::kSmemBytes;
-    auto kernel = attn_fwd_tc_kernel<C>;
+    auto kernel = attn_fwd_tc_kernel<C, false>;
+    if (lse) kernel = attn_fwd_tc_kernel<C, true>;
     const cudaError_t err = allow_smem(kernel, bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
     const dim3 grid((T + kBq - 1) / kBq, N, B);
     kernel<<<grid, kThreads, bytes, stream>>>(static_cast<const bf16*>(qkv), static_cast<bf16*>(out),
-                                              T, N, kLog2e / sqrtf(static_cast<float>(C)));
+                                              lse, T, N, kLog2e / sqrtf(static_cast<float>(C)));
     return static_cast<int>(cudaGetLastError());
   }
 };
@@ -199,6 +217,16 @@ struct FwdLauncher {
 // of the launch (0 on success). Does not synchronise.
 extern "C" int vdiff_attn_fwd_tc(const void* qkv, void* out, int B, int T, int N, int C,
                                  void* stream) {
-  return vdiff::tc::dispatch_head_dim<vdiff::FwdLauncher>(C, qkv, out, B, T, N,
+  return vdiff::tc::dispatch_head_dim<vdiff::FwdLauncher>(C, qkv, out, nullptr, B, T, N,
+                                                          static_cast<cudaStream_t>(stream));
+}
+
+// The same, and each row's logsumexp of the scaled scores into lse, f32
+// (B, N, T).
+extern "C" int vdiff_attn_fwd_tc_lse(const void* qkv, void* out, void* lse, int B, int T, int N,
+                                     int C, void* stream) {
+  if (lse == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return vdiff::tc::dispatch_head_dim<vdiff::FwdLauncher>(C, qkv, out, static_cast<float*>(lse),
+                                                          B, T, N,
                                                           static_cast<cudaStream_t>(stream));
 }

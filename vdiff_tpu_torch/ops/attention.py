@@ -24,10 +24,13 @@ d(qkv) in the same layout as one buffer:
   them by an explicit dispatch on dtype; f32 calls keep the FMA kernels.
 * :func:`attn_fwd_pack1`, :func:`attn_fwd_pack1_lse`, :func:`attn_bwd_pack1`
   and :func:`attn_bwd_pack1_kv` are the counterparts of JAX's head-dim 32/64
-  ``pack1`` kernels B6–B9. B6 launches B1's online kernel and B8 the two
-  backward passes, each with a launch counter of its own; B7 is the online
-  kernel's logsumexp entry (``csrc/attn_fwd_online.cu``) and B9 a kv-streamed
-  dQ pass followed by the column pass (``csrc/attn_bwd_pack1_kv.cu``).
+  ``pack1`` kernels B6–B9, each with a launch counter of its own. B6
+  launches B1's online kernel and B9 a kv-streamed dQ pass followed by the
+  column pass (``csrc/attn_bwd_pack1_kv.cu``). B7 and B8 dispatch on dtype as
+  B2 and B5 do: bf16 calls run the tensor-core kernels (B7 the lse entry of
+  ``csrc/attn_fwd_tc.cu``, B8 ``csrc/attn_bwd_tc.cu``), f32 calls the online
+  kernel's logsumexp entry (``csrc/attn_fwd_online.cu``) and the two
+  backward passes.
 * :func:`spatial_attention_qkv` routes each call as JAX's
   ``spatial_attention_qkv`` does on a TPU without head padding
   (:func:`route`) and, with ``train=True``, goes through one of the
@@ -177,7 +180,8 @@ def attn_fwd_tc(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
     output divided once, so any T that is a multiple of 32 runs. Scale on
     f32 S after the product; e is rounded to bf16 as the operand of e·v, the
     one departure from the Pallas kernel's f32 e·v (at most 2^-9·Σ p|v| per
-    output). Its CPU twin is :func:`attention_qkv_reference`."""
+    output). Its CPU twin is :func:`attention_qkv_reference`. The same kernel
+    with an lse output serves B7's bf16 calls (:func:`attn_fwd_pack1_lse`)."""
     B, T, C = _check_kernel_input(qkv, num_heads, "attn_fwd_tc")
     _check_tc("attn_fwd_tc", qkv)
     if qkv.device.type == "cpu":
@@ -311,13 +315,26 @@ def attn_bwd_tc(qkv: torch.Tensor, g: torch.Tensor, num_heads: int) -> torch.Ten
     and δ = rowsum(P∘dP), then dS and dQ) and a column kernel (per 64-key
     tile: dK and dV in f32 registers), all products mma.sync with P and dS
     rounded to bf16 as operands; no atomics, any T that is a multiple of 32,
-    head dims 32-256. One count per call. Its CPU twin is
-    :func:`attention_qkv_bwd_reference`."""
+    head dims 32-256. One count per call; B8's bf16 calls
+    (:func:`attn_bwd_pack1`) launch the same kernel under their own count.
+    Its CPU twin is :func:`attention_qkv_bwd_reference`."""
     B, T, C = _check_bwd_input(qkv, g, num_heads, "attn_bwd_tc")
     _check_tc("attn_bwd_tc", qkv, g)
     if qkv.device.type == "cpu":
         return attention_qkv_bwd_reference(qkv, g, num_heads)
-    _need_cuda("attn_bwd_tc", qkv, g)
+    dqkv = _bwd_tc("attn_bwd_tc", qkv, g, num_heads, B, T, C)
+    attn_bwd_tc.launches += 1
+    return dqkv
+
+
+attn_bwd_tc.launches = 0
+
+
+def _bwd_tc(fn_name, qkv, g, num_heads, B, T, C):
+    """Launch ``vdiff_attn_bwd_tc`` on checked bf16 CUDA inputs; the caller
+    counts the launch (B5 under :func:`attn_bwd_tc`, B8 under
+    :func:`attn_bwd_pack1`)."""
+    _need_cuda(fn_name, qkv, g)
     dqkv = torch.empty_like(qkv)
     lse = torch.empty(B, num_heads, T, dtype=torch.float32, device=qkv.device)
     delta = torch.empty_like(lse)
@@ -325,11 +342,7 @@ def attn_bwd_tc(qkv: torch.Tensor, g: torch.Tensor, num_heads: int) -> torch.Ten
         qkv.data_ptr(), g.data_ptr(), dqkv.data_ptr(), lse.data_ptr(), delta.data_ptr(),
         B, T, num_heads, C, torch.cuda.current_stream(qkv.device).cuda_stream)
     kernels.check(err, "vdiff_attn_bwd_tc")
-    attn_bwd_tc.launches += 1
     return dqkv
-
-
-attn_bwd_tc.launches = 0
 
 
 def attn_bwd(qkv: torch.Tensor, g: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -461,21 +474,32 @@ attn_fwd_pack1.launches = 0
 
 def attn_fwd_pack1_lse(qkv: torch.Tensor, num_heads: int):
     """:func:`attn_fwd_pack1` that also returns each row's logsumexp of the
-    scaled scores as f32 (B, N, T) (entry ``vdiff_attn_fwd_pack1_lse`` of
-    ``attn_fwd_online.cu``).
+    scaled scores as f32 (B, N, T).
 
     Replaces JAX's Pallas ``_attn_fwd_kernel_pack1_lse`` (B7, through
-    ``_pack1_fwd_lse_call``), the forward of the kv-chunked training path."""
+    ``_pack1_fwd_lse_call``), the forward of the kv-chunked training path.
+    A bf16 CUDA call runs the tensor-core kernel's lse entry
+    (``vdiff_attn_fwd_tc_lse`` of ``attn_fwd_tc.cu``; 16-byte alignment
+    checked), which rounds e to bf16 as the operand of e·v as
+    :func:`attn_fwd_tc` does; an f32 one the online kernel's
+    (``vdiff_attn_fwd_pack1_lse`` of ``attn_fwd_online.cu``). Counted here
+    either way, not in :func:`attn_fwd_tc`."""
     B, T, C = _check_sublane(qkv, num_heads, "attn_fwd_pack1_lse")
     if qkv.device.type == "cpu":
         return attention_qkv_lse_reference(qkv, num_heads)
     _need_cuda("attn_fwd_pack1_lse", qkv)
     out = torch.empty(B, T, num_heads * C, dtype=qkv.dtype, device=qkv.device)
     lse = torch.empty(B, num_heads, T, dtype=torch.float32, device=qkv.device)
-    err = kernels.library().vdiff_attn_fwd_pack1_lse(
-        qkv.data_ptr(), out.data_ptr(), lse.data_ptr(), B, T, num_heads, C,
-        int(qkv.dtype == torch.bfloat16), torch.cuda.current_stream(qkv.device).cuda_stream)
-    kernels.check(err, "vdiff_attn_fwd_pack1_lse")
+    stream = torch.cuda.current_stream(qkv.device).cuda_stream
+    if qkv.dtype == torch.bfloat16:
+        _check_tc("attn_fwd_pack1_lse", qkv)
+        err = kernels.library().vdiff_attn_fwd_tc_lse(
+            qkv.data_ptr(), out.data_ptr(), lse.data_ptr(), B, T, num_heads, C, stream)
+        kernels.check(err, "vdiff_attn_fwd_tc_lse")
+    else:
+        err = kernels.library().vdiff_attn_fwd_pack1_lse(
+            qkv.data_ptr(), out.data_ptr(), lse.data_ptr(), B, T, num_heads, C, 0, stream)
+        kernels.check(err, "vdiff_attn_fwd_pack1_lse")
     attn_fwd_pack1_lse.launches += 1
     return out, lse
 
@@ -487,20 +511,26 @@ def attn_bwd_pack1(qkv: torch.Tensor, g: torch.Tensor, num_heads: int) -> torch.
     """Full-row attention backward for head dims 32/64: d(qkv) (B, T, 3·N·C).
 
     Replaces JAX's Pallas ``_attn_bwd_kernel_pack1`` (B8, through
-    ``_pack1_bwd_call``), which computes B4's function. Runs the row and
-    column kernels of :func:`attn_bwd_rows` / :func:`attn_bwd_cols`
-    (``attn_bwd_rows.cu``, ``attn_bwd_cols.cu``; T ≤ 1664 at C=64) and counts
-    one launch here; their own counts stay the pair's (B4, and B5 in f32)."""
+    ``_pack1_bwd_call``), which computes B4's function. A bf16 CUDA call runs
+    the tensor-core backward of :func:`attn_bwd_tc` (``attn_bwd_tc.cu``; any
+    T, 16-byte alignment checked); an f32 one the row and column kernels of
+    :func:`attn_bwd_rows` / :func:`attn_bwd_cols` (``attn_bwd_rows.cu``,
+    ``attn_bwd_cols.cu``; T ≤ 1664 at C=64). Either way one launch is counted
+    here, and the other wrappers' counts stay B4's and B5's."""
     B, T, C = _check_bwd_input(qkv, g, num_heads, "attn_bwd_pack1")
     if C not in _SUBLANE_HEAD_DIMS:
         raise ValueError(f"attn_bwd_pack1: head dim {C} not supported {_SUBLANE_HEAD_DIMS}")
     if qkv.device.type == "cpu":
         return attention_qkv_bwd_reference(qkv, g, num_heads)
-    _need_cuda("attn_bwd_pack1", qkv, g)
-    _check_max_t("attn_bwd_pack1", T, C, "vdiff_attn_bwd_rows_max_t")
-    dqkv = torch.empty_like(qkv)
-    lse, delta = _bwd_rows(qkv, g, num_heads, dqkv, B, T, C)
-    _bwd_cols(qkv, g, num_heads, lse, delta, dqkv, B, T, C)
+    if qkv.dtype == torch.bfloat16:
+        _check_tc("attn_bwd_pack1", qkv, g)
+        dqkv = _bwd_tc("attn_bwd_pack1", qkv, g, num_heads, B, T, C)
+    else:
+        _need_cuda("attn_bwd_pack1", qkv, g)
+        _check_max_t("attn_bwd_pack1", T, C, "vdiff_attn_bwd_rows_max_t")
+        dqkv = torch.empty_like(qkv)
+        lse, delta = _bwd_rows(qkv, g, num_heads, dqkv, B, T, C)
+        _bwd_cols(qkv, g, num_heads, lse, delta, dqkv, B, T, C)
     attn_bwd_pack1.launches += 1
     return dqkv
 
