@@ -55,10 +55,11 @@ Phases, one output line each (any failure raises and exits non-zero):
      and are held against their twins, f32 and bf16: on the whole batch at
      T <= 1024, and at T=4096 on four batch slices of the same inputs and
      outputs (the twins' (B, N, T, T) f32 scores take 19 GB at B=48); then
-     timed in bf16 there beside the twin, SDPA and the card's bound; B7's
-     and B8's bf16 calls run the tensor-core kernels (attn_fwd_tc.cu's lse
-     entry, held to B2's P·|v| limit, and attn_bwd_tc.cu), timed beside the
-     f32-FMA kernels they replaced on the same inputs;
+     timed in bf16 there beside the twin, SDPA and the card's bound; all four
+     run the tensor-core kernels in bf16 (B6 attn_fwd_tc.cu and B7 its lse
+     entry, both held to B2's P·|v| limit; B8 attn_bwd_tc.cu; B9 that file's
+     saved-statistics entry, vdiff_attn_bwd_tc_kv), each timed beside the
+     f32-FMA kernel it replaced on the same inputs;
   9. celeba-unet: the full-width celeba UNet (301 M parameters, 40 multi-hot
      tags, 'both' head) in f32 at B=1 on the GPU against the CPU; one forward
      must launch attn_fwd_pack1 10 times, attn_fwd_qblk 8 and attn_fwd_online 9
@@ -78,7 +79,7 @@ read just after: "launches" is their sum over the paths, and
 "launches_by_path" each path's own count. The line before last is the
 kernels' JSON record (with each kernel's time, its twin's, one PyTorch
 call's where there is one, the card's bound for the same work, and for the
-tensor-core kernels of B2, B5, B7 and B8 the FMA kernel's time on the same
+tensor-core kernels of B2, B5 and B6-B9 the FMA kernel's time on the same
 inputs, "before_ms"); the last line is {"ok": true, "device": {...}}.
 Imports nothing of JAX.
 """
@@ -142,12 +143,13 @@ FUSED_B = 64  # the fused sampling path's batch
 # up_1_us), the q-blocked kernel 8 times (N=9: T=256 and up_2_us's T=1024)
 # and the online kernel 9 times (T=64); a train step runs the pack1 pair
 # (forward + full-row backward) at 9 calls, the kv-streamed pair at T=4096,
-# and B3/B2 + the two backward passes at the other 17. attn_fwd_pack1 runs
-# B1's kernel and attn_bwd_pack1_kv the column pass; attn_fwd_pack1_lse and
-# attn_bwd_pack1 run the tensor-core kernels in bf16 (the lse entry of
-# attn_fwd_tc.cu, attn_bwd_tc.cu) and in f32 the online kernel's lse entry
-# and the two backward passes; each wrapper counts only its own launches. In
-# bf16 B2's calls and the T=1024 backward go to attn_fwd_tc and attn_bwd_tc.
+# and B3/B2 + the two backward passes at the other 17. The pack1 wrappers run
+# the tensor-core kernels in bf16 (attn_fwd_pack1 attn_fwd_tc.cu,
+# attn_fwd_pack1_lse its lse entry, attn_bwd_pack1 attn_bwd_tc.cu,
+# attn_bwd_pack1_kv its saved-statistics entry) and in f32 B1's online
+# kernel, its lse entry, the two backward passes and attn_bwd_pack1_kv.cu;
+# each wrapper counts only its own launches. In bf16 B2's calls and the
+# T=1024 backward go to attn_fwd_tc and attn_bwd_tc.
 CELEBA_FWD_LAUNCHES = _launches(attn_fwd_pack1=10, attn_fwd_qblk=8, attn_fwd_online=9)
 CELEBA_FWD_LAUNCHES_BF16 = _launches(attn_fwd_pack1=10, attn_fwd_tc=8, attn_fwd_online=9)
 CELEBA_STEP_LAUNCHES = _launches(attn_fwd_pack1=9, attn_fwd_pack1_lse=1, attn_bwd_pack1=9,
@@ -352,6 +354,32 @@ def fma_bwd(qkv, g, N):
     dqkv = torch.empty_like(qkv)
     lse, delta = A._bwd_rows(qkv, g, N, dqkv, B, T, C)
     A._bwd_cols(qkv, g, N, lse, delta, dqkv, B, T, C)
+    return dqkv
+
+
+def fma_fwd_online(qkv, N):
+    """B1's f32-FMA online kernel (attn_fwd_online.cu) on the same inputs,
+    uncounted: what B6's bf16 calls ran before attn_fwd_tc.cu."""
+    from vdiff_tpu_torch.ops import attention as A
+
+    B, T, C = A._shape(qkv, N)
+    return A._launch("vdiff_attn_fwd_online", qkv, N, B, T, C)
+
+
+def fma_bwd_kv(qkv, out, lse, g, N):
+    """B9's f32-FMA pair (attn_bwd_pack1_kv.cu's dQ/δ kernel, then
+    attn_bwd_cols.cu) on the same inputs, uncounted: what B9's bf16 calls ran
+    before attn_bwd_tc.cu's saved-statistics entry."""
+    from vdiff_tpu_torch import kernels
+    from vdiff_tpu_torch.ops import attention as A
+
+    B, T, C = A._shape(qkv, N)
+    dqkv = torch.empty_like(qkv)
+    delta = torch.empty_like(lse)
+    err = kernels.library().vdiff_attn_bwd_pack1_kv(
+        qkv.data_ptr(), out.data_ptr(), lse.data_ptr(), g.data_ptr(), dqkv.data_ptr(),
+        delta.data_ptr(), *A._bwd_args(qkv, N, B, T, C))
+    kernels.check(err, "vdiff_attn_bwd_pack1_kv")
     return dqkv
 
 
@@ -960,14 +988,14 @@ def phase_celeba_kernels():
     attn_bwd_pack1_kv (B9) at CELEBA_KERNEL_SHAPES, f32 and bf16, against
     their twins: on the whole batch at T <= TWIN_FULL_BATCH_MAX_T, else on
     batch slices 0, 1, B-2, B-1 of the same inputs and of the kernels'
-    outputs. B9 takes B7's own (out, lse), its twin their slices. B7's bf16
-    output comes from the tensor-core kernel and is held by _check_tc_fwd's
-    P·|v| limit (its lse within LSE_ATOL as in f32); B8's bf16 d(qkv) by the
-    bf16 backward limit. In bf16 each kernel is then timed on the whole batch
-    beside its twin, SDPA and the card's bound, B7 and B8 also beside the
-    f32-FMA kernels they replaced (``before_ms``). Returns the per-kernel
-    records (each kernel's first shape; max_abs_err the largest over its bf16
-    shapes)."""
+    outputs. B9 takes B7's own (out, lse), its twin their slices. In bf16
+    all four run the tensor-core kernels: B6's and B7's outputs are held by
+    _check_tc_fwd's P·|v| limit (B7's lse within LSE_ATOL as in f32), B8's and
+    B9's d(qkv) by the bf16 backward limit. In bf16 each kernel is then timed
+    on the whole batch beside its twin, SDPA, the card's bound and the
+    f32-FMA kernel it replaced on the same inputs (``before_ms``). Returns
+    the per-kernel records (each kernel's first shape; max_abs_err the
+    largest over its bf16 shapes)."""
     from vdiff_tpu_torch.ops import attention as A
 
     torch.cuda.empty_cache()
@@ -987,13 +1015,17 @@ def phase_celeba_kernels():
             # (kernel, twin, library, bound kind, the FMA kernel it replaced
             # or None) of each wrapper to time
             if "attn_fwd_pack1" in names:
-                ref_out, _ = A.attention_qkv_lse_reference(sq.float(), N)
-                errs["attn_fwd_pack1"] = _check_fwd(f"attn_fwd_pack1 {tag}{on}",
-                                                    A.attn_fwd_pack1(qkv, N)[idx], ref_out, dtype)
+                label, got = f"attn_fwd_pack1 {tag}{on}", A.attn_fwd_pack1(qkv, N)[idx]
+                if dtype == torch.bfloat16:
+                    errs["attn_fwd_pack1"] = _check_tc_fwd(label, got, sq, N)
+                else:
+                    ref_out, _ = A.attention_qkv_lse_reference(sq.float(), N)
+                    errs["attn_fwd_pack1"] = _check_fwd(label, got, ref_out, dtype)
+                    del ref_out
+                del got
                 timed["attn_fwd_pack1"] = (lambda: A.attn_fwd_pack1(qkv, N),
                                            lambda: A.attention_qkv_lse_reference(qkv, N),
-                                           _sdpa(qkv, N), "fwd", None)
-                del ref_out
+                                           _sdpa(qkv, N), "fwd", lambda: fma_fwd_online(qkv, N))
             if "attn_fwd_pack1_lse" in names:
                 ref_out, ref_lse = A.attention_qkv_lse_reference(sq.float(), N)
                 out, lse = A.attn_fwd_pack1_lse(qkv, N)
@@ -1025,7 +1057,7 @@ def phase_celeba_kernels():
                 timed["attn_bwd_pack1_kv"] = (
                     lambda: A.attn_bwd_pack1_kv(qkv, out, lse, g, N),
                     lambda: A.attention_qkv_bwd_kv_reference(qkv, out, lse, g, N),
-                    _sdpa(qkv, N, g), "bwd_kv", None)
+                    _sdpa(qkv, N, g), "bwd_kv", lambda: fma_bwd_kv(qkv, out, lse, g, N))
             print(f"celeba-kernels: {tag}{on}: max_abs_err {errs}", flush=True)
             del sq, sg
             torch.cuda.empty_cache()
@@ -1211,17 +1243,18 @@ def main():
                           "vdiff_tpu/ops/attention.py:204"),
         "attn_bwd_cols": ("vdiff_tpu_torch/csrc/attn_bwd_cols.cu",
                           "vdiff_tpu/ops/attention.py:204"),
-        # B6 launches B1's kernel; B7 and B8 in bf16, the paths' type, the
-        # tensor-core kernels: attn_fwd_tc.cu's lse entry and attn_bwd_tc.cu
-        # (their f32 calls keep the FMA sources, attn_fwd_online.cu's lse
-        # entry and attn_bwd_rows.cu + attn_bwd_cols.cu); each counted apart
-        "attn_fwd_pack1": ("vdiff_tpu_torch/csrc/attn_fwd_online.cu",
+        # B6-B9 in bf16, the paths' type, the tensor-core kernels:
+        # attn_fwd_tc.cu and its lse entry, attn_bwd_tc.cu and its
+        # saved-statistics entry (their f32 calls keep the FMA sources,
+        # attn_fwd_online.cu and its lse entry, attn_bwd_rows.cu +
+        # attn_bwd_cols.cu, attn_bwd_pack1_kv.cu); each counted apart
+        "attn_fwd_pack1": ("vdiff_tpu_torch/csrc/attn_fwd_tc.cu",
                            "vdiff_tpu/ops/attention.py:318"),
         "attn_fwd_pack1_lse": ("vdiff_tpu_torch/csrc/attn_fwd_tc.cu",
                                "vdiff_tpu/ops/attention.py:407"),
         "attn_bwd_pack1": ("vdiff_tpu_torch/csrc/attn_bwd_tc.cu",
                            "vdiff_tpu/ops/attention.py:470"),
-        "attn_bwd_pack1_kv": ("vdiff_tpu_torch/csrc/attn_bwd_pack1_kv.cu",
+        "attn_bwd_pack1_kv": ("vdiff_tpu_torch/csrc/attn_bwd_tc.cu",
                               "vdiff_tpu/ops/attention.py:567"),
         # B11's statistics pass is gn_common.cuh's kernel, shared with B10
         "gn_film_silu_kernel": ("vdiff_tpu_torch/csrc/gn_film_silu.cu",

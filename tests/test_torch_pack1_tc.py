@@ -1,22 +1,25 @@
-"""B7 and B8 of the port on the tensor cores, on the CPU, where no CUDA kernel
+"""B6-B9 of the port on the tensor cores, on the CPU, where no CUDA kernel
 runs.
 
-bf16 CUDA calls of ``attn_fwd_pack1_lse`` (B7) run the lse entry of
-``attn_fwd_tc.cu`` and those of ``attn_bwd_pack1`` (B8) run
-``attn_bwd_tc.cu``. The kernels' tile algorithms, emulated in torch
+bf16 CUDA calls of ``attn_fwd_pack1`` (B6) run ``attn_fwd_tc.cu``, those of
+``attn_fwd_pack1_lse`` (B7) its lse entry, those of ``attn_bwd_pack1`` (B8)
+``attn_bwd_tc.cu`` and those of ``attn_bwd_pack1_kv`` (B9) that file's
+saved-statistics entry. The kernels' tile algorithms, emulated in torch
 (``tests/torch_parity.py``), are held on bf16 inputs made from a numpy seed
 against JAX's head-dim 32/64 Pallas kernels in interpret mode at small blocks
 (bq = 128, kv chunks of 128, as tests/test_torch_celeba_attention.py runs
 them), within the limits chip_smoke.py holds the kernels to on the card:
 
-* B7's output: 2^-8·|ref| + 2^-8·(P·|v|) + 1e-4 per element (B2's limit: the
-  kernel rounds e to bf16 as the operand of e·v, which moves an output by at
-  most 2^-9·Σ p|v|, where JAX's B7 takes e·v in f32); its lse within 1e-4
-  (f32 on both sides, other roundings only). JAX broadcasts lse over each
-  head's C lanes of a (B, T, N·C) array; one lane is taken.
-* B8's d(qkv): per slot 2^-7·|ref| + 2^-8·max|ref| (both round P and dS to
-  bf16 as operands; f32 sums in another order can move a rounding one step).
-* B9 (JAX's, and the port's twin) on B7's output: see
+* B6's and B7's output: 2^-8·|ref| + 2^-8·(P·|v|) + 1e-4 per element (B2's
+  limit: the kernel rounds e to bf16 as the operand of e·v, which moves an
+  output by at most 2^-9·Σ p|v|, where JAX's B6 and B7 take e·v in f32); B7's
+  lse within 1e-4 (f32 on both sides, other roundings only). JAX broadcasts
+  lse over each head's C lanes of a (B, T, N·C) array; one lane is taken.
+* B8's and B9's d(qkv): per slot 2^-7·|ref| + 2^-8·max|ref| (both round P
+  and dS to bf16 as operands; f32 sums in another order can move a rounding
+  one step). B9 takes δ = Σ_C dO∘O from the saved output, as JAX's does; a
+  case where the full-row rowsum(P∘dP) differs shows that it must.
+* B9 on the tensor-core B7's output, against JAX's B9 on JAX's B7: see
   :func:`_out_shift_slack`.
 
 Then the wrappers' dispatch on dtype into a recording stub library (meta
@@ -91,6 +94,82 @@ def test_b8_tc_backward_matches_pallas_pack1(B, T, N, C):
     P.check_bwd_tc(got, A.attention_qkv_bwd_reference(qkv, g, N).float().numpy())
 
 
+@pytest.mark.parametrize("B,T,N,C", SHAPES)
+def test_b6_tc_forward_matches_pallas_pack1(B, T, N, C):
+    from vdiff_tpu.ops.attention import _pack1_fwd_call
+
+    qkv, _ = P.bf16_inputs(B, T, N, C, seed=6 * C + N)
+    ref = _np(_pack1_fwd_call(_jax_bf16(qkv), N, C, BQ, interpret=True))
+    out, _ = P.emulate_fwd_tc(qkv, N)
+    assert out.dtype == torch.bfloat16 and out.shape == (B, T, N * C)
+    P.check_fwd_tc(out, ref, qkv, N)
+    # and the CPU twin attn_fwd_pack1 returns, B6's f32 e·v cast once
+    P.check_fwd_tc(out, A.attn_fwd_pack1(qkv, N).float().numpy(), qkv, N)
+
+
+def _jax_b7(qkv, N, C):
+    """JAX's B7 on bf16 ``qkv``: (its jax out, its jax lse, out as a bf16
+    tensor, lse as (B, N, T) f32)."""
+    from vdiff_tpu.ops.attention import _pack1_fwd_lse_call
+
+    B, T, _ = qkv.shape
+    jout, jlse = _pack1_fwd_lse_call(_jax_bf16(qkv), N, C, BQ, interpret=True)
+    out = torch.from_numpy(np.array(_np(jout))).bfloat16()
+    return jout, jlse, out, torch.from_numpy(np.array(_jax_lse(jlse, B, T, N, C)))
+
+
+def _jax_b9(qkv, jout, jlse, g, N, C):
+    from vdiff_tpu.ops.attention import _pack1_bwd_kv_call
+
+    return _jax_dqkv(*_pack1_bwd_kv_call(_jax_bf16(qkv), jout, jlse, _jax_bf16(g), N, C, BQ, BKV,
+                                         interpret=True))
+
+
+@pytest.mark.parametrize("B,T,N,C", SHAPES)
+def test_b9_tc_backward_matches_pallas_pack1_kv(B, T, N, C):
+    """The saved-statistics entry's algorithm on JAX's B7 (out, lse) against
+    JAX's B9 on the same, and against the port's B9 twin."""
+    qkv, g = P.bf16_inputs(B, T, N, C, seed=10 * C + N)
+    jout, jlse, out, lse = _jax_b7(qkv, N, C)
+    ref = _jax_b9(qkv, jout, jlse, g, N, C)
+    got = P.emulate_bwd_tc_kv(qkv, out, lse, g, N)
+    assert got.dtype == torch.bfloat16 and got.shape == qkv.shape
+    P.check_bwd_tc(got, ref)
+    P.check_bwd_tc(got, A.attention_qkv_bwd_kv_reference(qkv, out, lse, g, N).float().numpy())
+
+
+def test_b9_tc_takes_delta_from_the_saved_output():
+    """δ = Σ_C dO∘O from the saved bf16 O, as JAX's B9 takes it, and not the
+    full-row rowsum(P∘dP) of the other entry. A case where the two differ:
+    v carries an offset of 4, so each output's bf16 rounding is up to 2^-6,
+    and d(out) leans the way each output was rounded, so the differences add
+    up over the C columns of a row. With the saved δ the algorithm stays
+    within the bf16 backward limit of JAX's B9; with the full-row δ of the
+    same row it does not."""
+    B, T, N, C = SHAPES[0]
+    rng = np.random.RandomState(12)
+    x = (rng.randn(B, T, 3 * N * C) * 0.5).astype(np.float32)
+    x[..., 2 * N * C:] += 4.0
+    qkv = torch.from_numpy(x).bfloat16()
+    jout, jlse, out, lse = _jax_b7(qkv, N, C)
+    rounding = out.float() - A.attention_qkv_lse_reference(qkv.float(), N)[0]
+    noise = torch.from_numpy(rng.randn(B, T, N * C).astype(np.float32))
+    g = (torch.sign(rounding) + 0.25 * noise).bfloat16()
+    ref = _jax_b9(qkv, jout, jlse, g, N, C)
+
+    saved = P.saved_delta(out, g, N)
+    got = P.emulate_bwd_tc_kv(qkv, out, lse, g, N)
+    assert torch.equal(got, P.emulate_bwd_tc_stats(qkv, g, N, lse, saved))
+    P.check_bwd_tc(got, ref)
+
+    q, k, v = P._split(qkv, N)
+    p = torch.softmax(q @ k.transpose(-1, -2) / math.sqrt(C), -1)
+    full_row = (p * (P._do(g, N) @ v.transpose(-1, -2))).sum(-1)
+    assert (full_row - saved).abs().max() > 0.1
+    with pytest.raises(AssertionError, match="largest excess"):
+        P.check_bwd_tc(P.emulate_bwd_tc_stats(qkv, g, N, lse, full_row), ref)
+
+
 def _out_shift_slack(qkv, g, N):
     """How far B9's d(qkv) may move, per element, when it reads the tensor-core
     B7's (out, lse) in place of JAX's B7's, from the limits those are held to.
@@ -125,25 +204,40 @@ def _out_shift_slack(qkv, g, N):
     return torch.cat([a.permute(0, 2, 1, 3).reshape(B, T, N * C) for a in (dq, dk, dv)], -1)
 
 
+def _check_chain(got, ref, slack):
+    """The bf16 backward limit plus :func:`_out_shift_slack`, slot by slot."""
+    for slot, a, r, s in zip("qkv", *(np.split(t, 3, -1) for t in (got, ref, slack))):
+        tol = P.BWD_RTOL * np.abs(r) + P.BWD_SCALE * np.abs(r).max() + s
+        err = np.abs(a - r)
+        assert (err <= tol).all(), f"d{slot}: largest excess {(err - tol).max()}"
+
+
 @pytest.mark.parametrize("B,T,N,C", SHAPES)
 def test_b9_on_the_tc_forward_stays_near_jax_b9_on_jax_b7(B, T, N, C):
     """The chain of the kv-streamed training path: JAX's B9 on JAX's B7
     (out, lse) against the port's B9 twin on the emulated tensor-core B7's
     (out, lse), within the bf16 backward limit plus :func:`_out_shift_slack`.
     The changed B7 output does not push B9's gradients off JAX's."""
-    from vdiff_tpu.ops.attention import _pack1_bwd_kv_call, _pack1_fwd_lse_call
-
     qkv, g = P.bf16_inputs(B, T, N, C, seed=9 * C + N)
-    jq, jg = _jax_bf16(qkv), _jax_bf16(g)
-    jout, jlse = _pack1_fwd_lse_call(jq, N, C, BQ, interpret=True)
-    ref = _jax_dqkv(*_pack1_bwd_kv_call(jq, jout, jlse, jg, N, C, BQ, BKV, interpret=True))
+    jout, jlse, _, _ = _jax_b7(qkv, N, C)
+    ref = _jax_b9(qkv, jout, jlse, g, N, C)
     out, lse = P.emulate_fwd_tc(qkv, N)
     got = A.attention_qkv_bwd_kv_reference(qkv, out, lse, g, N).float().numpy()
-    slack = _out_shift_slack(qkv, g, N).numpy()
-    for slot, a, r, s in zip("qkv", *(np.split(t, 3, -1) for t in (got, ref, slack))):
-        tol = P.BWD_RTOL * np.abs(r) + P.BWD_SCALE * np.abs(r).max() + s
-        err = np.abs(a - r)
-        assert (err <= tol).all(), f"d{slot}: largest excess {(err - tol).max()}"
+    _check_chain(got, ref, _out_shift_slack(qkv, g, N).numpy())
+
+
+@pytest.mark.parametrize("B,T,N,C", SHAPES)
+def test_tc_b7_then_tc_b9_stays_near_jax_b7_then_jax_b9(B, T, N, C):
+    """The bf16 training path as the card runs it: the emulated tensor-core
+    B7, then the emulated tensor-core B9 on its (out, lse), against JAX's B7
+    then JAX's B9, within the bf16 backward limit plus
+    :func:`_out_shift_slack`."""
+    qkv, g = P.bf16_inputs(B, T, N, C, seed=9 * C + N)
+    jout, jlse, _, _ = _jax_b7(qkv, N, C)
+    ref = _jax_b9(qkv, jout, jlse, g, N, C)
+    out, lse = P.emulate_fwd_tc(qkv, N)
+    got = P.emulate_bwd_tc_kv(qkv, out, lse, g, N).float().numpy()
+    _check_chain(got, ref, _out_shift_slack(qkv, g, N).numpy())
 
 
 # ---------------------------------------------------------------------------
@@ -182,14 +276,19 @@ def recorded(monkeypatch):
 @pytest.mark.parametrize("T", [256, 1024, 2048, 4096])
 def test_pack1_dispatch_on_dtype(recorded, T):
     """bf16 calls reach the tensor-core entries and f32 calls the FMA ones;
-    each counts under its own wrapper only. The f32 backward asks for the
-    row kernel's T cap; the bf16 one has none to ask for (T=2048 and 4096
+    each counts under its own wrapper only, never under attn_fwd_tc,
+    attn_bwd_tc or the pair's counters. The f32 full-row backward asks for
+    the row kernel's T cap; the bf16 one has none to ask for (T=2048 and 4096
     are past the f32 cap at C=64)."""
     N, C = 2, 64
     for dtype in (torch.float32, torch.bfloat16):
         bf16 = dtype == torch.bfloat16
         qkv = torch.empty(2, T, 3 * N * C, dtype=dtype, device="meta")
         g = torch.empty(2, T, N * C, dtype=dtype, device="meta")
+        out = A.attn_fwd_pack1(qkv, N)
+        assert (out.shape, out.dtype) == ((2, T, N * C), dtype)
+        assert recorded() == (["vdiff_attn_fwd_tc" if bf16 else "vdiff_attn_fwd_online"],
+                              {"attn_fwd_pack1": 1})
         out, lse = A.attn_fwd_pack1_lse(qkv, N)
         assert (out.shape, out.dtype, lse.shape, lse.dtype) == ((2, T, N * C), dtype, (2, N, T),
                                                                 torch.float32)
@@ -199,14 +298,18 @@ def test_pack1_dispatch_on_dtype(recorded, T):
         want = (["vdiff_attn_bwd_tc"] if bf16 else
                 ["vdiff_attn_bwd_rows_max_t", "vdiff_attn_bwd_rows", "vdiff_attn_bwd_cols"])
         assert recorded() == (want, {"attn_bwd_pack1": 1})
+        assert A.attn_bwd_pack1_kv(qkv, out, lse, g, N).shape == qkv.shape
+        assert recorded() == (["vdiff_attn_bwd_tc_kv" if bf16 else "vdiff_attn_bwd_pack1_kv"],
+                              {"attn_bwd_pack1_kv": 1})
 
 
 def test_bf16_celeba_step_reaches_the_tc_entries(recorded):
     """One bf16 training forward and backward of the full-width celeba UNet
-    on the meta device: B8 ×9 and B5 ×1 launch vdiff_attn_bwd_tc, B7 ×1
-    vdiff_attn_fwd_tc_lse, B2 ×1 vdiff_attn_fwd_tc; the FMA entries of B7 and
-    the pair run only B4's 16 calls; the counts are chip_smoke's
-    CELEBA_STEP_LAUNCHES_BF16."""
+    on the meta device: B8 ×9 and B5 ×1 launch vdiff_attn_bwd_tc, B9 ×1
+    vdiff_attn_bwd_tc_kv, B7 ×1 vdiff_attn_fwd_tc_lse, B6 ×9 and B2 ×1
+    vdiff_attn_fwd_tc; the FMA entries of B1, B7 and B9 run never and the
+    pair only B4's 16 calls; the per-counter launch counts are chip_smoke's
+    CELEBA_STEP_LAUNCHES_BF16, as before B6 and B9 moved."""
     from vdiff_tpu_torch.factory import CONFIG_DIR, build_unet, load_experiment_config
 
     cfg, _ = load_experiment_config(f"{CONFIG_DIR}/celeba.json")
@@ -218,16 +321,17 @@ def test_bf16_celeba_step_reaches_the_tc_entries(recorded):
     model(x, t, torch.empty(2, 40, device="meta"), train=True).float().sum().backward()
     calls, counts = recorded()
     entries = {name: calls.count(name) for name in set(calls) if not name.endswith("_max_t")}
-    assert entries == {"vdiff_attn_fwd_online": 9, "vdiff_attn_fwd_tc_lse": 1,
-                       "vdiff_attn_fwd_train": 16, "vdiff_attn_fwd_tc": 1,
-                       "vdiff_attn_bwd_tc": 10, "vdiff_attn_bwd_pack1_kv": 1,
-                       "vdiff_attn_bwd_rows": 16, "vdiff_attn_bwd_cols": 16}
+    assert entries == {"vdiff_attn_fwd_tc_lse": 1, "vdiff_attn_fwd_train": 16,
+                       "vdiff_attn_fwd_tc": 10, "vdiff_attn_bwd_tc": 10,
+                       "vdiff_attn_bwd_tc_kv": 1, "vdiff_attn_bwd_rows": 16,
+                       "vdiff_attn_bwd_cols": 16}
     assert counts == {"attn_fwd_pack1": 9, "attn_fwd_pack1_lse": 1, "attn_bwd_pack1": 9,
                       "attn_bwd_pack1_kv": 1, "attn_fwd_train": 16, "attn_fwd_tc": 1,
                       "attn_bwd_rows": 16, "attn_bwd_cols": 16, "attn_bwd_tc": 1}
 
 
-@pytest.mark.parametrize("wrapper", ["attn_fwd_pack1_lse", "attn_bwd_pack1"])
+@pytest.mark.parametrize("wrapper", ["attn_fwd_pack1", "attn_fwd_pack1_lse", "attn_bwd_pack1",
+                                     "attn_bwd_pack1_kv"])
 def test_bf16_pack1_calls_refuse_unaligned_tensors(recorded, wrapper):
     """Contiguous bf16 tensors 2 bytes past a 16-byte boundary: the
     tensor-core kernels' cp.async tiles cannot read them, so the call is
@@ -238,8 +342,14 @@ def test_bf16_pack1_calls_refuse_unaligned_tensors(recorded, wrapper):
         qkv = torch.empty(offset + T * 3 * N * C, dtype=torch.bfloat16, device="meta")
         g = torch.empty(offset + T * N * C, dtype=torch.bfloat16, device="meta")
         qkv, g = qkv[offset:].view(1, T, 3 * N * C), g[offset:].view(1, T, N * C)
-        return A.attn_fwd_pack1_lse(qkv, N) if wrapper == "attn_fwd_pack1_lse" else \
-            A.attn_bwd_pack1(qkv, g, N)
+        if wrapper == "attn_bwd_pack1_kv":
+            out = torch.empty(offset + T * N * C, dtype=torch.bfloat16, device="meta")
+            out = out[offset:].view(1, T, N * C)
+            lse = torch.empty(1, N, T, device="meta")
+            return A.attn_bwd_pack1_kv(qkv, out, lse, g, N)
+        if wrapper == "attn_bwd_pack1":
+            return A.attn_bwd_pack1(qkv, g, N)
+        return getattr(A, wrapper)(qkv, N)
 
     with pytest.raises(ValueError, match="16-byte"):
         call(1)
@@ -259,3 +369,18 @@ def test_lse_entry_is_built_and_bound():
     assert re.search(r'extern "C" int vdiff_attn_fwd_tc_lse\(', src)
     assert "template <int C, bool kLse>" in src and "if constexpr (kLse)" in src
     assert "attn_fwd_tc_kernel<C, true>" in src and "attn_fwd_tc_kernel<C, false>" in src
+
+
+def test_kv_entry_is_built_and_bound():
+    """kernels.py binds vdiff_attn_bwd_tc_kv (qkv, out, lse, dout, dqkv,
+    delta, B, T, N, C, stream) and attn_bwd_tc.cu exports it, launching the
+    saved-statistics instantiation of the row kernel at head dims 32 and 64;
+    the full-row entry keeps the other instantiation."""
+    assert "attn_bwd_tc.cu" in kernels.SOURCES
+    assert kernels._ENTRY_POINTS["vdiff_attn_bwd_tc_kv"] == [kernels._P] * 6 + [kernels._I] * 4 + [
+        kernels._P]
+    src = open(os.path.join(kernels.CSRC_DIR, "attn_bwd_tc.cu")).read()
+    assert re.search(r'extern "C" int vdiff_attn_bwd_tc_kv\(', src)
+    assert "template <int C, bool kSaved>" in src and "if constexpr (kSaved)" in src
+    assert "launch_bwd<C, false>" in src
+    assert "launch_bwd<32, true>" in src and "launch_bwd<64, true>" in src

@@ -2,7 +2,8 @@
 its JAX params (every constant leaf perturbed, so zero-init layers and biases
 all carry signal) and the port UNet loaded with the same weights; torch
 emulations of the bf16 tensor-core attention kernels' tile algorithms
-(``attn_fwd_tc.cu``, ``attn_bwd_tc.cu``), which no CPU can run; and stubs of
+(``attn_fwd_tc.cu``, both entries of ``attn_bwd_tc.cu``), which no CPU can
+run; and stubs of
 the kernel library for tests that drive the launch path on the meta
 device."""
 
@@ -174,20 +175,73 @@ def emulate_fwd_tc(qkv, N):
     return out, ((m + torch.log2(l)) * float(LN2)).squeeze(-1)
 
 
-def emulate_bwd_tc(qkv, g, N):
-    """attn_bwd_tc.cu's algorithm. Row kernel, sweep 1 over key tiles: s as in
-    the forward, running max m, l = Σ exp2(s − m) and d = Σ exp2(s − m)·dP,
-    both rescaled as m grows; lse = (m + log2 l)·ln2 and δ = d / l (f32,
-    the full row). Sweep 2: P = exp2(s − m − log2 l), dS = bf16(P∘(dP − δ)),
-    dQ += dS·k, scaled by 1/√C at the end. Column kernel, per q tile:
-    P = exp2(S·log2e/√C − lse·log2e), dS as above, dV += bf16(P)ᵀ·dO,
-    dK += dSᵀ·q, scaled at the end. One cast of each to bf16."""
-    q, k, v = _split(qkv, N)
-    do = g.float().reshape(g.shape[0], g.shape[1], N, -1).permute(0, 2, 1, 3)
-    B, _, T, C = q.shape
-    bk, bq = KEY_TILE[C], COL_Q_TILE[C]
+def _bwd_scales(C):
+    """attn_bwd_tc.cu's f32 scale = 1/√C and scale·log2e, as Python floats."""
     scale = np.float32(1.0) / np.sqrt(np.float32(C))
-    scale_log2 = float(scale * LOG2E)
+    return float(scale), float(scale * LOG2E)
+
+
+def _do(g, N):
+    """d(out) (B, T, N·C) → f32 (B, N, T, C)."""
+    return g.float().reshape(g.shape[0], g.shape[1], N, -1).permute(0, 2, 1, 3)
+
+
+def _bwd_rows_dq(q, k, v, do, lse2, delta):
+    """attn_bwd_tc.cu's dQ sweep of the row kernel: per key tile s as in the
+    forward, P = exp2(s − lse2) with lse2 in log2 units, dS = bf16(P∘(dP −
+    δ)), dQ += dS·k; unscaled."""
+    T, C = q.shape[-2:]
+    bk, scale_log2 = KEY_TILE[C], _bwd_scales(C)[1]
+    dq = torch.zeros_like(q)
+    for j in range(0, T, bk):
+        s = (q @ k[:, :, j:j + bk].transpose(-1, -2)) * scale_log2
+        dp = do @ v[:, :, j:j + bk].transpose(-1, -2)
+        ds = _bf16(torch.exp2(s - lse2) * (dp - delta))
+        dq = dq + ds @ k[:, :, j:j + bk]
+    return dq
+
+
+def _bwd_cols(q, k, v, do, lse, delta):
+    """attn_bwd_tc.cu's column kernel, per q tile: P = exp2(S·log2e/√C −
+    lse·log2e) from lse (natural log) and δ as read from device memory, dS as
+    in the row kernel, dV += bf16(P)ᵀ·dO, dK += dSᵀ·q; unscaled."""
+    T, C = q.shape[-2:]
+    bq, scale_log2 = COL_Q_TILE[C], _bwd_scales(C)[1]
+    dk, dv = torch.zeros_like(k), torch.zeros_like(v)
+    for i in range(0, T, bq):
+        rows = slice(i, i + bq)
+        s = k @ q[:, :, rows].transpose(-1, -2)  # (B, N, keys, q rows)
+        p = torch.exp2(s * scale_log2 - (lse[:, :, rows] * float(LOG2E)).transpose(-1, -2))
+        dp = v @ do[:, :, rows].transpose(-1, -2)
+        ds = _bf16(p * (dp - delta[:, :, rows].transpose(-1, -2)))
+        dv = dv + _bf16(p) @ do[:, :, rows]
+        dk = dk + ds @ q[:, :, rows]
+    return dk, dv
+
+
+def _bwd_tc_dqkv(q, k, v, do, lse2, lse, delta):
+    """Both kernels on the row statistics: lse2 (log2 units) for the row
+    kernel, lse (natural log) and δ (B, N, T, 1) as the column kernel reads
+    them. dQ and dK scaled by 1/√C at the end, one cast of each to bf16."""
+    B, N, T, C = q.shape
+    scale = _bwd_scales(C)[0]
+    dq = _bwd_rows_dq(q, k, v, do, lse2, delta)
+    dk, dv = _bwd_cols(q, k, v, do, lse, delta)
+    out = [a.permute(0, 2, 1, 3) for a in (dq * scale, dk * scale, dv)]
+    return torch.stack(out, dim=2).reshape(B, T, 3 * N * C).to(torch.bfloat16)
+
+
+def emulate_bwd_tc(qkv, g, N):
+    """attn_bwd_tc.cu's full-row algorithm (entry vdiff_attn_bwd_tc). Row
+    kernel, sweep 1 over key tiles: s as in the forward, running max m,
+    l = Σ exp2(s − m) and d = Σ exp2(s − m)·dP, both rescaled as m grows;
+    lse = (m + log2 l)·ln2 and δ = d / l (f32, the full row). Sweep 2
+    (:func:`_bwd_rows_dq`) with lse2 = m + log2 l; then the column kernel
+    (:func:`_bwd_cols`)."""
+    q, k, v = _split(qkv, N)
+    do = _do(g, N)
+    B, _, T, C = q.shape
+    bk, scale_log2 = KEY_TILE[C], _bwd_scales(C)[1]
     m = torch.full((B, N, T, 1), -math.inf)
     l = torch.zeros(B, N, T, 1)
     d = torch.zeros(B, N, T, 1)
@@ -201,25 +255,31 @@ def emulate_bwd_tc(qkv, g, N):
         d = d * alpha + (p * dp).sum(-1, keepdim=True)
         m = m_new
     lse2 = m + torch.log2(l)
-    delta = d / l
     lse = lse2 * float(LN2)  # as written to device memory
-    dq = torch.zeros_like(q)
-    for j in range(0, T, bk):
-        s = (q @ k[:, :, j:j + bk].transpose(-1, -2)) * scale_log2
-        dp = do @ v[:, :, j:j + bk].transpose(-1, -2)
-        ds = _bf16(torch.exp2(s - lse2) * (dp - delta))
-        dq = dq + ds @ k[:, :, j:j + bk]
-    dk, dv = torch.zeros_like(k), torch.zeros_like(v)
-    for i in range(0, T, bq):
-        rows = slice(i, i + bq)
-        s = k @ q[:, :, rows].transpose(-1, -2)  # (B, N, keys, q rows)
-        p = torch.exp2(s * scale_log2 - (lse[:, :, rows] * float(LOG2E)).transpose(-1, -2))
-        dp = v @ do[:, :, rows].transpose(-1, -2)
-        ds = _bf16(p * (dp - delta[:, :, rows].transpose(-1, -2)))
-        dv = dv + _bf16(p) @ do[:, :, rows]
-        dk = dk + ds @ q[:, :, rows]
-    out = [a.permute(0, 2, 1, 3) for a in (dq * float(scale), dk * float(scale), dv)]
-    return torch.stack(out, dim=2).reshape(B, T, 3 * N * C).to(torch.bfloat16)
+    return _bwd_tc_dqkv(q, k, v, do, lse2, lse, d / l)
+
+
+def emulate_bwd_tc_stats(qkv, g, N, lse, delta):
+    """attn_bwd_tc.cu's saved-statistics algorithm (entry
+    vdiff_attn_bwd_tc_kv) on given row statistics, lse (natural log) and δ,
+    each (B, N, T) f32: one dQ sweep with lse2 = lse·log2e in f32, then the
+    column kernel."""
+    q, k, v = _split(qkv, N)
+    lse, delta = lse.float()[..., None], delta.float()[..., None]
+    return _bwd_tc_dqkv(q, k, v, _do(g, N), lse * float(LOG2E), lse, delta)
+
+
+def saved_delta(out, g, N):
+    """δ = Σ_C dO∘O from the saved output ``out`` in its own dtype, summed in
+    f32: (B, N, T)."""
+    return (_do(g, N) * _do(out, N)).sum(-1)
+
+
+def emulate_bwd_tc_kv(qkv, out, lse, g, N):
+    """attn_bwd_tc.cu's kv entry: the forward's lse (B, N, T) and
+    δ = :func:`saved_delta` from its saved output, then
+    :func:`emulate_bwd_tc_stats`."""
+    return emulate_bwd_tc_stats(qkv, g, N, lse, saved_delta(out, g, N))
 
 
 class StubLibrary:

@@ -3,7 +3,11 @@
 //
 // Replaces vdiff_tpu/ops/attention.py::_attn_bwd_kernel_pack1_kv (B9, through
 // _pack1_bwd_kv_call inside pack1_attention_trainable_kv: the celeba train
-// step's backward at T = 4096, in up_1_us). Its math, per head:
+// step's backward at T = 4096, in up_1_us) for f32 inputs; bf16 inputs run
+// the saved-statistics entry of attn_bwd_tc.cu on the tensor cores. The
+// kernels take either type (is_bf16), and the bf16 instantiation stays the
+// yardstick that chip_smoke.py times the tensor-core entry against. Its math,
+// per head:
 //   delta = sum_C dO o O, from the SAVED output O in its own dtype (not
 //           rowsum(P o dP), which differs from it by O's rounding in bf16);
 //   per kv chunk: S = q.k^T / sqrt(C) (products on input-dtype operands,

@@ -1,10 +1,12 @@
-// bf16 attention backward on the tensor cores: d(qkv) from qkv and d(out)
-// alone, straight off the fused (B, T, 3*N*C) projection, into one buffer.
+// bf16 attention backward on the tensor cores: d(qkv) straight off the fused
+// (B, T, 3*N*C) projection, into one buffer. Two entries:
 //
-// Replaces vdiff_tpu/ops/attention.py::_attn_bwd_kernel_qblk (B5: the
-// backward of flash_attention_trainable at T > 512) for bf16 inputs; f32
-// inputs, and B4 (T <= 512), stay on attn_bwd_rows.cu + attn_bwd_cols.cu.
-// The function kept is the Pallas kernel's:
+// vdiff_attn_bwd_tc, from qkv and d(out) alone: replaces
+// vdiff_tpu/ops/attention.py::_attn_bwd_kernel_qblk (B5: the backward of
+// flash_attention_trainable at T > 512) and _attn_bwd_kernel_pack1 (B8: the
+// full-row backward of pack1_attention_trainable, head dim 32/64) for bf16
+// inputs; f32 inputs, and B4 (T <= 512), stay on attn_bwd_rows.cu +
+// attn_bwd_cols.cu. The function kept is the Pallas kernels':
 //   S = q.k^T / sqrt(C), P = softmax(S) (f32), dP = dO.v^T,
 //   delta = rowsum(P o dP) over the whole row in f32,
 //   dS = P o (dP - delta),
@@ -12,17 +14,27 @@
 // with P and dS rounded to bf16 only as matmul operands and every product
 // accumulated in f32.
 //
+// vdiff_attn_bwd_tc_kv, from qkv, d(out) and the forward's saved output O and
+// lse: replaces _attn_bwd_kernel_pack1_kv (B9: the backward of
+// pack1_attention_trainable_kv, head dim 32/64, the celeba train step's
+// T = 4096) for bf16 inputs; f32 inputs stay on attn_bwd_pack1_kv.cu. Its
+// function differs from the above in the row statistics only: lse is the
+// forward's (natural log, f32 (B, N, T), as attn_fwd_tc.cu's lse entry
+// writes it) and delta = sum_C dO o O from the saved bf16 O, summed in f32
+// (not rowsum(P o dP), which differs from it by O's rounding).
+//
 // Bound on the H100: compute, 10*T*T*C operations per (batch, head) on 7*T*C
-// bf16 elements. The f32-FMA pair it replaces ran at ~6 TFLOP/s, bound by
-// shared-memory reads, with two whole (16, T) f32 rows (S and dP) in shared
-// memory (one block per SM, T capped at 1280). What this design does: every
-// product runs on the tensor cores (mma.sync.m16n8k16, bf16 operands from
-// ldmatrix, f32 accumulators in registers), tiles arrive by cp.async, and no
-// score row is kept, so T is not capped (any multiple of 32; head dims 32,
-// 64, 128, 256). Two kernels, no atomics, so the result does not depend on
-// the order in which blocks run:
-//   rows: per 64-row q tile (four warps of 16 rows), two sweeps over the key
-//         tiles (64 keys, 32 at C = 256):
+// bf16 elements. The f32-FMA kernels they replace ran at ~6 TFLOP/s, bound by
+// shared-memory reads (the full-row pair kept two whole (16, T) f32 rows, S
+// and dP, in shared memory: one block per SM, T capped at 1280). What this
+// design does: every product runs on the tensor cores (mma.sync.m16n8k16,
+// bf16 operands from ldmatrix, f32 accumulators in registers), tiles arrive
+// by cp.async, and no score row is kept, so T is not capped (any multiple of
+// 32; head dims 32, 64, 128, 256, and 32, 64 for the kv entry). Two kernels,
+// no atomics, so the result does not depend on the order in which blocks
+// run:
+//   rows: per 64-row q tile (four warps of 16 rows), sweeps over the key
+//         tiles (64 keys, 32 at C = 256). Full-row (kSaved = false), two:
 //         1. S and dP, keeping per row the running max m, the sum l of
 //            exp(S - m) and the sum d of exp(S - m) * dP, rescaled as m
 //            grows (an online softmax); then lse = m + log l and
@@ -30,15 +42,19 @@
 //            as f32 (B, N, T);
 //         2. S and dP again, P = exp(S - lse), dS = P o (dP - delta) rounded
 //            to bf16 in registers, dQ += dS.k; dQ is scaled and written once.
+//         Saved statistics (kSaved = true), one: lse read for the block's
+//         rows, delta = sum_C dO o O from the dO tile in shared memory and O
+//         read once, written as f32 (B, N, T); then sweep 2 alone.
 //   cols: per 64-key tile (four warps of 16 keys), one sweep over the q tiles
 //         (64 rows, 32 at C >= 128): S^T and dP^T, P^T = exp(S^T - lse),
 //         dS^T = P^T o (dP^T - delta), dV += P^T.dO and dK += dS^T.q in f32
 //         registers, written once. At C = 256 the two (16, C) accumulators
 //         would take 256 registers a thread, so each key tile has two blocks,
 //         one for dK and one for dV (the dV block skips dP).
-// That is 18*T*T*C operations (20 at C = 256) against the 10 of the bound,
-// all on the tensor cores. A block takes at most 102 KB of shared memory
-// (the row kernel at C = 128), so two or more blocks share an SM.
+// That is 18*T*T*C operations (20 at C = 256) for the full-row entry and
+// 14*T*T*C for the kv entry, against the 10 of the bound, all on the tensor
+// cores. A block takes at most 102 KB of shared memory (the row kernel at
+// C = 128), so two or more blocks share an SM.
 
 #include "attn_tc.cuh"
 
@@ -71,11 +87,14 @@ struct ColShape {
       (2 * kRows * pitch<C>() + 2 * kStages * kTile) * 2 + 2 * kStages * kBq * 4;
 };
 
-template <int C>
+// kSaved: lse is the forward's, read; delta is taken from the saved output
+// `out` (B, T, N*C) and written. Otherwise both come from the first sweep and
+// are written, and `out` is not read.
+template <int C, bool kSaved>
 __global__ void __launch_bounds__(kThreads)
     attn_bwd_tc_rows(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
                      bf16* __restrict__ dqkv, float* __restrict__ lse, float* __restrict__ delta,
-                     int T, int N, float scale) {
+                     int T, int N, float scale, const bf16* __restrict__ out) {
   using Sh = RowShape<C>;
   constexpr int kBk = Sh::kBk, kStages = Sh::kStages, kTile = Sh::kTile;
   constexpr int kNc = C / 8, kNk = kBk / 8;
@@ -94,7 +113,8 @@ __global__ void __launch_bounds__(kThreads)
   const bf16* v_base = base + (long)(2 * N + n) * C;
   const float scale_log2 = scale * kLog2e;
   const int tiles = (T + kBk - 1) / kBk;
-  // step `it` of the two sweeps reads key tile it % tiles from stage it % kStages
+  constexpr int kSweeps = kSaved ? 1 : 2;
+  // step `it` of the sweeps reads key tile it % tiles from stage it % kStages
   auto fetch = [&](int it) {
     const int j = it % tiles, st = it % kStages;
     load_tile<kBk, C, kThreads>(k_s + st * kTile, k_base + (long)j * kBk * stride, stride,
@@ -116,14 +136,45 @@ __global__ void __launch_bounds__(kThreads)
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, d[2] = {0.f, 0.f};
   float lse2[2] = {0.f, 0.f}, dlt[2] = {0.f, 0.f};
   float dq[kNc][4] = {};
-  for (int it = 0; it < 2 * tiles; ++it) {
-    if (kStages == 2 && it + 1 < 2 * tiles) {
+  for (int it = 0; it < kSweeps * tiles; ++it) {
+    if (kStages == 2 && it + 1 < kSweeps * tiles) {
       fetch(it + 1);
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
     __syncthreads();
+    if constexpr (kSaved) {
+      if (it == 0) {  // the q and dO tiles have arrived: the saved row statistics
+        constexpr int kPart = C / 4;  // columns of a row per lane of its quad
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = r0 + lane / 4 + 8 * h;
+          float part = 0.f;
+          if (r < T) {
+            const bf16* o_row = out + ((long)b * T + r) * out_stride + n * C + t4 * kPart;
+            const bf16* do_row = do_w + (lane / 4 + 8 * h) * pitch<C>() + t4 * kPart;
+#pragma unroll
+            for (int c = 0; c < kPart; c += 8) {
+              const uint4 o8 = *reinterpret_cast<const uint4*>(o_row + c);
+              const uint4 d8 = *reinterpret_cast<const uint4*>(do_row + c);
+              const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&o8);
+              const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&d8);
+#pragma unroll
+              for (int u = 0; u < 4; ++u) {
+                const float2 of = __bfloat1622float2(o2[u]), df = __bfloat1622float2(d2[u]);
+                part = fmaf(df.x, of.x, part);
+                part = fmaf(df.y, of.y, part);
+              }
+            }
+          }
+          dlt[h] = quad_sum(part);
+          const long stat = ((long)b * N + n) * T + r;
+          lse2[h] = r < T ? lse[stat] * kLog2e : 0.f;
+          if (t4 == 0 && r < T) delta[stat] = dlt[h];
+        }
+      }
+    }
     const int j = it % tiles;
     const bf16* k_t = k_s + (it % kStages) * kTile;
     const bf16* v_t = v_s + (it % kStages) * kTile;
@@ -154,7 +205,7 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
 
-    if (it < tiles) {  // sweep 1: the row statistics
+    if (!kSaved && it < tiles) {  // sweep 1: the row statistics
       float mx[2] = {m[0], m[1]};
 #pragma unroll
       for (int i = 0; i < kNk; ++i) {
@@ -216,7 +267,7 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
     __syncthreads();  // this stage is read by all warps before it is refilled
-    if (kStages == 1 && it + 1 < 2 * tiles) fetch(it + 1);
+    if (kStages == 1 && it + 1 < kSweeps * tiles) fetch(it + 1);
   }
 
 #pragma unroll
@@ -375,32 +426,41 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// The row kernel (full-row, or from the saved statistics and `out`), then
+// the column kernel on the (lse, delta) it leaves.
+template <int C, bool kSaved>
+int launch_bwd(const void* qkv, const void* out, const void* dout, void* dqkv, float* lse,
+               float* delta, int B, int T, int N, cudaStream_t stream) {
+  if (T <= 0 || T % 32) return static_cast<int>(cudaErrorInvalidValue);
+  const float scale = 1.0f / sqrtf(static_cast<float>(C));
+  const bf16* x = static_cast<const bf16*>(qkv);
+  const bf16* o = static_cast<const bf16*>(out);
+  const bf16* g = static_cast<const bf16*>(dout);
+  bf16* dx = static_cast<bf16*>(dqkv);
+  const dim3 grid_rows((T + kRows - 1) / kRows, N, B);
+  const dim3 grid_cols((T + kRows - 1) / kRows, N * ColShape<C>::kRoles, B);
+
+  auto rows = attn_bwd_tc_rows<C, kSaved>;
+  cudaError_t err = allow_smem(rows, RowShape<C>::kSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  rows<<<grid_rows, kThreads, RowShape<C>::kSmemBytes, stream>>>(x, g, dx, lse, delta, T, N,
+                                                                 scale, o);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  auto cols = attn_bwd_tc_cols<C>;
+  err = allow_smem(cols, ColShape<C>::kSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cols<<<grid_cols, kThreads, ColShape<C>::kSmemBytes, stream>>>(x, g, lse, delta, dx, T, N,
+                                                                 scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int C>
 struct BwdLauncher {
   static int run(const void* qkv, const void* dout, void* dqkv, float* lse, float* delta, int B,
                  int T, int N, cudaStream_t stream) {
-    if (T <= 0 || T % 32) return static_cast<int>(cudaErrorInvalidValue);
-    const float scale = 1.0f / sqrtf(static_cast<float>(C));
-    const bf16* x = static_cast<const bf16*>(qkv);
-    const bf16* g = static_cast<const bf16*>(dout);
-    bf16* dx = static_cast<bf16*>(dqkv);
-    const dim3 grid_rows((T + kRows - 1) / kRows, N, B);
-    const dim3 grid_cols((T + kRows - 1) / kRows, N * ColShape<C>::kRoles, B);
-
-    auto rows = attn_bwd_tc_rows<C>;
-    cudaError_t err = allow_smem(rows, RowShape<C>::kSmemBytes);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    rows<<<grid_rows, kThreads, RowShape<C>::kSmemBytes, stream>>>(x, g, dx, lse, delta, T, N,
-                                                                   scale);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-
-    auto cols = attn_bwd_tc_cols<C>;
-    err = allow_smem(cols, ColShape<C>::kSmemBytes);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    cols<<<grid_cols, kThreads, ColShape<C>::kSmemBytes, stream>>>(x, g, lse, delta, dx, T, N,
-                                                                   scale);
-    return static_cast<int>(cudaGetLastError());
+    return launch_bwd<C, false>(qkv, nullptr, dout, dqkv, lse, delta, B, T, N, stream);
   }
 };
 
@@ -417,4 +477,24 @@ extern "C" int vdiff_attn_bwd_tc(const void* qkv, const void* dout, void* dqkv, 
   return vdiff::tc::dispatch_head_dim<vdiff::BwdLauncher>(
       C, qkv, dout, dqkv, static_cast<float*>(lse), static_cast<float*>(delta), B, T, N,
       static_cast<cudaStream_t>(stream));
+}
+
+// qkv (B, T, 3*N*C), the forward's out (B, T, N*C) and dout (B, T, N*C) bf16
+// and its lse (B, N, T) f32 (natural log) in; d(qkv) (B, T, 3*N*C) bf16 out;
+// delta (B, N, T) f32 scratch, written by the row kernel and read by the
+// column kernel. T a multiple of 32, C 32 or 64 (JAX's pack1 head dims),
+// every pointer 16-byte aligned. Returns the first cudaError_t of the two
+// launches (0 on success). Does not synchronise.
+extern "C" int vdiff_attn_bwd_tc_kv(const void* qkv, const void* out, const void* lse,
+                                    const void* dout, void* dqkv, void* delta, int B, int T,
+                                    int N, int C, void* stream) {
+  if (out == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  float* l = static_cast<float*>(const_cast<void*>(lse));
+  float* d = static_cast<float*>(delta);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (C) {
+    case 32: return vdiff::launch_bwd<32, true>(qkv, out, dout, dqkv, l, d, B, T, N, s);
+    case 64: return vdiff::launch_bwd<64, true>(qkv, out, dout, dqkv, l, d, B, T, N, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

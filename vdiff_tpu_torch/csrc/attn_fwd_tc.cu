@@ -4,8 +4,11 @@
 // Replaces vdiff_tpu/ops/attention.py::_attn_fwd_kernel_qblk (B2: reached
 // through flash_attention_qkv for T > 512 when sampling, through
 // _qblk_fwd_call for the training forward at T > 512 and for head dims 32/64
-// with unaligned N*C) for bf16 inputs; f32 inputs stay on attn_fwd_qblk.cu.
-// Its lse instantiation (entry vdiff_attn_fwd_tc_lse) replaces
+// with unaligned N*C) and _attn_fwd_kernel_pack1 (B6: the head-dim 32/64
+// forward off the fused qkv at any T, celeba's sampling and its training
+// forward at T <= 1024), both through entry vdiff_attn_fwd_tc, for bf16
+// inputs; f32 inputs stay on attn_fwd_qblk.cu (B2) and attn_fwd_online.cu
+// (B6). Its lse instantiation (entry vdiff_attn_fwd_tc_lse) replaces
 // _attn_fwd_kernel_pack1_lse (B7: the forward of pack1_attention_trainable_kv,
 // head dim 32/64 at T = 4096) for bf16; f32 stays on attn_fwd_online.cu.
 //

@@ -49,6 +49,8 @@ _ENTRY_POINTS = {
     "vdiff_attn_fwd_tc": [_P, _P] + [_I] * 4 + [_P],
     "vdiff_attn_fwd_tc_lse": [_P] * 3 + [_I] * 4 + [_P],
     "vdiff_attn_bwd_tc": [_P] * 5 + [_I] * 4 + [_P],
+    # qkv, out, lse, dout, dqkv, delta, B, T, N, C, stream
+    "vdiff_attn_bwd_tc_kv": [_P] * 6 + [_I] * 4 + [_P],
     # x, gamma, beta, shift, scale, film_stride, film_f32, out, B, HW, C, G, eps, silu, bf16, stream
     "vdiff_gn_film_silu": [_P] * 5 + [_I] * 2 + [_P] + [_I] * 4 + [_F] + [_I] * 2 + [_P],
     # x, w, bias, gamma, beta, shift, scale, film_stride, film_f32, skip, out, coef,

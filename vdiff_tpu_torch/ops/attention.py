@@ -24,13 +24,13 @@ d(qkv) in the same layout as one buffer:
   them by an explicit dispatch on dtype; f32 calls keep the FMA kernels.
 * :func:`attn_fwd_pack1`, :func:`attn_fwd_pack1_lse`, :func:`attn_bwd_pack1`
   and :func:`attn_bwd_pack1_kv` are the counterparts of JAX's head-dim 32/64
-  ``pack1`` kernels B6–B9, each with a launch counter of its own. B6
-  launches B1's online kernel and B9 a kv-streamed dQ pass followed by the
-  column pass (``csrc/attn_bwd_pack1_kv.cu``). B7 and B8 dispatch on dtype as
-  B2 and B5 do: bf16 calls run the tensor-core kernels (B7 the lse entry of
-  ``csrc/attn_fwd_tc.cu``, B8 ``csrc/attn_bwd_tc.cu``), f32 calls the online
-  kernel's logsumexp entry (``csrc/attn_fwd_online.cu``) and the two
-  backward passes.
+  ``pack1`` kernels B6–B9, each with a launch counter of its own. They
+  dispatch on dtype as B2 and B5 do: bf16 calls run the tensor-core kernels
+  (B6 ``csrc/attn_fwd_tc.cu``, B7 its lse entry, B8 ``csrc/attn_bwd_tc.cu``,
+  B9 that file's saved-statistics entry), f32 calls the FMA kernels (B6 B1's
+  online kernel, B7 its logsumexp entry, B8 the two backward passes, B9 a
+  kv-streamed dQ pass followed by the column pass,
+  ``csrc/attn_bwd_pack1_kv.cu``).
 * :func:`spatial_attention_qkv` routes each call as JAX's
   ``spatial_attention_qkv`` does on a TPU without head padding
   (:func:`route`) and, with ``train=True``, goes through one of the
@@ -181,22 +181,31 @@ def attn_fwd_tc(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
     f32 S after the product; e is rounded to bf16 as the operand of e·v, the
     one departure from the Pallas kernel's f32 e·v (at most 2^-9·Σ p|v| per
     output). Its CPU twin is :func:`attention_qkv_reference`. The same kernel
-    with an lse output serves B7's bf16 calls (:func:`attn_fwd_pack1_lse`)."""
+    serves B6's bf16 calls (:func:`attn_fwd_pack1`), and with an lse output
+    B7's (:func:`attn_fwd_pack1_lse`), each counted by its own wrapper."""
     B, T, C = _check_kernel_input(qkv, num_heads, "attn_fwd_tc")
     _check_tc("attn_fwd_tc", qkv)
     if qkv.device.type == "cpu":
         return attention_qkv_reference(qkv, num_heads)
-    _need_cuda("attn_fwd_tc", qkv)
-    out = torch.empty(B, T, num_heads * C, dtype=qkv.dtype, device=qkv.device)
-    err = kernels.library().vdiff_attn_fwd_tc(
-        qkv.data_ptr(), out.data_ptr(), B, T, num_heads, C,
-        torch.cuda.current_stream(qkv.device).cuda_stream)
-    kernels.check(err, "vdiff_attn_fwd_tc")
+    out = _fwd_tc("attn_fwd_tc", qkv, num_heads, B, T, C)
     attn_fwd_tc.launches += 1
     return out
 
 
 attn_fwd_tc.launches = 0
+
+
+def _fwd_tc(fn_name, qkv, num_heads, B, T, C):
+    """Launch ``vdiff_attn_fwd_tc`` on checked bf16 CUDA input; the caller
+    counts the launch (B2 under :func:`attn_fwd_tc`, B6 under
+    :func:`attn_fwd_pack1`)."""
+    _need_cuda(fn_name, qkv)
+    out = torch.empty(B, T, num_heads * C, dtype=qkv.dtype, device=qkv.device)
+    err = kernels.library().vdiff_attn_fwd_tc(
+        qkv.data_ptr(), out.data_ptr(), B, T, num_heads, C,
+        torch.cuda.current_stream(qkv.device).cuda_stream)
+    kernels.check(err, "vdiff_attn_fwd_tc")
+    return out
 
 
 def attn_fwd_train(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -450,21 +459,28 @@ def _check_sublane(qkv: torch.Tensor, num_heads: int, name: str):
 
 
 def attn_fwd_pack1(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
-    """Attention forward for head dims 32/64 at any T: B1's online-softmax
-    kernel (``attn_fwd_online.cu``, entry ``vdiff_attn_fwd_online``), counted
-    here and not in :func:`attn_fwd_online`.
+    """Attention forward for head dims 32/64 at any T, counted here and not
+    in :func:`attn_fwd_tc` or :func:`attn_fwd_online`.
 
     Replaces JAX's Pallas ``_attn_fwd_kernel_pack1`` (B6, through
     ``_pack1_fwd_call``), which computes B1's function. The TPU kernel holds a
     whole (bq, T) score tile; at T=4096 no score row fits a block's shared
-    memory, and the online kernel streams the softmax over key tiles; compute
-    bound, f32 FMAs in this first version. Its CPU twin is
+    memory, and both kernels stream the softmax over key tiles. A bf16 CUDA
+    call runs the tensor-core kernel of :func:`attn_fwd_tc`
+    (``attn_fwd_tc.cu``; 16-byte alignment checked), which rounds e to bf16
+    as the operand of e·v where JAX's B6 takes e·v in f32; an f32 one B1's
+    online-softmax FMA kernel (``attn_fwd_online.cu``, entry
+    ``vdiff_attn_fwd_online``). Its CPU twin is
     :func:`attention_qkv_lse_reference`'s output: B6's f32 e·v, where
     :func:`attention_qkv_reference` rounds P to a bf16 input's dtype first."""
     B, T, C = _check_sublane(qkv, num_heads, "attn_fwd_pack1")
     if qkv.device.type == "cpu":
         return attention_qkv_lse_reference(qkv, num_heads)[0]
-    out = _launch("vdiff_attn_fwd_online", qkv, num_heads, B, T, C)
+    if qkv.dtype == torch.bfloat16:
+        _check_tc("attn_fwd_pack1", qkv)
+        out = _fwd_tc("attn_fwd_pack1", qkv, num_heads, B, T, C)
+    else:
+        out = _launch("vdiff_attn_fwd_online", qkv, num_heads, B, T, C)
     attn_fwd_pack1.launches += 1
     return out
 
@@ -540,14 +556,19 @@ attn_bwd_pack1.launches = 0
 
 def attn_bwd_pack1_kv(qkv: torch.Tensor, out: torch.Tensor, lse: torch.Tensor, g: torch.Tensor,
                       num_heads: int) -> torch.Tensor:
-    """kv-streamed attention backward for head dims 32/64 at any T (entry
-    ``vdiff_attn_bwd_pack1_kv`` in ``attn_bwd_pack1_kv.cu``), from the
+    """kv-streamed attention backward for head dims 32/64 at any T, from the
     forward's ``out`` and ``lse`` (:func:`attn_fwd_pack1_lse`): d(qkv).
 
     Replaces JAX's Pallas ``_attn_bwd_kernel_pack1_kv`` (B9, through
-    ``_pack1_bwd_kv_call``). The entry runs its own dQ/δ kernel, then the
-    column kernel of :func:`attn_bwd_cols` for dK/dV; it counts its own
-    launches here, and the column kernel's count stays the pair's."""
+    ``_pack1_bwd_kv_call``): δ = Σ_C dO∘O from the saved output, P = exp(S −
+    lse) from the saved lse. A bf16 CUDA call runs the tensor-core entry
+    ``vdiff_attn_bwd_tc_kv`` of ``attn_bwd_tc.cu`` (16-byte alignment
+    checked): a row kernel that reads lse, takes δ from ``out`` and makes one
+    sweep for dQ, then the column kernel of :func:`attn_bwd_tc` for dK/dV. An
+    f32 call runs ``vdiff_attn_bwd_pack1_kv`` (``attn_bwd_pack1_kv.cu``): its
+    own FMA dQ/δ kernel, then the column kernel of :func:`attn_bwd_cols`.
+    Either way one launch is counted here, and the other wrappers' counts
+    stay theirs."""
     B, T, C = _check_bwd_input(qkv, g, num_heads, "attn_bwd_pack1_kv")
     if C not in _SUBLANE_HEAD_DIMS:
         raise ValueError(f"attn_bwd_pack1_kv: head dim {C} not supported {_SUBLANE_HEAD_DIMS}")
@@ -561,10 +582,16 @@ def attn_bwd_pack1_kv(qkv: torch.Tensor, out: torch.Tensor, lse: torch.Tensor, g
     _need_cuda("attn_bwd_pack1_kv", qkv, out, lse, g)
     dqkv = torch.empty_like(qkv)
     delta = torch.empty_like(lse)
-    err = kernels.library().vdiff_attn_bwd_pack1_kv(
-        qkv.data_ptr(), out.data_ptr(), lse.data_ptr(), g.data_ptr(), dqkv.data_ptr(),
-        delta.data_ptr(), *_bwd_args(qkv, num_heads, B, T, C))
-    kernels.check(err, "vdiff_attn_bwd_pack1_kv")
+    ptrs = (qkv.data_ptr(), out.data_ptr(), lse.data_ptr(), g.data_ptr(), dqkv.data_ptr(),
+            delta.data_ptr())
+    if qkv.dtype == torch.bfloat16:
+        _check_tc("attn_bwd_pack1_kv", qkv, out, lse, g)
+        err = kernels.library().vdiff_attn_bwd_tc_kv(
+            *ptrs, B, T, num_heads, C, torch.cuda.current_stream(qkv.device).cuda_stream)
+        kernels.check(err, "vdiff_attn_bwd_tc_kv")
+    else:
+        err = kernels.library().vdiff_attn_bwd_pack1_kv(*ptrs, *_bwd_args(qkv, num_heads, B, T, C))
+        kernels.check(err, "vdiff_attn_bwd_pack1_kv")
     attn_bwd_pack1_kv.launches += 1
     return dqkv
 
