@@ -7,10 +7,12 @@ Phases, one output line each (any failure raises and exits non-zero):
   1. card: the GPU's name and power limit as nvidia-smi reports them;
   2. kernels: builds the CUDA kernels from vdiff_tpu_torch/csrc and holds
      each sampling attention kernel against its plain PyTorch twin at the
-     sampler's shapes, f32 and bf16, and times both with CUDA events; B2's
-     bf16 calls run the tensor-core attn_fwd_tc (held to the f32 twin within
-     2^-8·|ref| + 2^-8·(P·|v|) + 1e-4, at the CIFAR and celeba sampling
-     shapes), timed beside the f32-FMA kernel it replaced on the same inputs;
+     sampler's shapes, f32 and bf16, and times both with CUDA events; the
+     bf16 calls of B1 (attn_fwd_online) and B2 run the tensor-core
+     attn_fwd_tc.cu (held to the f32 twin within 2^-8·|ref| + 2^-8·(P·|v|) +
+     1e-4, at every CIFAR and celeba sampling shape: B1 at T=256 and T=64
+     (celeba N=12 and 9), B2 at T=1024 and celeba's N=9 levels), each timed
+     beside the f32-FMA kernel it replaced on the same inputs;
   3. unet: the full-width cifar10_cond UNet (random weights, zero-init layers
      perturbed) in f32 on the GPU against the same UNet on the CPU;
   4. sample: the port's CLI (vdiff_tpu_torch.generate) draws 256-step DDIM
@@ -32,14 +34,15 @@ Phases, one output line each (any failure raises and exits non-zero):
   4c. fused-sample: the generate CLI with both switches on (DDIM-256, w=0,
      B=64, one batch, bf16), then with VDIFF_FUSED_GN=1 alone: finite PNGs,
      the per-forward counts times 256, and samples/s beside the default path's;
-  5. train-kernels: the training forward (attn_fwd_train; at T=1024
-     attn_fwd_qblk in f32, attn_fwd_tc in bf16) and the backward (the
-     two-pass attn_bwd_rows + attn_bwd_cols; attn_bwd_tc for bf16 at T=1024)
-     against their twins at the train step's shapes (B=128; T=64/256/1024 at
-     C=256, two heads of 128, and celeba's T=1024 with nine heads of 64 at
-     B=48), f32 and bf16, timed with CUDA events, the tensor-core kernels
-     beside the f32-FMA ones they replaced on the same bf16 inputs; at B4's
-     bf16 shapes attn_bwd_tc is also checked and timed, off the path;
+  5. train-kernels: the training forward (attn_fwd_train, B3, at T <= 512,
+     whose bf16 calls run attn_fwd_tc.cu; at T=1024 attn_fwd_qblk in f32,
+     attn_fwd_tc in bf16) and the backward (the two-pass attn_bwd_rows +
+     attn_bwd_cols; attn_bwd_tc for bf16 at T=1024) against their twins at
+     the train steps' shapes (B=128; T=64/256/1024 at C=256, two heads of
+     128, and celeba's at B=48: nine heads of 64 at T=1024, 256 and 64,
+     twelve at T=64), f32 and bf16, timed with CUDA events, the tensor-core
+     kernels beside the f32-FMA ones they replaced on the same bf16 inputs;
+     at B4's bf16 shapes attn_bwd_tc is also checked and timed, off the path;
   6. train-unet: one full-width train step (loss, backward, clip, AdamW, EMA)
      in f32 at B=2 on the GPU against the same step on the CPU, same weights,
      t, noise and CFG mask, dropout off; one step must launch attn_fwd_train
@@ -79,8 +82,10 @@ read just after: "launches" is their sum over the paths, and
 "launches_by_path" each path's own count. The line before last is the
 kernels' JSON record (with each kernel's time, its twin's, one PyTorch
 call's where there is one, the card's bound for the same work, and for the
-tensor-core kernels of B2, B5 and B6-B9 the FMA kernel's time on the same
-inputs, "before_ms"); the last line is {"ok": true, "device": {...}}.
+tensor-core kernels of B1-B3 and B5-B9 the FMA kernel's time on the same
+inputs, "before_ms"; phases 2 and 5 list every bf16 shape of a wrapper under
+"shapes", the first of them the record's own); the last line is
+{"ok": true, "device": {...}}.
 Imports nothing of JAX.
 """
 
@@ -228,12 +233,22 @@ def fail(msg):
     raise RuntimeError(f"chip_smoke: {msg}")
 
 
+# device cycles the card spins before a timed run (~10 ms at the H100's
+# ~1.98 GHz), so the host enqueues the run while it waits
+HOLD_CYCLES = 20_000_000
+
+
 def cuda_ms(fn, iters=20, warmup=3):
-    """Mean device time of ``fn`` in ms (CUDA events around ``iters`` calls)."""
+    """Mean device time of ``fn`` in ms (CUDA events around ``iters`` calls).
+    The card first spins for HOLD_CYCLES, so the host has queued the calls by
+    the time the start event runs: a kernel shorter than its host-side
+    launch (~15 µs through a wrapper) is timed on the device and not at the
+    host's pace."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(HOLD_CYCLES)
     start.record()
     for _ in range(iters):
         fn()
@@ -290,11 +305,13 @@ def phase_card():
 
 
 def phase_kernels():
-    """Each kernel vs attention_qkv_reference on the same inputs. B2's bf16
-    calls run attn_fwd_tc (held by _check_tc_fwd and timed beside the f32-FMA
-    kernel on the same inputs, ``before_ms``), at the CIFAR and celeba
-    sampling shapes. Returns the per-kernel record at the sampler's shape
-    (bf16, as --allow-bf16 runs)."""
+    """Each kernel vs attention_qkv_reference on the same inputs. The bf16
+    calls of B1 (attn_fwd_online) and B2 (attn_fwd_qblk → attn_fwd_tc) run
+    attn_fwd_tc.cu, held by _check_tc_fwd and timed beside the f32-FMA
+    kernel they replaced on the same inputs (``before_ms``), at the CIFAR
+    and celeba sampling shapes. Returns the per-kernel record at the
+    sampler's shape (bf16, as --allow-bf16 runs), with every bf16 shape's
+    under "shapes"."""
     from vdiff_tpu_torch import kernels
     from vdiff_tpu_torch.ops import attention as A
 
@@ -304,35 +321,47 @@ def phase_kernels():
           flush=True)
     gen = torch.Generator(device="cuda").manual_seed(0)
     cases = [  # (wrapper, B, T, N, C); first case per wrapper is the sampler's shape
-        (A.attn_fwd_online, 64, 256, 1, 256),
-        (A.attn_fwd_online, 64, 64, 1, 256),
+        (A.attn_fwd_online, 64, 256, 1, 256),  # CIFAR sampling, 16x16
+        (A.attn_fwd_online, 64, 64, 1, 256),   # CIFAR sampling, 8x8
+        (A.attn_fwd_online, 32, 64, 12, 64),   # celeba sampling, 8x8
+        (A.attn_fwd_online, 32, 64, 9, 64),    # celeba sampling, down_2_ds
         (A.attn_fwd_online, 64, 256, 2, 128),
         (A.attn_fwd_qblk, 64, 1024, 1, 256),  # CIFAR sampling, up_1_us
         (A.attn_fwd_qblk, 64, 1024, 2, 128),
         (A.attn_fwd_qblk, 32, 256, 9, 64),    # celeba sampling, the N=9 levels
         (A.attn_fwd_qblk, 32, 1024, 9, 64),   # celeba sampling, up_2_us
     ]
+    # the f32-FMA kernel each wrapper's bf16 calls ran before attn_fwd_tc.cu
+    before = {A.attn_fwd_online: fma_fwd_online, A.attn_fwd_qblk: fma_fwd}
     record = {}
     for fn, B, T, N, C in cases:
         for dtype in (torch.float32, torch.bfloat16):
             qkv = torch.randn(B, T, 3 * N * C, device="cuda", generator=gen).to(dtype)
-            tc = fn is A.attn_fwd_qblk and dtype == torch.bfloat16  # B2's bf16 dispatch
-            name = "attn_fwd_tc" if tc else fn.__name__
+            tc = dtype == torch.bfloat16  # B1's and B2's bf16 dispatch
+            # B2's bf16 calls count under attn_fwd_tc, B1's under their own
+            name = "attn_fwd_tc" if tc and fn is A.attn_fwd_qblk else fn.__name__
             tag = f"{name} B={B} T={T} N={N} C={C} {str(dtype)[6:]}"
             out = fn(qkv, N)
             err = (_check_tc_fwd(tag, out, qkv, N) if tc else
                    _check_fwd(tag, out, A.attention_qkv_reference(qkv.float(), N), dtype))
             del out
             rec = {"max_abs_err": err, "ms": cuda_ms(lambda: fn(qkv, N)),
-                   **({"before_ms": cuda_ms(lambda: fma_fwd(qkv, N))} if tc else {}),
+                   **({"before_ms": cuda_ms(lambda: before[fn](qkv, N))} if tc else {}),
                    "plain_ms": cuda_ms(lambda: A.attention_qkv_reference(qkv, N)),
                    "library_ms": cuda_ms(_sdpa(qkv, N)), **_bound("fwd", B, T, N, C, dtype)}
             print(f"kernels: {tag}: " + _fmt(rec), flush=True)
-            if dtype == torch.bfloat16 and name not in record:
-                record[name] = rec
+            if tc:
+                _keep_shape(record, name, (B, T, N, C), rec)
             del qkv
     torch.cuda.empty_cache()
     return record
+
+
+def _keep_shape(record, name, shape, rec):
+    """The first bf16 shape's record is the wrapper's own; every shape's,
+    that one too, goes under its "shapes"."""
+    record.setdefault(name, dict(rec, shapes=[]))["shapes"].append(
+        dict(zip("BTNC", shape), **rec))
 
 
 def fma_fwd(qkv, N):
@@ -359,11 +388,20 @@ def fma_bwd(qkv, g, N):
 
 def fma_fwd_online(qkv, N):
     """B1's f32-FMA online kernel (attn_fwd_online.cu) on the same inputs,
-    uncounted: what B6's bf16 calls ran before attn_fwd_tc.cu."""
+    uncounted: what B1's and B6's bf16 calls ran before attn_fwd_tc.cu."""
     from vdiff_tpu_torch.ops import attention as A
 
     B, T, C = A._shape(qkv, N)
     return A._launch("vdiff_attn_fwd_online", qkv, N, B, T, C)
+
+
+def fma_fwd_train(qkv, N):
+    """B3's f32-FMA kernel (attn_fwd_train.cu) on the same inputs, uncounted:
+    what B3's bf16 calls ran before attn_fwd_tc.cu."""
+    from vdiff_tpu_torch.ops import attention as A
+
+    B, T, C = A._shape(qkv, N)
+    return A._launch("vdiff_attn_fwd_train", qkv, N, B, T, C)
 
 
 def fma_bwd_kv(qkv, out, lse, g, N):
@@ -482,36 +520,43 @@ def _bwd_tc_off_path(tag, qkv, g, N, pair_ms):
 
 
 def phase_train_kernels():
-    """The training kernels vs their twins at the train step's shapes (B=128,
-    the config's batch; celeba's N=9 level at T=1024, B=48), f32 and bf16,
-    timed with CUDA events. The forward at T=1024 is B2 (attn_fwd_qblk in
-    f32, attn_fwd_tc in bf16, whose sampling record stays phase 2's), the
-    backward there B5 (the FMA pair in f32, attn_bwd_tc in bf16, timed beside
-    the pair on the same inputs, ``before_ms``). Returns the per-kernel
-    records in bf16: B3 and the pair at T=256, C=256 (8 of the 18 attention
-    calls of a training forward; --allow-bf16), attn_bwd_tc at T=1024."""
+    """The training kernels vs their twins at the train steps' shapes (B=128,
+    the config's batch; celeba's at B=48: N=9 at T=1024, 256 and 64, N=12 at
+    T=64), f32 and bf16, timed with CUDA events. The forward at T <= 512 is
+    B3 (attn_fwd_train: the FMA kernel in f32, attn_fwd_tc.cu in bf16, timed
+    beside the FMA kernel on the same inputs, ``before_ms``), at T=1024 B2
+    (attn_fwd_qblk in f32, attn_fwd_tc in bf16, whose sampling record stays
+    phase 2's); the backward there B5 (the FMA pair in f32, attn_bwd_tc in
+    bf16, timed beside the pair on the same inputs, ``before_ms``). Returns
+    the per-kernel records in bf16: B3 and the pair at T=256, C=256 (8 of
+    the 18 attention calls of a training forward; --allow-bf16), with every
+    bf16 shape of B3 under "shapes", and attn_bwd_tc at T=1024."""
     from vdiff_tpu_torch.ops import attention as A
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     cases = [(128, 256, 1, 256), (128, 64, 1, 256), (128, 1024, 1, 256),
-             (128, 256, 2, 128), (128, 1024, 2, 128), (CELEBA_TRAIN_B, 1024, 9, 64)]
+             (128, 256, 2, 128), (128, 1024, 2, 128), (CELEBA_TRAIN_B, 1024, 9, 64),
+             (CELEBA_TRAIN_B, 256, 9, 64), (CELEBA_TRAIN_B, 64, 12, 64),
+             (CELEBA_TRAIN_B, 64, 9, 64)]
     record = {}
     for B, T, N, C in cases:
         for dtype in (torch.float32, torch.bfloat16):
             tag = f"B={B} T={T} N={N} C={C} {str(dtype)[6:]}"
             qkv = torch.randn(B, T, 3 * N * C, device="cuda", generator=gen).to(dtype)
             g = torch.randn(B, T, N * C, device="cuda", generator=gen).to(dtype)
-            tc = dtype == torch.bfloat16 and T > A.QBLK_THRESHOLD  # B2/B5's bf16 dispatch
+            bf16 = dtype == torch.bfloat16  # B2's, B3's and B5's bf16 dispatch
+            tc = bf16 and T > A.QBLK_THRESHOLD
             # the training forward: B3's kernel at T <= 512, B2's above
-            fwd = A.attn_fwd_train if T <= A.QBLK_THRESHOLD else A.attn_fwd_qblk
+            fwd, fma = ((A.attn_fwd_train, fma_fwd_train) if T <= A.QBLK_THRESHOLD
+                        else (A.attn_fwd_qblk, fma_fwd))
             name = "attn_fwd_tc" if tc else fwd.__name__
             out = fwd(qkv, N)
-            err = (_check_tc_fwd(f"{name} {tag}", out, qkv, N) if tc else _check_fwd(
+            err = (_check_tc_fwd(f"{name} {tag}", out, qkv, N) if bf16 else _check_fwd(
                 f"{name} {tag}", out, A.attention_qkv_reference(qkv.float(), N), dtype))
             del out
             rec = {name: {
                 "max_abs_err": err, "ms": cuda_ms(lambda: fwd(qkv, N), iters=10),
-                **({"before_ms": cuda_ms(lambda: fma_fwd(qkv, N), iters=10)} if tc else {}),
+                **({"before_ms": cuda_ms(lambda: fma(qkv, N), iters=10)} if bf16 else {}),
                 "plain_ms": cuda_ms(lambda: A.attention_qkv_reference(qkv, N), iters=10),
                 "library_ms": cuda_ms(_sdpa(qkv, N), iters=10), **_bound("fwd", B, T, N, C, dtype)}}
             bwd_name = "attn_bwd_tc" if tc else "attn_bwd"
@@ -550,7 +595,9 @@ def phase_train_kernels():
                          f"bound of the whole backward {_bound('bwd', B, T, N, C, dtype)})"
                          if pair else " (library: SDPA forward+backward)" if "bwd" in name else ""),
                       flush=True)
-                if dtype == torch.bfloat16 and name not in record:
+                if bf16 and name == "attn_fwd_train":
+                    _keep_shape(record, name, (B, T, N, C), r)
+                elif bf16 and name not in record:
                     record[name] = r
             del qkv, g, dqkv
             torch.cuda.empty_cache()
@@ -1229,7 +1276,9 @@ def main():
         by_path["celeba_train"] = phase_celeba_train(celeba_cfg)
 
     meta = {
-        "attn_fwd_online": ("vdiff_tpu_torch/csrc/attn_fwd_online.cu",
+        # B1 and B3 in bf16, the paths' type: attn_fwd_tc.cu (their f32 calls
+        # keep attn_fwd_online.cu and attn_fwd_train.cu, off these paths)
+        "attn_fwd_online": ("vdiff_tpu_torch/csrc/attn_fwd_tc.cu",
                             "vdiff_tpu/ops/attention.py:37"),
         # B2 and B5 in bf16, the paths' type: the tensor-core kernels (their
         # f32 calls keep the FMA kernels, off these paths); the pair is B4's
@@ -1237,7 +1286,7 @@ def main():
                         "vdiff_tpu/ops/attention.py:224"),
         "attn_bwd_tc": ("vdiff_tpu_torch/csrc/attn_bwd_tc.cu",
                         "vdiff_tpu/ops/attention.py:240"),
-        "attn_fwd_train": ("vdiff_tpu_torch/csrc/attn_fwd_train.cu",
+        "attn_fwd_train": ("vdiff_tpu_torch/csrc/attn_fwd_tc.cu",
                            "vdiff_tpu/ops/attention.py:184"),
         "attn_bwd_rows": ("vdiff_tpu_torch/csrc/attn_bwd_rows.cu",
                           "vdiff_tpu/ops/attention.py:204"),

@@ -17,10 +17,16 @@ attn_fwd_tc's; attn_bwd_pack1_kv: the saved-statistics entry of
 attn_bwd_tc.cu on B7's (out, lse), held to chip_smoke's bf16 backward limit
 against the kv-chunked twin, with its distance from the full-row twin
 printed beside it), at ragged and path shapes (twins on batch slices 0 and
-B-1 at T=4096). With --time, the new kernels' times beside the f32-FMA
-kernels they replace on the same bf16 inputs, SDPA and the bound. With
---parent-csrc, the SASS of attn_bwd_tc.cu's full-row row kernel at every head
-dim against the same kernel built from DIR/attn_bwd_tc.cu (an older tree):
+B-1 at T=4096); then B1's and B3's bf16 calls (attn_fwd_online,
+attn_fwd_train: attn_fwd_tc.cu at the q tile fwd_tc_q_rows picks) at every
+CIFAR and celeba path shape and at ragged T, held to the same limit, with the
+output at each q tile (32, 64 rows) bit for bit the wrapper's. With
+--time, the new kernels' times beside the f32-FMA kernels they replace on the
+same bf16 inputs, SDPA and the bound, and for B1 and B3 the time at each q
+tile. With
+--parent-csrc, the SASS of attn_bwd_tc.cu's full-row row kernel and of
+attn_fwd_tc.cu's 64-row forward (with and without lse) at every head dim
+against the same kernels built from DIR (an older tree's csrc):
 "identical" when the instructions match. A short check before a full
 chip_smoke run. Needs a CUDA device.
 """
@@ -55,11 +61,20 @@ PACK1_FWD_SHAPES = [(2, 96, 2, 64), (2, 160, 4, 32), (32, 4096, 6, 64), (48, 102
                     (48, 256, 12, 64)]
 # B9: ragged T, then the celeba train step's up_1_us
 KV_SHAPES = [(2, 96, 2, 64), (2, 160, 4, 32), (48, 4096, 6, 64)]
+# B1 and B3 (wrapper, B, T, N, C): ragged T, then every shape of the CIFAR and
+# celeba sampling (B1) and train (B3) paths
+SHORT_SHAPES = [("attn_fwd_online", 2, 96, 2, 256), ("attn_fwd_train", 3, 160, 1, 128),
+                ("attn_fwd_online", 64, 256, 1, 256), ("attn_fwd_online", 64, 64, 1, 256),
+                ("attn_fwd_online", 32, 64, 12, 64), ("attn_fwd_online", 32, 64, 9, 64),
+                ("attn_fwd_train", 128, 256, 1, 256), ("attn_fwd_train", 128, 64, 1, 256),
+                ("attn_fwd_train", 48, 256, 9, 64), ("attn_fwd_train", 48, 64, 12, 64),
+                ("attn_fwd_train", 48, 64, 9, 64)]
+FMA = {"attn_fwd_online": S.fma_fwd_online, "attn_fwd_train": S.fma_fwd_train}
 
 
 def ptxas_report():
     nvcc = kernels.find_nvcc()
-    for src in ("attn_fwd_tc.cu", "attn_bwd_tc.cu"):
+    for src in SASS_KERNELS:
         r = subprocess.run([nvcc, *kernels.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", os.devnull,
                             os.path.join(kernels.CSRC_DIR, src)], capture_output=True, text=True)
         lines = [ln for ln in (r.stdout + r.stderr).splitlines()
@@ -67,9 +82,16 @@ def ptxas_report():
         print(f"ptxas {src}:\n" + "\n".join(lines), flush=True)
 
 
-def _row_kernels_sass(src):
-    """{head dim: SASS instructions} of the full-row row kernel
-    attn_bwd_tc_rows built from ``src``, addresses and encodings dropped."""
+# kernel name pattern → the template arguments that key it: the full-row
+# row kernel (kSaved=false) and the 64-row forward, both before and after
+# that forward took its warp count as a template argument
+SASS_KERNELS = {"attn_bwd_tc.cu": r"attn_bwd_tc_rowsILi(\d+)E(?:Lb0E)?E",
+                "attn_fwd_tc.cu": r"attn_fwd_tc_kernelILi(\d+)ELb([01])E(?:Li4E)?E"}
+
+
+def _sass(src, pattern):
+    """{template arguments: SASS instructions} of the kernels of ``src``
+    whose mangled names match ``pattern``, addresses and encodings dropped."""
     with tempfile.TemporaryDirectory() as tmp:
         cubin = os.path.join(tmp, "k.cubin")
         subprocess.run([kernels.find_nvcc(), *kernels.NVCC_FLAGS, "-cubin", "-o", cubin, src],
@@ -79,9 +101,9 @@ def _row_kernels_sass(src):
                               text=True).stdout
     found, name = {}, None
     for line in sass.splitlines():
-        head = re.search(r"Function : \S*attn_bwd_tc_rowsILi(\d+)E(Lb0E)?E", line)
         if "Function :" in line:
-            name = int(head.group(1)) if head else None
+            head = re.search(pattern + r"\w*$", line.strip())
+            name = head.groups() if head else None
             continue
         ins = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s*(.*?);", line)
         if name is not None and ins:
@@ -90,12 +112,42 @@ def _row_kernels_sass(src):
 
 
 def sass_report(parent_csrc):
-    new = _row_kernels_sass(os.path.join(kernels.CSRC_DIR, "attn_bwd_tc.cu"))
-    old = _row_kernels_sass(os.path.join(parent_csrc, "attn_bwd_tc.cu"))
-    for C in sorted(old):
-        same = new.get(C) == old[C]
-        print(f"sass attn_bwd_tc_rows C={C} full-row: {len(new.get(C, []))} instructions against "
-              f"{len(old[C])} in {parent_csrc}: {'identical' if same else 'DIFFERENT'}", flush=True)
+    for src, pattern in SASS_KERNELS.items():
+        new = _sass(os.path.join(kernels.CSRC_DIR, src), pattern)
+        old = _sass(os.path.join(parent_csrc, src), pattern)
+        for key in sorted(old):
+            same = new.get(key) == old[key]
+            print(f"sass {src} {key}: {len(new.get(key, []))} instructions against "
+                  f"{len(old[key])} in {parent_csrc}: {'identical' if same else 'DIFFERENT'}",
+                  flush=True)
+
+
+def short_rows(timed):
+    """B1's and B3's bf16 calls at SHORT_SHAPES: the wrapper's output held to
+    the tensor-core limit, each q tile's bit for bit the wrapper's, and with
+    ``timed`` each q tile's time beside the FMA kernel's, SDPA's and the
+    bound."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    for name, B, T, N, C in SHORT_SHAPES:
+        qkv = torch.randn(B, T, 3 * N * C, device="cuda", generator=gen).to(torch.bfloat16)
+        out = getattr(A, name)(qkv, N)
+        err = S._check_tc_fwd(f"{name} {(B, T, N, C)}", out, qkv, N)
+        rows = A.fwd_tc_q_rows(B, T, N)
+        same = {r: torch.equal(out, A._fwd_tc("probe", qkv, N, B, T, C, r)) for r in (32, 64)}
+        print(f"{name} {(B, T, N, C)}: max_abs_err {err}, q rows {rows}, output equal at each "
+              f"q tile: {same}", flush=True)
+        if not all(same.values()):
+            S.fail(f"{name} {(B, T, N, C)}: the q tile moved the output")
+        if timed and B > 3:
+            rec = {f"ms_rows{r}": S.cuda_ms(lambda: A._fwd_tc("probe", qkv, N, B, T, C, r))
+                   for r in (64, 32)}
+            rec.update({"ms": S.cuda_ms(lambda: getattr(A, name)(qkv, N)),
+                        "fma_ms": S.cuda_ms(lambda: FMA[name](qkv, N)),
+                        "library_ms": S.cuda_ms(S._sdpa(qkv, N)),
+                        **S._bound("fwd", B, T, N, C, torch.bfloat16)})
+            print(f"{name} {(B, T, N, C)}: " + S._fmt(rec), flush=True)
+        del qkv, out
+    torch.cuda.empty_cache()
 
 
 def main():
@@ -110,6 +162,7 @@ def main():
     t0 = time.perf_counter()
     kernels.library()
     print(f"built in {time.perf_counter() - t0:.1f} s", flush=True)
+    short_rows(args.time)
     gen = torch.Generator(device="cuda").manual_seed(0)
     for B, T, N, C in FWD_SHAPES:
         qkv = torch.randn(B, T, 3 * N * C, device="cuda", generator=gen).to(torch.bfloat16)

@@ -290,7 +290,8 @@ def test_new_sources_and_entry_points_are_built():
     assert "attn_tc.cuh" in kernels.HEADERS
     for name in kernels.SOURCES + kernels.HEADERS:
         assert os.path.isfile(os.path.join(kernels.CSRC_DIR, name)), name
-    assert len(kernels._ENTRY_POINTS["vdiff_attn_fwd_tc"]) == 7  # qkv, out, B, T, N, C, stream
+    # qkv, out, B, T, N, C, q rows per block, stream
+    assert len(kernels._ENTRY_POINTS["vdiff_attn_fwd_tc"]) == 8
     assert len(kernels._ENTRY_POINTS["vdiff_attn_bwd_tc"]) == 10
     src = {n: open(os.path.join(kernels.CSRC_DIR, n)).read()
            for n in ("attn_tc.cuh", "attn_fwd_tc.cu", "attn_bwd_tc.cu")}

@@ -306,10 +306,10 @@ def test_pack1_dispatch_on_dtype(recorded, T):
 def test_bf16_celeba_step_reaches_the_tc_entries(recorded):
     """One bf16 training forward and backward of the full-width celeba UNet
     on the meta device: B8 ×9 and B5 ×1 launch vdiff_attn_bwd_tc, B9 ×1
-    vdiff_attn_bwd_tc_kv, B7 ×1 vdiff_attn_fwd_tc_lse, B6 ×9 and B2 ×1
-    vdiff_attn_fwd_tc; the FMA entries of B1, B7 and B9 run never and the
-    pair only B4's 16 calls; the per-counter launch counts are chip_smoke's
-    CELEBA_STEP_LAUNCHES_BF16, as before B6 and B9 moved."""
+    vdiff_attn_bwd_tc_kv, B7 ×1 vdiff_attn_fwd_tc_lse, B6 ×9, B3 ×16 and B2
+    ×1 vdiff_attn_fwd_tc; the FMA entries of B1, B3, B7 and B9 run never and
+    the pair only B4's 16 calls; the per-counter launch counts are
+    chip_smoke's CELEBA_STEP_LAUNCHES_BF16, as before B3, B6 and B9 moved."""
     from vdiff_tpu_torch.factory import CONFIG_DIR, build_unet, load_experiment_config
 
     cfg, _ = load_experiment_config(f"{CONFIG_DIR}/celeba.json")
@@ -321,10 +321,9 @@ def test_bf16_celeba_step_reaches_the_tc_entries(recorded):
     model(x, t, torch.empty(2, 40, device="meta"), train=True).float().sum().backward()
     calls, counts = recorded()
     entries = {name: calls.count(name) for name in set(calls) if not name.endswith("_max_t")}
-    assert entries == {"vdiff_attn_fwd_tc_lse": 1, "vdiff_attn_fwd_train": 16,
-                       "vdiff_attn_fwd_tc": 10, "vdiff_attn_bwd_tc": 10,
-                       "vdiff_attn_bwd_tc_kv": 1, "vdiff_attn_bwd_rows": 16,
-                       "vdiff_attn_bwd_cols": 16}
+    assert entries == {"vdiff_attn_fwd_tc_lse": 1, "vdiff_attn_fwd_tc": 26,
+                       "vdiff_attn_bwd_tc": 10, "vdiff_attn_bwd_tc_kv": 1,
+                       "vdiff_attn_bwd_rows": 16, "vdiff_attn_bwd_cols": 16}
     assert counts == {"attn_fwd_pack1": 9, "attn_fwd_pack1_lse": 1, "attn_bwd_pack1": 9,
                       "attn_bwd_pack1_kv": 1, "attn_fwd_train": 16, "attn_fwd_tc": 1,
                       "attn_bwd_rows": 16, "attn_bwd_cols": 16, "attn_bwd_tc": 1}
@@ -361,14 +360,15 @@ def test_bf16_pack1_calls_refuse_unaligned_tensors(recorded, wrapper):
 def test_lse_entry_is_built_and_bound():
     """kernels.py binds vdiff_attn_fwd_tc_lse (qkv, out, lse, B, T, N, C,
     stream) and attn_fwd_tc.cu exports it from the lse instantiation of the
-    forward kernel."""
+    forward kernel (templated on the q tile's warps as well)."""
     assert "attn_fwd_tc.cu" in kernels.SOURCES
     assert len(kernels._ENTRY_POINTS["vdiff_attn_fwd_tc_lse"]) == 8
     assert kernels._ENTRY_POINTS["vdiff_attn_fwd_tc_lse"][:3] == [kernels._P] * 3
     src = open(os.path.join(kernels.CSRC_DIR, "attn_fwd_tc.cu")).read()
     assert re.search(r'extern "C" int vdiff_attn_fwd_tc_lse\(', src)
-    assert "template <int C, bool kLse>" in src and "if constexpr (kLse)" in src
-    assert "attn_fwd_tc_kernel<C, true>" in src and "attn_fwd_tc_kernel<C, false>" in src
+    assert "template <int C, bool kLse, int kWarps>" in src and "if constexpr (kLse)" in src
+    assert "attn_fwd_tc_kernel<C, true, kWarps>" in src
+    assert "attn_fwd_tc_kernel<C, false, kWarps>" in src
 
 
 def test_kv_entry_is_built_and_bound():

@@ -292,11 +292,19 @@ class StubLibrary:
 
 class RecordingStubLibrary(StubLibrary):
     """:class:`StubLibrary` that records, in order, the name of every entry
-    point asked for (launches and *_max_t queries)."""
+    point asked for (launches and *_max_t queries) in ``calls``, and every
+    call made, with its arguments, in ``launched``."""
 
     def __init__(self):
         self.calls = []
+        self.launched = []
 
     def __getattr__(self, name):
         self.calls.append(name)
-        return super().__getattr__(name)
+        fn = super().__getattr__(name)
+
+        def call(*args):
+            self.launched.append((name, args))
+            return fn(*args)
+
+        return call

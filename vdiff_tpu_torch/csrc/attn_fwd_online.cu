@@ -2,16 +2,20 @@
 // any token count that is a multiple of 32; with a second entry point that
 // also writes each row's logsumexp.
 //
-// Replaces three Pallas kernels of vdiff_tpu/ops/attention.py that compute
-// out = softmax((q/sqrt(C)).k^T).v with f32 products and the output divided
-// by the row sums:
+// Replaces, for f32 inputs, three Pallas kernels of
+// vdiff_tpu/ops/attention.py that compute out = softmax((q/sqrt(C)).k^T).v
+// with f32 products and the output divided by the row sums:
 //   _flash_kernel (B1, through flash_attention_qkv for T <= 512: the CIFAR
-//     sampler) and _attn_fwd_kernel_pack1 (B6, through _pack1_fwd_call: the
-//     celeba sampler's and pack1 training forward at head dim 64, T = 256,
-//     1024, 4096) through vdiff_attn_fwd_online;
+//     and celeba samplers' T = 256 and T = 64 calls) and
+//     _attn_fwd_kernel_pack1 (B6, through _pack1_fwd_call: the celeba
+//     sampler's and pack1 training forward at head dim 64, T = 256, 1024,
+//     4096) through vdiff_attn_fwd_online;
 //   _attn_fwd_kernel_pack1_lse (B7, through _pack1_fwd_lse_call: the forward
 //     of pack1_attention_trainable_kv at T = 4096, which saves lse for the
 //     kv-streamed backward) through vdiff_attn_fwd_pack1_lse.
+// bf16 calls of all three run the tensor-core forward, attn_fwd_tc.cu, and
+// its lse entry; chip_smoke.py times this kernel beside it on the same bf16
+// inputs.
 // Per (batch, head, 32-row q tile) the block walks the keys in tiles of 32 and
 // keeps a running row max m and denominator l, rescaling the f32 output
 // accumulator by exp(m_old - m_new) per tile, as the Pallas kernel's fori_loop

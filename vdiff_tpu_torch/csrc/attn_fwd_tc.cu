@@ -1,28 +1,39 @@
 // bf16 attention forward on the tensor cores, straight off the fused qkv
 // projection: out = (e . v) / l with e = exp(s - max), s = q.k^T / sqrt(C).
 //
-// Replaces vdiff_tpu/ops/attention.py::_attn_fwd_kernel_qblk (B2: reached
-// through flash_attention_qkv for T > 512 when sampling, through
-// _qblk_fwd_call for the training forward at T > 512 and for head dims 32/64
-// with unaligned N*C) and _attn_fwd_kernel_pack1 (B6: the head-dim 32/64
-// forward off the fused qkv at any T, celeba's sampling and its training
-// forward at T <= 1024), both through entry vdiff_attn_fwd_tc, for bf16
-// inputs; f32 inputs stay on attn_fwd_qblk.cu (B2) and attn_fwd_online.cu
-// (B6). Its lse instantiation (entry vdiff_attn_fwd_tc_lse) replaces
-// _attn_fwd_kernel_pack1_lse (B7: the forward of pack1_attention_trainable_kv,
-// head dim 32/64 at T = 4096) for bf16; f32 stays on attn_fwd_online.cu.
+// One kernel serves five Pallas kernels of vdiff_tpu/ops/attention.py for
+// bf16 inputs, each through its own wrapper and launch counter:
+//   _flash_kernel (B1: flash_attention_qkv at T <= 512, the CIFAR and celeba
+//     samplers' T = 256 and T = 64 calls; JAX runs _xla_attention at T = 64)
+//     and _attn_fwd_kernel (B3: flash_attention_trainable's forward at
+//     T <= 512, the train steps' T = 256 and T = 64 calls), through entry
+//     vdiff_attn_fwd_tc; f32 inputs stay on attn_fwd_online.cu (B1) and
+//     attn_fwd_train.cu (B3);
+//   _attn_fwd_kernel_qblk (B2: flash_attention_qkv for T > 512 when
+//     sampling, _qblk_fwd_call for the training forward at T > 512 and for
+//     head dims 32/64 with unaligned N*C) and _attn_fwd_kernel_pack1 (B6: the
+//     head-dim 32/64 forward off the fused qkv at any T, celeba's sampling
+//     and its training forward at T <= 1024), through the same entry; f32
+//     inputs stay on attn_fwd_qblk.cu (B2) and attn_fwd_online.cu (B6);
+//   _attn_fwd_kernel_pack1_lse (B7: the forward of
+//     pack1_attention_trainable_kv, head dim 32/64 at T = 4096), through the
+//     lse instantiation (entry vdiff_attn_fwd_tc_lse); f32 stays on
+//     attn_fwd_online.cu.
+// All five compute softmax(q.k^T / sqrt(C)).v. B3's branch that normalises P
+// before P.v when C >= T, and B1's online rescale of an f32 e.v, move
+// roundings only: the kernel divides the output once, as B2 does.
 //
 // Bound on the H100: per (batch, head) 4*T*T*C operations on 4*T*C bf16
 // elements, T/2 operations per byte against the card's ~295 for bf16 on the
-// tensor cores: compute at T = 1024, bytes at T = 256. B7 at (B, T, N, C) =
-// (48, 4096, 6, 64) does 1.24 TFLOP, 1.25 ms at the bf16 peak; its lse adds
-// 4.7 MB of f32 to the 0.6 GB read and written. The f32-FMA kernel it replaces
-// ran at ~11 TFLOP/s, bound by shared-memory reads, with a (16, T) f32 score
-// row in shared memory (one block per SM, T capped). What this design does:
+// tensor cores: compute at T = 1024, bytes at T = 256 and below. B7 at
+// (B, T, N, C) = (48, 4096, 6, 64) does 1.24 TFLOP, 1.25 ms at the bf16 peak;
+// its lse adds 4.7 MB of f32 to the 0.6 GB read and written. The f32-FMA
+// kernels it replaces ran at ~11 TFLOP/s, bound by shared-memory reads. What
+// this design does:
 //   * both products run on the tensor cores (mma.sync.m16n8k16, bf16
 //     operands from ldmatrix, f32 accumulators);
-//   * one block per (64-row q tile, head, batch), four warps of 16 rows; the
-//     q tile stays in shared memory as bf16 and each warp re-reads its
+//   * one block per (q tile, head, batch), one warp per 16 q rows; the q
+//     tile stays in shared memory as bf16 and each warp re-reads its
 //     fragments per k-step (at C = 256 the (16, C) f32 output alone takes 128
 //     registers a thread, so q cannot also live in registers);
 //   * key tiles (64 keys, 32 at C = 256) of k and v are double-buffered with
@@ -31,12 +42,36 @@
 //     so nothing of the score row is kept and T is not capped: any T that is
 //     a multiple of 32 runs, the ragged last key tile masked to -inf and the
 //     rows past T read as zeros;
-//   * 99 KB of shared memory at C = 256 (two blocks per SM), 85 KB at 128.
+//   * 99 KB of shared memory at C = 256 with 64-row q tiles (two blocks per
+//     SM), 85 KB at 128; 84 KB at C = 256 with 32-row tiles.
+//
+// Short rows. A q tile of 64 rows (four warps) leaves the grid small where T
+// is short and heads are few: CIFAR's T = 64 at C = 256 is one q tile per
+// (head, batch), 64 blocks for the sampler's B = 64 and 128 for the train
+// step's B = 128 on 132 SMs, with a key loop two tiles long. So the q tile is
+// a template parameter, kWarps (2 or 4 warps: 32 or 64 rows), and the caller
+// picks it from (B, T, N) (ops/attention.py::fwd_tc_q_rows): 32 rows when a
+// 64-row grid would leave SMs without a block, 64 otherwise. The key tile and
+// every per-row step are the same in both, so the q tile moves no result: a
+// row's output is bit for bit the same at either. Measured on an NVIDIA H100
+// 80GB HBM3 at 700 W (scripts/probe_torch_tc.py --time, device time in ms
+// at 64 / 32 rows):
+//   (B, T, N, C) = (64, 256, 1, 256)  0.0357 / 0.0502
+//                  (128, 256, 1, 256) 0.0696 / 0.0959
+//                  (64, 64, 1, 256)   0.0126 / 0.0108
+//                  (128, 64, 1, 256)  0.0145 / 0.0149
+//                  (32, 64, 12, 64)   0.0097 / 0.0107
+// A smaller tile reads each key tile into more blocks and re-reads it from
+// L2; it pays only where SMs would idle: (64, 64, 1, 256) takes 32 rows,
+// (128, 64, 1, 256) too (128 blocks; a tie), every other shape of the
+// paths, and every B2/B6/B7 shape, 64. A one-warp tile of 16 rows was slower
+// than one of these two at every shape (PERF.md) and is not built. The lse
+// instantiation runs 64-row tiles only.
 //
 // Numerics: the scale 1/sqrt(C) (times log2(e), the softmax then using exp2)
 // is applied to S in f32 after the product, never to the bf16 q operand; max,
-// sums and the rescales are f32. The one departure from the Pallas kernel,
-// which takes e . v in f32: e is rounded to bf16 as the A operand of e . v,
+// sums and the rescales are f32. The one departure from the Pallas kernels,
+// which take e . v in f32: e is rounded to bf16 as the A operand of e . v,
 // which moves each output by at most 2^-9 * sum_j p_j |v_j|. The output is
 // divided by the f32 row sum once and cast to bf16 once. lse (kLse) is the
 // natural-log logsumexp of the scaled scores, (m + log2 l) * ln2 from the f32
@@ -51,24 +86,24 @@ namespace {
 
 using namespace tc;
 
-constexpr int kWarps = 4;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kBq = 16 * kWarps;  // q rows per block
-
-template <int C>
+template <int C, int kWarps>
 struct FwdShape {
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int kBq = 16 * kWarps;  // q rows per block
   static constexpr int kBk = C == 256 ? 32 : 64;  // keys per tile
   static constexpr int kTile = kBk * pitch<C>();  // elements of one k or v tile
   // q tile + two stages of (k tile, v tile), bf16
   static constexpr int kSmemBytes = (kBq * pitch<C>() + 4 * kTile) * 2;
 };
 
-template <int C, bool kLse>
-__global__ void __launch_bounds__(kThreads)
+template <int C, bool kLse, int kWarps>
+__global__ void __launch_bounds__(32 * kWarps)
     attn_fwd_tc_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out,
                        float* __restrict__ lse, int T, int N, float scale_log2) {
-  constexpr int kBk = FwdShape<C>::kBk;
-  constexpr int kTile = FwdShape<C>::kTile;
+  constexpr int kThreads = FwdShape<C, kWarps>::kThreads;
+  constexpr int kBq = FwdShape<C, kWarps>::kBq;
+  constexpr int kBk = FwdShape<C, kWarps>::kBk;
+  constexpr int kTile = FwdShape<C, kWarps>::kTile;
   constexpr int kNc = C / 8;    // n8 tiles of a warp's output rows
   constexpr int kNk = kBk / 8;  // n8 tiles of a warp's score rows
 
@@ -194,21 +229,37 @@ __global__ void __launch_bounds__(kThreads)
   store_rows<kNc>(out + ((long)b * T + r0) * N * C + n * C, (long)N * C, o, T - r0, lane);
 }
 
-// lse == nullptr launches the instantiation without the lse output.
+// lse == nullptr launches the instantiation without the lse output; q_rows
+// (32 or 64) picks the q tile, 64 only with lse.
 template <int C>
 struct FwdLauncher {
-  static int run(const void* qkv, void* out, float* lse, int B, int T, int N,
+  template <int kWarps>
+  static int launch(const void* qkv, void* out, float* lse, int B, int T, int N,
+                    cudaStream_t stream) {
+    using S = FwdShape<C, kWarps>;
+    auto kernel = attn_fwd_tc_kernel<C, false, kWarps>;
+    if constexpr (kWarps == 4) {
+      if (lse) kernel = attn_fwd_tc_kernel<C, true, kWarps>;
+    } else if (lse) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    const cudaError_t err = allow_smem(kernel, S::kSmemBytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const dim3 grid((T + S::kBq - 1) / S::kBq, N, B);
+    kernel<<<grid, S::kThreads, S::kSmemBytes, stream>>>(
+        static_cast<const bf16*>(qkv), static_cast<bf16*>(out), lse, T, N,
+        kLog2e / sqrtf(static_cast<float>(C)));
+    return static_cast<int>(cudaGetLastError());
+  }
+
+  static int run(const void* qkv, void* out, float* lse, int B, int T, int N, int q_rows,
                  cudaStream_t stream) {
     if (T <= 0 || T % 32) return static_cast<int>(cudaErrorInvalidValue);
-    constexpr int bytes = FwdShape<C>::kSmemBytes;
-    auto kernel = attn_fwd_tc_kernel<C, false>;
-    if (lse) kernel = attn_fwd_tc_kernel<C, true>;
-    const cudaError_t err = allow_smem(kernel, bytes);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const dim3 grid((T + kBq - 1) / kBq, N, B);
-    kernel<<<grid, kThreads, bytes, stream>>>(static_cast<const bf16*>(qkv), static_cast<bf16*>(out),
-                                              lse, T, N, kLog2e / sqrtf(static_cast<float>(C)));
-    return static_cast<int>(cudaGetLastError());
+    switch (q_rows) {
+      case 64: return launch<4>(qkv, out, lse, B, T, N, stream);
+      case 32: return launch<2>(qkv, out, lse, B, T, N, stream);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
   }
 };
 
@@ -216,20 +267,21 @@ struct FwdLauncher {
 }  // namespace vdiff
 
 // qkv (B, T, 3*N*C) bf16 in, out (B, T, N*C) bf16; T a multiple of 32, C in
-// {32, 64, 128, 256}, both pointers 16-byte aligned. Returns the cudaError_t
-// of the launch (0 on success). Does not synchronise.
+// {32, 64, 128, 256}, q_rows 32 or 64 (the q tile; it moves no result),
+// both pointers 16-byte aligned. Returns the cudaError_t of the
+// launch (0 on success). Does not synchronise.
 extern "C" int vdiff_attn_fwd_tc(const void* qkv, void* out, int B, int T, int N, int C,
-                                 void* stream) {
-  return vdiff::tc::dispatch_head_dim<vdiff::FwdLauncher>(C, qkv, out, nullptr, B, T, N,
+                                 int q_rows, void* stream) {
+  return vdiff::tc::dispatch_head_dim<vdiff::FwdLauncher>(C, qkv, out, nullptr, B, T, N, q_rows,
                                                           static_cast<cudaStream_t>(stream));
 }
 
-// The same, and each row's logsumexp of the scaled scores into lse, f32
-// (B, N, T).
+// The same at 64-row q tiles, and each row's logsumexp of the scaled scores
+// into lse, f32 (B, N, T).
 extern "C" int vdiff_attn_fwd_tc_lse(const void* qkv, void* out, void* lse, int B, int T, int N,
                                      int C, void* stream) {
   if (lse == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   return vdiff::tc::dispatch_head_dim<vdiff::FwdLauncher>(C, qkv, out, static_cast<float*>(lse),
-                                                          B, T, N,
+                                                          B, T, N, 64,
                                                           static_cast<cudaStream_t>(stream));
 }

@@ -2,8 +2,11 @@
 // projection.
 //
 // Replaces vdiff_tpu/ops/attention.py::_attn_fwd_kernel (reached through
-// flash_attention_trainable's _flash_trainable_fwd for T <= 512; the UNet's
-// T = 64 and T = 256 attention, 17 calls per training forward). The Pallas
+// flash_attention_trainable's _flash_trainable_fwd for T <= 512; the UNets'
+// T = 64 and T = 256 attention, 17 calls per CIFAR training forward, 16 per
+// celeba one) for f32 inputs; bf16 calls run the tensor-core forward,
+// attn_fwd_tc.cu, and chip_smoke.py times this kernel beside it on the same
+// bf16 inputs. The Pallas
 // kernel takes a whole (T, T) tile for G heads per program; a (256, 256) f32
 // tile is 256 KB, more than the 227 KB a block may use on the H100, so this
 // kernel is q-tiled: one block per (batch, head, 16-row q tile) holds the

@@ -45,8 +45,9 @@ _ENTRY_POINTS = {
     "vdiff_attn_bwd_cols": [_P] * 5 + [_I] * 5 + [_P],
     "vdiff_attn_fwd_pack1_lse": [_P] * 3 + [_I] * 5 + [_P],
     "vdiff_attn_bwd_pack1_kv": [_P] * 6 + [_I] * 5 + [_P],
-    # the bf16 tensor-core kernels take no dtype flag
-    "vdiff_attn_fwd_tc": [_P, _P] + [_I] * 4 + [_P],
+    # the bf16 tensor-core kernels take no dtype flag; qkv, out, B, T, N, C,
+    # q rows per block, stream
+    "vdiff_attn_fwd_tc": [_P, _P] + [_I] * 5 + [_P],
     "vdiff_attn_fwd_tc_lse": [_P] * 3 + [_I] * 4 + [_P],
     "vdiff_attn_bwd_tc": [_P] * 5 + [_I] * 4 + [_P],
     # qkv, out, lse, dout, dqkv, delta, B, T, N, C, stream

@@ -19,9 +19,11 @@ d(qkv) in the same layout as one buffer:
   backward (``csrc/attn_bwd_rows.cu``, ``csrc/attn_bwd_cols.cu``), which
   :func:`attn_bwd` runs in turn. These run f32 FMAs.
 * :func:`attn_fwd_tc` and :func:`attn_bwd_tc` wrap the bf16 tensor-core
-  kernels (``csrc/attn_fwd_tc.cu``, ``csrc/attn_bwd_tc.cu``). B2's bf16
-  calls (:func:`attn_fwd_qblk`) and B5's (:func:`attn_bwd` at T > 512) go to
-  them by an explicit dispatch on dtype; f32 calls keep the FMA kernels.
+  kernels (``csrc/attn_fwd_tc.cu``, ``csrc/attn_bwd_tc.cu``). The bf16 calls
+  of B1 (:func:`attn_fwd_online`), B2 (:func:`attn_fwd_qblk`), B3
+  (:func:`attn_fwd_train`) and B5 (:func:`attn_bwd` at T > 512) go to them
+  by an explicit dispatch on dtype; f32 calls keep the FMA kernels. B1 and
+  B3 count under their own wrappers, B2 and B5 under these two.
 * :func:`attn_fwd_pack1`, :func:`attn_fwd_pack1_lse`, :func:`attn_bwd_pack1`
   and :func:`attn_bwd_pack1_kv` are the counterparts of JAX's head-dim 32/64
   ``pack1`` kernels B6–B9, each with a launch counter of its own. They
@@ -117,17 +119,27 @@ def _check_max_t(name: str, T: int, C: int, max_t_fn: str):
 
 
 def attn_fwd_online(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
-    """Online-softmax attention forward (CUDA kernel ``attn_fwd_online.cu``).
+    """Attention forward at T ≤ 512 for inference, counted here and not in
+    :func:`attn_fwd_tc`.
 
-    Replaces JAX's Pallas ``_flash_kernel`` (ops/attention.py, used by
-    ``flash_attention_qkv`` at T ≤ 512). Compute bound at the sampler's
-    shapes; the first version runs f32 FMAs from shared memory, keeping the q
-    tile resident and reading q/k/v straight out of the fused qkv (see the
-    source's header for the design)."""
+    Replaces JAX's Pallas ``_flash_kernel`` (B1; ops/attention.py, used by
+    ``flash_attention_qkv`` at T ≤ 512; JAX runs ``_xla_attention`` at T=64,
+    which this also takes). A bf16 CUDA call runs the tensor-core kernel of
+    :func:`attn_fwd_tc` (``attn_fwd_tc.cu``; 16-byte alignment checked, q
+    rows per block from :func:`fwd_tc_q_rows`), which rounds e to bf16 as
+    the operand of e·v where JAX's B1 takes e·v in f32. An f32 one runs
+    ``attn_fwd_online.cu``: an online softmax over 32-key tiles in f32 FMAs
+    from shared memory, the q tile resident, q/k/v read straight out of the
+    fused qkv (see the source's header). Its CPU twin is
+    :func:`attention_qkv_reference`."""
     B, T, C = _check_kernel_input(qkv, num_heads, "attn_fwd_online")
     if qkv.device.type == "cpu":
         return attention_qkv_reference(qkv, num_heads)
-    out = _launch("vdiff_attn_fwd_online", qkv, num_heads, B, T, C)
+    if qkv.dtype == torch.bfloat16:
+        _check_tc("attn_fwd_online", qkv)
+        out = _fwd_tc("attn_fwd_online", qkv, num_heads, B, T, C)
+    else:
+        out = _launch("vdiff_attn_fwd_online", qkv, num_heads, B, T, C)
     attn_fwd_online.launches += 1
     return out
 
@@ -174,15 +186,18 @@ def attn_fwd_tc(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
     """bf16 attention forward on the tensor cores (CUDA kernel
     ``attn_fwd_tc.cu``): B2's bf16 calls.
 
-    Replaces JAX's Pallas ``_attn_fwd_kernel_qblk`` (B2) for bf16: per
-    64-row q tile, mma.sync products over 64-key tiles (32 at C=256) that
-    cp.async double-buffers, an online softmax in f32 registers and the
-    output divided once, so any T that is a multiple of 32 runs. Scale on
+    Replaces JAX's Pallas ``_attn_fwd_kernel_qblk`` (B2) for bf16: per q
+    tile of 64 rows (32 on small grids, :func:`fwd_tc_q_rows`), mma.sync
+    products over 64-key tiles (32 at C=256) that cp.async double-buffers,
+    an online softmax in f32 registers and the output divided once, so any
+    T that is a multiple of 32 runs. Scale on
     f32 S after the product; e is rounded to bf16 as the operand of e·v, the
     one departure from the Pallas kernel's f32 e·v (at most 2^-9·Σ p|v| per
     output). Its CPU twin is :func:`attention_qkv_reference`. The same kernel
-    serves B6's bf16 calls (:func:`attn_fwd_pack1`), and with an lse output
-    B7's (:func:`attn_fwd_pack1_lse`), each counted by its own wrapper."""
+    serves the bf16 calls of B1 (:func:`attn_fwd_online`), B3
+    (:func:`attn_fwd_train`) and B6 (:func:`attn_fwd_pack1`), and with an lse
+    output B7's (:func:`attn_fwd_pack1_lse`), each counted by its own
+    wrapper."""
     B, T, C = _check_kernel_input(qkv, num_heads, "attn_fwd_tc")
     _check_tc("attn_fwd_tc", qkv)
     if qkv.device.type == "cpu":
@@ -195,34 +210,61 @@ def attn_fwd_tc(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
 attn_fwd_tc.launches = 0
 
 
-def _fwd_tc(fn_name, qkv, num_heads, B, T, C):
-    """Launch ``vdiff_attn_fwd_tc`` on checked bf16 CUDA input; the caller
-    counts the launch (B2 under :func:`attn_fwd_tc`, B6 under
-    :func:`attn_fwd_pack1`)."""
+#: SMs of the H100, for which :func:`fwd_tc_q_rows` sizes the forward's grid
+_SMS = 132
+
+
+def fwd_tc_q_rows(B: int, T: int, N: int) -> int:
+    """q rows per block of ``attn_fwd_tc.cu`` for a call at (B, T, N): 32
+    (two warps) when a grid of 64-row tiles, ceil(T/64)·N·B blocks, would
+    leave some of the card's SMs without a block, else 64 (four warps).
+    CIFAR's T=64 with one head is one 64-row tile per (head, batch). The q
+    tile moves no result (the key tile and every per-row step are the same);
+    the source's header has the times behind the choice."""
+    return 32 if -(-T // 64) * N * B < _SMS else 64
+
+
+def _fwd_tc(fn_name, qkv, num_heads, B, T, C, q_rows=None):
+    """Launch ``vdiff_attn_fwd_tc`` on checked bf16 CUDA input with ``q_rows``
+    q rows per block (default :func:`fwd_tc_q_rows`); the caller counts the
+    launch (B1 under :func:`attn_fwd_online`, B2 under :func:`attn_fwd_tc`,
+    B3 under :func:`attn_fwd_train`, B6 under :func:`attn_fwd_pack1`)."""
     _need_cuda(fn_name, qkv)
     out = torch.empty(B, T, num_heads * C, dtype=qkv.dtype, device=qkv.device)
     err = kernels.library().vdiff_attn_fwd_tc(
         qkv.data_ptr(), out.data_ptr(), B, T, num_heads, C,
+        q_rows or fwd_tc_q_rows(B, T, num_heads),
         torch.cuda.current_stream(qkv.device).cuda_stream)
     kernels.check(err, "vdiff_attn_fwd_tc")
     return out
 
 
 def attn_fwd_train(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
-    """Training attention forward at T ≤ 512 (CUDA kernel ``attn_fwd_train.cu``).
+    """Training attention forward at T ≤ 512, counted here and not in
+    :func:`attn_fwd_tc`.
 
-    Replaces JAX's Pallas ``_attn_fwd_kernel`` (ops/attention.py, used by
-    ``flash_attention_trainable`` at T ≤ 512). A whole (T, T) tile does not
-    fit a block's shared memory at T=256, so the kernel is q-tiled with the
-    (16, T) score row resident; it normalises P when C ≥ T and divides the
-    output otherwise, as the Pallas kernel does. Compute bound; f32 FMAs in
-    this first version."""
+    Replaces JAX's Pallas ``_attn_fwd_kernel`` (B3; ops/attention.py, used by
+    ``flash_attention_trainable`` at T ≤ 512), which holds a whole (T, T)
+    tile, normalises P before P·v when C ≥ T and divides the output
+    otherwise. A bf16 CUDA call runs the tensor-core kernel of
+    :func:`attn_fwd_tc` (``attn_fwd_tc.cu``; 16-byte alignment checked, q
+    rows per block from :func:`fwd_tc_q_rows`): an online softmax with the
+    output divided once in either case and e rounded to bf16 as the operand
+    of e·v, which moves roundings only. An f32 one runs
+    ``attn_fwd_train.cu``: q-tiled with the (16, T) f32 score row resident
+    (a (256, 256) f32 tile does not fit a block's shared memory), keeping
+    the Pallas kernel's branch, f32 FMAs. Its CPU twin is
+    :func:`attention_qkv_reference`."""
     B, T, C = _check_kernel_input(qkv, num_heads, "attn_fwd_train")
     if qkv.device.type == "cpu":
         return attention_qkv_reference(qkv, num_heads)
-    _need_cuda("attn_fwd_train", qkv)
-    _check_max_t("attn_fwd_train", T, C, "vdiff_attn_fwd_qblk_max_t")
-    out = _launch("vdiff_attn_fwd_train", qkv, num_heads, B, T, C)
+    if qkv.dtype == torch.bfloat16:
+        _check_tc("attn_fwd_train", qkv)
+        out = _fwd_tc("attn_fwd_train", qkv, num_heads, B, T, C)
+    else:
+        _need_cuda("attn_fwd_train", qkv)
+        _check_max_t("attn_fwd_train", T, C, "vdiff_attn_fwd_qblk_max_t")
+        out = _launch("vdiff_attn_fwd_train", qkv, num_heads, B, T, C)
     attn_fwd_train.launches += 1
     return out
 
