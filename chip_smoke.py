@@ -23,10 +23,13 @@ Phases, one output line each (any failure raises and exits non-zero):
      against their twins at the fused sampling path's shapes (B=64: 32x32,
      16x16, 8x8; B10 at C=256 and 512 with and without SiLU and once with
      FiLM; B11 at 256->256 in its conv1 and conv2 forms) and, off the path, at
-     celeba's fusable widths, one C_in != C_out case, the bare conv and odd
-     shapes (groups of 6 and 42, a non-square image, ragged tiles); f32
-     and bf16, then timed in bf16 beside the twin, the card's bound and, for
-     the bare GroupNorm, F.group_norm;
+     celeba's fusable widths, one C_in != C_out case, the bare conv with and
+     without a skip and odd shapes (groups of 6 and 42, a non-square image,
+     ragged tiles); f32 and bf16, then timed in bf16 beside the twin, the
+     card's bound and, for the bare GroupNorm, F.group_norm; B11's bf16 calls
+     run the tensor-core conv of gn_silu_conv3x3_tc.cu, timed beside the FMA
+     conv of gn_silu_conv3x3.cu on the same inputs and cuDNN's bf16 conv
+     alone (F.conv2d, channels_last: the library call of the bare conv);
   4b. fused-unet: the full-width bf16 cifar10_cond UNet at B=2 with
      VDIFF_FUSED_CONV=1 and VDIFF_FUSED_GN=1 against the same model with both
      off; one forward must launch B11 38 times and B10 35 times (B10 73 times
@@ -36,13 +39,14 @@ Phases, one output line each (any failure raises and exits non-zero):
      the per-forward counts times 256, and samples/s beside the default path's;
   5. train-kernels: the training forward (attn_fwd_train, B3, at T <= 512,
      whose bf16 calls run attn_fwd_tc.cu; at T=1024 attn_fwd_qblk in f32,
-     attn_fwd_tc in bf16) and the backward (the two-pass attn_bwd_rows +
-     attn_bwd_cols; attn_bwd_tc for bf16 at T=1024) against their twins at
-     the train steps' shapes (B=128; T=64/256/1024 at C=256, two heads of
-     128, and celeba's at B=48: nine heads of 64 at T=1024, 256 and 64,
-     twelve at T=64), f32 and bf16, timed with CUDA events, the tensor-core
-     kernels beside the f32-FMA ones they replaced on the same bf16 inputs;
-     at B4's bf16 shapes attn_bwd_tc is also checked and timed, off the path;
+     attn_fwd_tc in bf16) and the backward (attn_bwd: the two-pass
+     attn_bwd_rows + attn_bwd_cols in f32; attn_bwd_tc.cu in bf16, counted
+     as B4 under attn_bwd at T <= 512 and as B5 under attn_bwd_tc at T=1024)
+     against their twins at the train steps' shapes (B=128; T=64/256/1024 at
+     C=256, two heads of 128, and celeba's at B=48: nine heads of 64 at
+     T=1024, 256 and 64, twelve at T=64), f32 and bf16, timed with CUDA
+     events, the tensor-core kernels beside the f32-FMA ones they replaced on
+     the same bf16 inputs;
   6. train-unet: one full-width train step (loss, backward, clip, AdamW, EMA)
      in f32 at B=2 on the GPU against the same step on the CPU, same weights,
      t, noise and CFG mask, dropout off; one step must launch attn_fwd_train
@@ -51,7 +55,8 @@ Phases, one output line each (any failure raises and exits non-zero):
   7. train-cli: the port's train CLI (vdiff_tpu_torch.train) on
      synthetic_flagship.json with --allow-bf16 --epochs 1 (4 steps of 128, the
      epoch-end sample grid, ckpt_last), then generate samples from ckpt_last;
-     a bf16 step launches attn_fwd_tc and attn_bwd_tc once each;
+     a bf16 step launches attn_fwd_tc and attn_bwd_tc once each, attn_bwd 17
+     times and neither backward pass;
   8. celeba-kernels: the head-dim 64 kernels (attn_fwd_pack1, attn_fwd_pack1_lse,
      attn_bwd_pack1, attn_bwd_pack1_kv) run at the shapes the celeba paths give
      them (CELEBA_KERNEL_SHAPES: the sampler's B=32, the train step's B=48)
@@ -82,7 +87,7 @@ read just after: "launches" is their sum over the paths, and
 "launches_by_path" each path's own count. The line before last is the
 kernels' JSON record (with each kernel's time, its twin's, one PyTorch
 call's where there is one, the card's bound for the same work, and for the
-tensor-core kernels of B1-B3 and B5-B9 the FMA kernel's time on the same
+tensor-core kernels of B1-B9 and B11 the FMA kernel's time on the same
 inputs, "before_ms"; phases 2 and 5 list every bf16 shape of a wrapper under
 "shapes", the first of them the record's own); the last line is
 {"ok": true, "device": {...}}.
@@ -110,7 +115,7 @@ CELEBA_CONFIG = os.path.join(CONFIGS, "celeba.json")
 STEPS = 256
 CELEBA_STEPS, CELEBA_SAMPLE_B, CELEBA_TRAIN_B, CELEBA_TRAIN_STEPS = 16, 32, 48, 3
 FUSED_KERNELS = ("gn_film_silu_kernel", "fused_gn_silu_conv3x3")
-KERNELS = ("attn_fwd_online", "attn_fwd_qblk", "attn_fwd_train", "attn_bwd_rows",
+KERNELS = ("attn_fwd_online", "attn_fwd_qblk", "attn_fwd_train", "attn_bwd", "attn_bwd_rows",
            "attn_bwd_cols", "attn_fwd_tc", "attn_bwd_tc", "attn_fwd_pack1", "attn_fwd_pack1_lse",
            "attn_bwd_pack1", "attn_bwd_pack1_kv") + FUSED_KERNELS
 
@@ -124,12 +129,13 @@ def _launches(**counts):
 # 9 at T=64) go to the online kernel (attn_fwd_train when training), 1 at
 # T=1024 (up_1_us) to B2: the q-blocked FMA kernel in f32, the tensor-core
 # attn_fwd_tc in bf16. A training backward runs each backward pass once per
-# call in f32; in bf16 the T=1024 call runs attn_bwd_tc instead.
+# call in f32; in bf16 every call runs attn_bwd_tc.cu, counted under
+# attn_bwd at T <= 512 (B4) and under attn_bwd_tc at T=1024 (B5).
 ONLINE_PER_FWD, QBLK_PER_FWD = 17, 1
 TRAIN_STEP_LAUNCHES = _launches(attn_fwd_train=17, attn_fwd_qblk=1, attn_bwd_rows=18,
                                 attn_bwd_cols=18)
-TRAIN_STEP_LAUNCHES_BF16 = _launches(attn_fwd_train=17, attn_fwd_tc=1, attn_bwd_rows=17,
-                                     attn_bwd_cols=17, attn_bwd_tc=1)
+TRAIN_STEP_LAUNCHES_BF16 = _launches(attn_fwd_train=17, attn_fwd_tc=1, attn_bwd=17,
+                                     attn_bwd_tc=1)
 SAMPLE_FWD_LAUNCHES_BF16 = _launches(attn_fwd_online=ONLINE_PER_FWD, attn_fwd_tc=QBLK_PER_FWD)
 # the fused inference kernels per cifar10_cond forward (27 residual and 18
 # attention blocks). With both switches on: conv1 of the 11 blocks that
@@ -154,7 +160,8 @@ FUSED_B = 64  # the fused sampling path's batch
 # attn_bwd_pack1_kv its saved-statistics entry) and in f32 B1's online
 # kernel, its lse entry, the two backward passes and attn_bwd_pack1_kv.cu;
 # each wrapper counts only its own launches. In bf16 B2's calls and the
-# T=1024 backward go to attn_fwd_tc and attn_bwd_tc.
+# T=1024 backward go to attn_fwd_tc and attn_bwd_tc, B4's 16 backward calls
+# to attn_bwd_tc.cu under attn_bwd.
 CELEBA_FWD_LAUNCHES = _launches(attn_fwd_pack1=10, attn_fwd_qblk=8, attn_fwd_online=9)
 CELEBA_FWD_LAUNCHES_BF16 = _launches(attn_fwd_pack1=10, attn_fwd_tc=8, attn_fwd_online=9)
 CELEBA_STEP_LAUNCHES = _launches(attn_fwd_pack1=9, attn_fwd_pack1_lse=1, attn_bwd_pack1=9,
@@ -162,7 +169,7 @@ CELEBA_STEP_LAUNCHES = _launches(attn_fwd_pack1=9, attn_fwd_pack1_lse=1, attn_bw
                                  attn_bwd_rows=17, attn_bwd_cols=17)
 CELEBA_STEP_LAUNCHES_BF16 = _launches(attn_fwd_pack1=9, attn_fwd_pack1_lse=1, attn_bwd_pack1=9,
                                       attn_bwd_pack1_kv=1, attn_fwd_train=16, attn_fwd_tc=1,
-                                      attn_bwd_rows=16, attn_bwd_cols=16, attn_bwd_tc=1)
+                                      attn_bwd=16, attn_bwd_tc=1)
 # (B, T, N, kernels) at head dim 64: every shape the celeba paths give the
 # head-dim 64 kernels, the sampler's B6 at T=4096 and the train step's at B=48
 # (the sampler's B6 at T <= 1024 runs the same code at a smaller batch)
@@ -175,8 +182,6 @@ CELEBA_KERNEL_SHAPES = (
 )
 # above this T the twins run on the batch slices 0, 1, B-2 and B-1 only
 TWIN_FULL_BATCH_MAX_T = 1024
-TRAINING_KERNELS = ("attn_fwd_train", "attn_bwd_rows", "attn_bwd_cols", "attn_bwd_tc",
-                    "attn_fwd_pack1_lse", "attn_bwd_pack1", "attn_bwd_pack1_kv")
 
 # the card's peaks (NVIDIA H100 SXM data sheet, dense): bf16 on the tensor
 # cores, f32 outside them; HBM3 bandwidth
@@ -375,7 +380,7 @@ def fma_fwd(qkv, N):
 
 def fma_bwd(qkv, g, N):
     """The f32-FMA backward pair (attn_bwd_rows.cu, then attn_bwd_cols.cu) on
-    the same inputs, uncounted: what B5's and B8's bf16 calls ran before
+    the same inputs, uncounted: what B4's, B5's and B8's bf16 calls ran before
     attn_bwd_tc.cu."""
     from vdiff_tpu_torch.ops import attention as A
 
@@ -506,19 +511,6 @@ def _check_bwd(name, got, ref, dtype):
     return worst
 
 
-def _bwd_tc_off_path(tag, qkv, g, N, pair_ms):
-    """attn_bwd_tc at a bf16 shape where the FMA pair still runs (B4's
-    calls): held to the bf16 twin and timed beside the pair, the data for
-    routing those calls to it later. Its launches here are no path's."""
-    from vdiff_tpu_torch.ops import attention as A
-
-    err = _check_bwd(f"attn_bwd_tc (off the path) {tag}", A.attn_bwd_tc(qkv, g, N),
-                     A.attention_qkv_bwd_reference(qkv, g, N), torch.bfloat16)
-    ms = cuda_ms(lambda: A.attn_bwd_tc(qkv, g, N), iters=10)
-    print(f"attn_bwd_tc (off the path) {tag}: max_abs_err={err} ms={ms} against the FMA "
-          f"pair's {pair_ms}", flush=True)
-
-
 def phase_train_kernels():
     """The training kernels vs their twins at the train steps' shapes (B=128,
     the config's batch; celeba's at B=48: N=9 at T=1024, 256 and 64, N=12 at
@@ -526,11 +518,12 @@ def phase_train_kernels():
     B3 (attn_fwd_train: the FMA kernel in f32, attn_fwd_tc.cu in bf16, timed
     beside the FMA kernel on the same inputs, ``before_ms``), at T=1024 B2
     (attn_fwd_qblk in f32, attn_fwd_tc in bf16, whose sampling record stays
-    phase 2's); the backward there B5 (the FMA pair in f32, attn_bwd_tc in
-    bf16, timed beside the pair on the same inputs, ``before_ms``). Returns
-    the per-kernel records in bf16: B3 and the pair at T=256, C=256 (8 of
+    phase 2's). The backward is the FMA pair in f32 and attn_bwd_tc.cu in
+    bf16, counted as B4 (attn_bwd) at T <= 512 and as B5 (attn_bwd_tc) at
+    T=1024, timed beside the pair on the same inputs (``before_ms``).
+    Returns the per-kernel records in bf16: B3 and B4 at T=256, C=256 (8 of
     the 18 attention calls of a training forward; --allow-bf16), with every
-    bf16 shape of B3 under "shapes", and attn_bwd_tc at T=1024."""
+    bf16 shape of each under "shapes", and attn_bwd_tc at T=1024."""
     from vdiff_tpu_torch.ops import attention as A
 
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -544,7 +537,7 @@ def phase_train_kernels():
             tag = f"B={B} T={T} N={N} C={C} {str(dtype)[6:]}"
             qkv = torch.randn(B, T, 3 * N * C, device="cuda", generator=gen).to(dtype)
             g = torch.randn(B, T, N * C, device="cuda", generator=gen).to(dtype)
-            bf16 = dtype == torch.bfloat16  # B2's, B3's and B5's bf16 dispatch
+            bf16 = dtype == torch.bfloat16  # B2's, B3's, B4's and B5's bf16 dispatch
             tc = bf16 and T > A.QBLK_THRESHOLD
             # the training forward: B3's kernel at T <= 512, B2's above
             fwd, fma = ((A.attn_fwd_train, fma_fwd_train) if T <= A.QBLK_THRESHOLD
@@ -566,12 +559,12 @@ def phase_train_kernels():
             plain = cuda_ms(lambda: A.attention_qkv_bwd_reference(qkv, g, N), iters=10)
             # SDPA's forward + backward, the yardstick of the whole backward
             library = cuda_ms(_sdpa(qkv, N, g), iters=10)
-            if tc:
-                rec["attn_bwd_tc"] = {"max_abs_err": err,
-                                      "ms": cuda_ms(lambda: A.attn_bwd(qkv, g, N), iters=10),
-                                      "before_ms": cuda_ms(lambda: fma_bwd(qkv, g, N), iters=10),
-                                      "plain_ms": plain, "library_ms": library,
-                                      **_bound("bwd", B, T, N, C, dtype)}
+            if bf16:  # attn_bwd_tc.cu, beside the FMA pair it replaced
+                rec[bwd_name] = {"max_abs_err": err,
+                                 "ms": cuda_ms(lambda: A.attn_bwd(qkv, g, N), iters=10),
+                                 "before_ms": cuda_ms(lambda: fma_bwd(qkv, g, N), iters=10),
+                                 "plain_ms": plain, "library_ms": library,
+                                 **_bound("bwd", B, T, N, C, dtype)}
             else:
                 # no one PyTorch call computes either pass alone: SDPA's forward
                 # + backward is printed beside them
@@ -585,9 +578,6 @@ def phase_train_kernels():
                                             qkv, g, N, lse, delta, dqkv), iters=10),
                                         **_bound("bwd_cols", B, T, N, C, dtype)}
                 del lse, delta
-                if dtype == torch.bfloat16:  # B4's shapes
-                    _bwd_tc_off_path(tag, qkv, g, N, rec["attn_bwd_rows"]["ms"]
-                                     + rec["attn_bwd_cols"]["ms"])
             for name, r in rec.items():
                 pair = name in ("attn_bwd_rows", "attn_bwd_cols")
                 print(f"train-kernels: {name} {tag}: " + _fmt(r)
@@ -595,7 +585,7 @@ def phase_train_kernels():
                          f"bound of the whole backward {_bound('bwd', B, T, N, C, dtype)})"
                          if pair else " (library: SDPA forward+backward)" if "bwd" in name else ""),
                       flush=True)
-                if bf16 and name == "attn_fwd_train":
+                if bf16 and name in ("attn_fwd_train", "attn_bwd"):
                     _keep_shape(record, name, (B, T, N, C), r)
                 elif bf16 and name not in record:
                     record[name] = r
@@ -856,11 +846,15 @@ def _check_fused(name, out, ref, dtype, extra_atol=0.0):
 
 def phase_fused_kernels():
     """gn_film_silu_kernel (B10) and fused_gn_silu_conv3x3 (B11) vs their
-    twins, f32 and bf16, then timed in bf16. Returns the per-kernel records:
+    twins, f32 and bf16, then timed in bf16: B11 (the tensor-core conv of
+    gn_silu_conv3x3_tc.cu in bf16) beside the FMA conv of gn_silu_conv3x3.cu
+    on the same inputs (``before_ms``) and cuDNN's bf16 conv alone
+    (``conv_only_ms``; ``library_ms`` of the bare conv without a skip, the one
+    form a single call computes). Returns the per-kernel records:
     B10 at (64, 32, 32, 256) without FiLM or SiLU (the attention norm of
     up_1_us, the one form F.group_norm computes too), B11 at (64, 32, 32)
     256->256 with FiLM and skip (conv2 of the level-0 blocks)."""
-    from torch.nn.functional import group_norm
+    from torch.nn.functional import conv2d, group_norm
 
     from vdiff_tpu_torch.ops import conv3x3 as C3
     from vdiff_tpu_torch.ops import groupnorm as G
@@ -911,6 +905,7 @@ def phase_fused_kernels():
                    (32, 8, 8, 768, 768, True, True, True),
                    (B, 16, 16, 512, 256, False, False, True),  # C_in != C_out
                    (B, 16, 16, 256, 256, False, True, False),  # the bare conv (+ skip)
+                   (B, 32, 32, 256, 256, False, False, False),  # the bare conv: one F.conv2d
                    (3, 5, 7, 192, 72, True, True, True),       # ragged tiles, groups of 6
                    (2, 9, 9, 32, 33, False, False, True)]
     for Bc, H, W, C, CO, film, skip, gn in conv_cases:
@@ -932,17 +927,26 @@ def phase_fused_kernels():
             if dtype == torch.float32:
                 print(f"fused-kernels: {tag}: max_abs_err={err}", flush=True)
                 continue
+            # cuDNN's bf16 conv alone on the same x (channels_last), weights
+            # and bias: the product without the prologue or the skip
+            xc = x.permute(0, 3, 1, 2)
+            wc = w.to(dtype).contiguous(memory_format=torch.channels_last)
+            conv_only = cuda_ms(lambda: conv2d(xc, wc, bias.to(dtype), padding=1), iters=5, warmup=1)
             rec = {"max_abs_err": err,
                    "ms": cuda_ms(lambda: C3.fused_gn_silu_conv3x3(*args), iters=5, warmup=1),
+                   "before_ms": cuda_ms(lambda: C3._launch_fma(*args, 32, 1e-6), iters=5,
+                                        warmup=1),
                    "plain_ms": cuda_ms(lambda: C3.fused_gn_silu_conv3x3_reference(*args), iters=5,
                                        warmup=1),
-                   "library_ms": None, **_conv_bound(Bc, H, W, C, CO, dtype, gn, film, skip)}
+                   # one PyTorch call computes the bare conv without a skip
+                   "library_ms": conv_only if not (gn or skip) else None,
+                   **_conv_bound(Bc, H, W, C, CO, dtype, gn, film, skip)}
             relayout = cuda_ms(lambda: w.permute(2, 3, 1, 0).reshape(9 * C, CO).to(dtype).contiguous())
-            print(f"fused-kernels: {tag}: {_fmt(rec)} weight_relayout_ms={relayout} "
-                  f"(inside ms; flip allowance {flip})", flush=True)
+            print(f"fused-kernels: {tag}: {_fmt(rec)} conv_only_ms={conv_only} "
+                  f"weight_relayout_ms={relayout} (inside ms; flip allowance {flip})", flush=True)
             if (Bc, H, C, film) == (B, 32, 256, True):
                 record["fused_gn_silu_conv3x3"] = rec
-            del x, w, res, args
+            del x, w, res, args, xc, wc
     torch.cuda.empty_cache()
     return record
 
@@ -1281,17 +1285,17 @@ def main():
         "attn_fwd_online": ("vdiff_tpu_torch/csrc/attn_fwd_tc.cu",
                             "vdiff_tpu/ops/attention.py:37"),
         # B2 and B5 in bf16, the paths' type: the tensor-core kernels (their
-        # f32 calls keep the FMA kernels, off these paths); the pair is B4's
+        # f32 calls keep the FMA kernels, off these paths)
         "attn_fwd_tc": ("vdiff_tpu_torch/csrc/attn_fwd_tc.cu",
                         "vdiff_tpu/ops/attention.py:224"),
         "attn_bwd_tc": ("vdiff_tpu_torch/csrc/attn_bwd_tc.cu",
                         "vdiff_tpu/ops/attention.py:240"),
         "attn_fwd_train": ("vdiff_tpu_torch/csrc/attn_fwd_tc.cu",
                            "vdiff_tpu/ops/attention.py:184"),
-        "attn_bwd_rows": ("vdiff_tpu_torch/csrc/attn_bwd_rows.cu",
-                          "vdiff_tpu/ops/attention.py:204"),
-        "attn_bwd_cols": ("vdiff_tpu_torch/csrc/attn_bwd_cols.cu",
-                          "vdiff_tpu/ops/attention.py:204"),
+        # B4 in bf16: attn_bwd_tc.cu (its f32 calls keep attn_bwd_rows.cu +
+        # attn_bwd_cols.cu, off these paths; phase 5 holds them in f32)
+        "attn_bwd": ("vdiff_tpu_torch/csrc/attn_bwd_tc.cu",
+                     "vdiff_tpu/ops/attention.py:204"),
         # B6-B9 in bf16, the paths' type, the tensor-core kernels:
         # attn_fwd_tc.cu and its lse entry, attn_bwd_tc.cu and its
         # saved-statistics entry (their f32 calls keep the FMA sources,
@@ -1305,10 +1309,12 @@ def main():
                            "vdiff_tpu/ops/attention.py:470"),
         "attn_bwd_pack1_kv": ("vdiff_tpu_torch/csrc/attn_bwd_tc.cu",
                               "vdiff_tpu/ops/attention.py:567"),
-        # B11's statistics pass is gn_common.cuh's kernel, shared with B10
+        # B11's statistics pass is gn_common.cuh's kernel, shared with B10;
+        # its bf16 conv pass the tensor-core kernel (f32 keeps
+        # gn_silu_conv3x3.cu, off these paths)
         "gn_film_silu_kernel": ("vdiff_tpu_torch/csrc/gn_film_silu.cu",
                                 "vdiff_tpu/ops/groupnorm.py:79"),
-        "fused_gn_silu_conv3x3": ("vdiff_tpu_torch/csrc/gn_silu_conv3x3.cu",
+        "fused_gn_silu_conv3x3": ("vdiff_tpu_torch/csrc/gn_silu_conv3x3_tc.cu",
                                   "vdiff_tpu/ops/conv3x3.py:58"),
     }
     kernels = []

@@ -3,12 +3,15 @@
     python scripts/probe_torch_fused.py
 
 Prints the GPU's name and power limit; ptxas's register and spill report for
-gn_film_silu.cu and gn_silu_conv3x3.cu; the build time of the kernel library;
-the largest error of gn_film_silu_kernel (B10) and fused_gn_silu_conv3x3
-(B11) against their twins run in f32 on the same values, f32 and bf16, at
-small odd shapes (group widths 6 and 42, a non-square image, C_in != C_out,
-ragged tiles) and at the CIFAR sampler's shapes (B=64); bf16 kernel times
-there beside the unfused chain's, and the cost of the conv wrapper's weight
+gn_film_silu.cu, gn_silu_conv3x3.cu and gn_silu_conv3x3_tc.cu; the build time
+of the kernel library; the largest error of gn_film_silu_kernel (B10) and
+fused_gn_silu_conv3x3 (B11) against their twins run in f32 on the same
+values, f32 and bf16, at small odd shapes (group widths 6 and 42, a
+non-square image, C_in != C_out, ragged tiles) and at the CIFAR sampler's
+shapes (B=64); B11's bf16 calls (the tensor-core conv) held to chip_smoke's
+limit, with every tile's output bit for bit the wrapper's; bf16 kernel times
+there (chip_smoke's device-held timer) beside the unfused chain's, the FMA
+conv's, cuDNN's conv alone, each tile's and the conv wrapper's weight
 re-layout; the full-width cifar10_cond UNet in bf16 at B=2 with both switches
 on against the same model with both off; and the time of one bf16 UNet
 forward at B=64 with the switches off, VDIFF_FUSED_GN=1 alone, and both on.
@@ -25,6 +28,7 @@ import torch.nn.functional as F
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+import chip_smoke as S  # noqa: E402
 from vdiff_tpu_torch import kernels  # noqa: E402
 from vdiff_tpu_torch.factory import CONFIG_DIR, build_unet, load_experiment_config  # noqa: E402
 from vdiff_tpu_torch.ops import conv3x3 as C3  # noqa: E402
@@ -34,18 +38,6 @@ from vdiff_tpu_torch.ops import groupnorm as G  # noqa: E402
 def run(cmd):
     r = subprocess.run(cmd, capture_output=True, text=True)
     return r.stdout + r.stderr
-
-
-def cuda_ms(fn, iters=10):
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def err(a, b):
@@ -87,39 +79,60 @@ def conv_inputs(B, H, W, C, CO, dt, gen, film, has_skip):
     return x, w, bias, gamma, beta, shift, scale, skip
 
 
+TILES = (16, 8)  # output columns a block
+
+
 def check_conv(gen):
     for B, H, W, C, CO, film, has_skip, gn in [
             (3, 5, 7, 192, 72, True, True, True), (2, 9, 9, 32, 33, False, False, True),
-            (2, 8, 8, 64, 64, False, True, False), (64, 32, 32, 256, 256, True, True, True),
+            (2, 9, 9, 20, 40, False, True, False), (2, 8, 8, 64, 64, False, True, False),
+            (1, 17, 23, 96, 8, True, False, True), (64, 32, 32, 256, 256, True, True, True),
             (64, 16, 16, 256, 256, False, False, True), (64, 8, 8, 512, 256, True, True, True)]:
         for dt in (torch.float32, torch.bfloat16):
             x, w, bias, gamma, beta, shift, scale, skip = conv_inputs(B, H, W, C, CO, dt, gen,
                                                                       film and gn, has_skip)
             if not gn:
                 gamma = beta = None
-            out = C3.fused_gn_silu_conv3x3(x, w, bias, gamma, beta, shift, scale, skip)
-            twin = C3.fused_gn_silu_conv3x3_reference_f32(x, w, bias, gamma, beta, shift, scale,
-                                                          skip)
-            print(f"b11 {(B, H, W, C, CO)} film={film and gn} skip={has_skip} gn={gn} {dt}: "
-                  f"err vs the twin before its cast {err(out, twin)} |twin| "
-                  f"{twin.abs().max().item()}", flush=True)
+            args = (x, w, bias, gamma, beta, shift, scale, skip)
+            out = C3.fused_gn_silu_conv3x3(*args)
+            twin = C3.fused_gn_silu_conv3x3_reference_f32(*args)
+            tag = f"b11 {(B, H, W, C, CO)} film={film and gn} skip={has_skip} gn={gn} {dt}"
+            line = (f"{tag}: err vs the twin before its cast {err(out, twin)} |twin| "
+                    f"{twin.abs().max().item()}")
+            if dt == torch.bfloat16:
+                flip = 0.0
+                if gn:
+                    y = G.gn_film_silu_kernel_reference(x, gamma, beta, shift, scale)
+                    flip = S.FUSED_FLIP_RTOL * y.abs().max().item() * w.abs().max().item()
+                S._check_fused(tag, out, twin, dt, flip)
+                same = {t: torch.equal(out, C3._launch_tc(*args, 32, 1e-6, tile_w=t)) for t in TILES}
+                line += f", within the limit (flip {flip}); each tile's output equal: {same}"
+                if not all(same.values()):
+                    S.fail(f"{tag}: the tile moved the output")
+            print(line, flush=True)
 
 
 def time_kernels(gen):
     dt = torch.bfloat16
-    for H in (32, 16, 8):
-        x, w, bias, gamma, beta, shift, scale, skip = conv_inputs(64, H, H, 256, 256, dt, gen,
+    for B, H, C in ((64, 32, 256), (64, 16, 256), (64, 8, 256), (32, 32, 384), (32, 8, 768)):
+        x, w, bias, gamma, beta, shift, scale, skip = conv_inputs(B, H, H, C, C, dt, gen,
                                                                   True, True)
-        wb, bb = w.to(dt), bias.to(dt)
+        args = (x, w, bias, gamma, beta, shift, scale, skip)
+        wb, bb = w.to(dt).contiguous(memory_format=torch.channels_last), bias.to(dt)
         nchw = x.permute(0, 3, 1, 2)
-        print(f"H={H}: b10 film+silu {cuda_ms(lambda: G.gn_film_silu_kernel(x, gamma, beta, shift, scale))} ms, "
-              f"default chain {cuda_ms(lambda: G.gn_film_silu(x, gamma, beta, shift, scale, use_kernel=False))} ms, "
-              f"F.group_norm {cuda_ms(lambda: F.group_norm(nchw, 32, gamma.to(dt), beta.to(dt), 1e-6))} ms; "
-              f"b11 conv2 form {cuda_ms(lambda: C3.fused_gn_silu_conv3x3(x, w, bias, gamma, beta, shift, scale, skip), 3)} ms, "
-              f"conv1 form {cuda_ms(lambda: C3.fused_gn_silu_conv3x3(x, w, bias, gamma, beta), 3)} ms, "
-              f"cuDNN bf16 conv alone {cuda_ms(lambda: F.conv2d(nchw, wb, bb, padding=1))} ms, "
-              f"weight re-layout {cuda_ms(lambda: w.permute(2, 3, 1, 0).reshape(9 * 256, 256).to(dt).contiguous())} ms",
-              flush=True)
+        ms = S.cuda_ms
+        print(f"{(B, H, H, C)}: b10 film+silu {ms(lambda: G.gn_film_silu_kernel(x, gamma, beta, shift, scale))} ms, "
+              f"default chain {ms(lambda: G.gn_film_silu(x, gamma, beta, shift, scale, use_kernel=False))} ms, "
+              f"F.group_norm {ms(lambda: F.group_norm(nchw, 32, gamma.to(dt), beta.to(dt), 1e-6))} ms; "
+              f"b11 conv2 form {ms(lambda: C3.fused_gn_silu_conv3x3(*args), 5)} ms "
+              f"(tile width {C3.conv_tc_tile(H)}), "
+              f"conv1 form {ms(lambda: C3.fused_gn_silu_conv3x3(x, w, bias, gamma, beta), 5)} ms, "
+              f"FMA conv2 form {ms(lambda: C3._launch_fma(*args, 32, 1e-6), 3)} ms, "
+              f"cuDNN bf16 conv alone {ms(lambda: F.conv2d(nchw, wb, bb, padding=1))} ms, "
+              f"weight re-layout {ms(lambda: w.permute(2, 3, 1, 0).reshape(9 * C, C).to(dt).contiguous())} ms, "
+              f"bound {S._conv_bound(B, H, H, C, C, dt, True, True, True)}", flush=True)
+        tiles = {t: ms(lambda: C3._launch_tc(*args, 32, 1e-6, tile_w=t), 5) for t in TILES}
+        print(f"{(B, H, H, C)}: b11 conv2 form by tile width: {tiles}", flush=True)
 
 
 def unet(gen):
@@ -164,7 +177,7 @@ def main():
     print(run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"]))
     print(sys.version, torch.__version__, torch.version.cuda)
     nvcc = kernels.find_nvcc()
-    for src in ("gn_film_silu.cu", "gn_silu_conv3x3.cu"):
+    for src in ("gn_film_silu.cu", "gn_silu_conv3x3.cu", "gn_silu_conv3x3_tc.cu"):
         out = run([nvcc, *kernels.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", os.devnull,
                    os.path.join(kernels.CSRC_DIR, src)])
         print("\n".join(line for line in out.splitlines()

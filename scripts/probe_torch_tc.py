@@ -20,15 +20,20 @@ printed beside it), at ragged and path shapes (twins on batch slices 0 and
 B-1 at T=4096); then B1's and B3's bf16 calls (attn_fwd_online,
 attn_fwd_train: attn_fwd_tc.cu at the q tile fwd_tc_q_rows picks) at every
 CIFAR and celeba path shape and at ragged T, held to the same limit, with the
-output at each q tile (32, 64 rows) bit for bit the wrapper's. With
---time, the new kernels' times beside the f32-FMA kernels they replace on the
-same bf16 inputs, SDPA and the bound, and for B1 and B3 the time at each q
-tile. With
---parent-csrc, the SASS of attn_bwd_tc.cu's full-row row kernel and of
-attn_fwd_tc.cu's 64-row forward (with and without lse) at every head dim
-against the same kernels built from DIR (an older tree's csrc):
-"identical" when the instructions match. A short check before a full
-chip_smoke run. Needs a CUDA device.
+output at each q tile (32, 64 rows) bit for bit the wrapper's; then B4's
+(attn_bwd at T <= 512: attn_bwd_tc.cu's full-row entry) at every CIFAR and
+celeba train shape and at ragged T, held to chip_smoke's bf16 backward limit.
+With --time, the new kernels' times beside the f32-FMA kernels they replace
+on the same bf16 inputs, SDPA and the bound, and for B1 and B3 the time at
+each q tile. ptxas's report
+covers the fused conv sources too. With --parent-csrc, the SASS of
+attn_bwd_tc.cu's full-row row kernel and of attn_fwd_tc.cu's 64-row
+forward (with and without lse) at every head dim, of gn_silu_conv3x3.cu's
+f32 conv instantiations and both files' GroupNorm statistics kernels, and of
+gn_film_silu.cu's B10 kernels, against the same kernels built from DIR (an
+older tree's csrc), and of the new gn_silu_conv3x3_tc.cu's statistics pass
+against DIR's gn_silu_conv3x3.cu's: "identical" when the instructions
+match. A short check before a full chip_smoke run. Needs a CUDA device.
 """
 
 import argparse
@@ -70,11 +75,36 @@ SHORT_SHAPES = [("attn_fwd_online", 2, 96, 2, 256), ("attn_fwd_train", 3, 160, 1
                 ("attn_fwd_train", 48, 256, 9, 64), ("attn_fwd_train", 48, 64, 12, 64),
                 ("attn_fwd_train", 48, 64, 9, 64)]
 FMA = {"attn_fwd_online": S.fma_fwd_online, "attn_fwd_train": S.fma_fwd_train}
+# B4 (attn_bwd at T <= 512): ragged T, then every shape of the CIFAR and
+# celeba train paths
+B4_SHAPES = [(2, 96, 2, 64), (3, 160, 1, 128), (2, 224, 1, 256), (128, 256, 1, 256),
+             (128, 64, 1, 256), (48, 256, 9, 64), (48, 64, 12, 64), (48, 64, 9, 64)]
+
+
+def short_bwd(timed):
+    """B4's bf16 calls at B4_SHAPES: the wrapper's d(qkv) held to the bf16
+    backward limit, and with ``timed`` its time beside the FMA pair's,
+    SDPA's and the bound."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    for B, T, N, C in B4_SHAPES:
+        qkv = torch.randn(B, T, 3 * N * C, device="cuda", generator=gen).to(torch.bfloat16)
+        g = torch.randn(B, T, N * C, device="cuda", generator=gen).to(torch.bfloat16)
+        out = A.attn_bwd(qkv, g, N)
+        err = S._check_bwd(f"attn_bwd {(B, T, N, C)}", out,
+                           A.attention_qkv_bwd_reference(qkv, g, N), torch.bfloat16)
+        if timed and B > 3:
+            rec = {"max_abs_err": err, "ms": S.cuda_ms(lambda: A.attn_bwd(qkv, g, N)),
+                   "fma_ms": S.cuda_ms(lambda: S.fma_bwd(qkv, g, N), iters=10),
+                   "library_ms": S.cuda_ms(S._sdpa(qkv, N, g)),
+                   **S._bound("bwd", B, T, N, C, torch.bfloat16)}
+            print(f"attn_bwd {(B, T, N, C)}: " + S._fmt(rec), flush=True)
+        del qkv, g, out
+    torch.cuda.empty_cache()
 
 
 def ptxas_report():
     nvcc = kernels.find_nvcc()
-    for src in SASS_KERNELS:
+    for src in dict.fromkeys(new for new, _, _ in SASS_KERNELS):
         r = subprocess.run([nvcc, *kernels.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", os.devnull,
                             os.path.join(kernels.CSRC_DIR, src)], capture_output=True, text=True)
         lines = [ln for ln in (r.stdout + r.stderr).splitlines()
@@ -82,11 +112,21 @@ def ptxas_report():
         print(f"ptxas {src}:\n" + "\n".join(lines), flush=True)
 
 
-# kernel name pattern → the template arguments that key it: the full-row
-# row kernel (kSaved=false) and the 64-row forward, both before and after
-# that forward took its warp count as a template argument
-SASS_KERNELS = {"attn_bwd_tc.cu": r"attn_bwd_tc_rowsILi(\d+)E(?:Lb0E)?E",
-                "attn_fwd_tc.cu": r"attn_fwd_tc_kernelILi(\d+)ELb([01])E(?:Li4E)?E"}
+# (source, the parent's source it is held to, kernel name pattern → the
+# template arguments that key it): the full-row row kernel (kSaved=false) and
+# the 64-row forward, both before and after that forward took its warp count
+# as a template argument; the FMA conv in f32 (kGn, kSkip); the
+# GroupNorm statistics kernels (element type, kApply), B10's among them; and
+# the tensor-core conv file's statistics pass against the FMA conv file's
+_GN = r"2gn6kernelI(f|13__nv_bfloat16)Lb([01])EE"
+SASS_KERNELS = (
+    ("attn_bwd_tc.cu", "attn_bwd_tc.cu", r"attn_bwd_tc_rowsILi(\d+)E(?:Lb0E)?E"),
+    ("attn_fwd_tc.cu", "attn_fwd_tc.cu", r"attn_fwd_tc_kernelILi(\d+)ELb([01])E(?:Li4E)?E"),
+    ("gn_silu_conv3x3.cu", "gn_silu_conv3x3.cu", r"conv3x3_kernelIfLb([01])ELb([01])EE"),
+    ("gn_silu_conv3x3.cu", "gn_silu_conv3x3.cu", _GN),
+    ("gn_film_silu.cu", "gn_film_silu.cu", _GN),
+    ("gn_silu_conv3x3_tc.cu", "gn_silu_conv3x3.cu", _GN),
+)
 
 
 def _sass(src, pattern):
@@ -112,14 +152,14 @@ def _sass(src, pattern):
 
 
 def sass_report(parent_csrc):
-    for src, pattern in SASS_KERNELS.items():
+    for src, parent_src, pattern in SASS_KERNELS:
         new = _sass(os.path.join(kernels.CSRC_DIR, src), pattern)
-        old = _sass(os.path.join(parent_csrc, src), pattern)
-        for key in sorted(old):
-            same = new.get(key) == old[key]
+        old = _sass(os.path.join(parent_csrc, parent_src), pattern)
+        for key in sorted(new if src != parent_src else old):
+            same = new.get(key) == old.get(key)
             print(f"sass {src} {key}: {len(new.get(key, []))} instructions against "
-                  f"{len(old[key])} in {parent_csrc}: {'identical' if same else 'DIFFERENT'}",
-                  flush=True)
+                  f"{len(old.get(key, []))} in {parent_csrc}/{parent_src}: "
+                  f"{'identical' if same else 'DIFFERENT'}", flush=True)
 
 
 def short_rows(timed):
@@ -162,6 +202,7 @@ def main():
     t0 = time.perf_counter()
     kernels.library()
     print(f"built in {time.perf_counter() - t0:.1f} s", flush=True)
+    short_bwd(args.time)
     short_rows(args.time)
     gen = torch.Generator(device="cuda").manual_seed(0)
     for B, T, N, C in FWD_SHAPES:

@@ -152,7 +152,7 @@ def test_emulations_round_p_where_the_twins_do_not():
 # ---------------------------------------------------------------------------
 
 COUNTERS = ("attn_fwd_tc", "attn_bwd_tc", "attn_fwd_qblk", "attn_bwd_rows", "attn_bwd_cols",
-            "attn_fwd_train", "attn_fwd_online")
+            "attn_fwd_train", "attn_fwd_online", "attn_bwd")
 
 
 def _counts():
@@ -200,8 +200,9 @@ def stub_kernels(monkeypatch):
 @pytest.mark.parametrize("T", [256, 1024])
 def test_cuda_dispatch_on_dtype(stub_kernels, T):
     """B2 (attn_fwd_qblk) and B5 (attn_bwd at T > 512) send bf16 calls to the
-    tensor-core kernels and f32 calls to the FMA kernels; B4 (T ≤ 512)
-    stays on the FMA pair in both types."""
+    tensor-core kernels and f32 calls to the FMA kernels; so does B4 (attn_bwd
+    at T ≤ 512), its bf16 calls counted under attn_bwd, its f32 calls under
+    the FMA pair's two wrappers."""
     for dtype in (torch.float32, torch.bfloat16):
         qkv = torch.empty(2, T, 3 * 2 * 64, dtype=dtype, device="meta")
         g = torch.empty(2, T, 2 * 64, dtype=dtype, device="meta")
@@ -209,8 +210,9 @@ def test_cuda_dispatch_on_dtype(stub_kernels, T):
         assert stub_kernels() == ({"attn_fwd_tc": 1} if dtype == torch.bfloat16 else
                                   {"attn_fwd_qblk": 1})
         assert A.attn_bwd(qkv, g, 2).shape == qkv.shape
-        tc = dtype == torch.bfloat16 and T > A.QBLK_THRESHOLD
-        assert stub_kernels() == ({"attn_bwd_tc": 1} if tc else
+        bf16 = dtype == torch.bfloat16
+        assert stub_kernels() == ({"attn_bwd_tc": 1} if bf16 and T > A.QBLK_THRESHOLD else
+                                  {"attn_bwd": 1} if bf16 else
                                   {"attn_bwd_rows": 1, "attn_bwd_cols": 1})
 
 
@@ -229,19 +231,18 @@ def _full_width(name, dtype):
 # model in bf16: the counts chip_smoke.py asserts on the card's bf16 paths
 BF16_COUNTS = {
     "cifar10_cond": ({"attn_fwd_online": 17, "attn_fwd_tc": 1},
-                     {"attn_fwd_train": 17, "attn_fwd_tc": 1, "attn_bwd_rows": 17,
-                      "attn_bwd_cols": 17, "attn_bwd_tc": 1}),
+                     {"attn_fwd_train": 17, "attn_fwd_tc": 1, "attn_bwd": 17, "attn_bwd_tc": 1}),
     "celeba": ({"attn_fwd_online": 9, "attn_fwd_tc": 8},
-               {"attn_fwd_train": 16, "attn_fwd_tc": 1, "attn_bwd_rows": 16,
-                "attn_bwd_cols": 16, "attn_bwd_tc": 1}),
+               {"attn_fwd_train": 16, "attn_fwd_tc": 1, "attn_bwd": 16, "attn_bwd_tc": 1}),
 }
 
 
 @pytest.mark.parametrize("name", sorted(BF16_COUNTS))
 def test_bf16_paths_launch_the_tensor_core_kernels(stub_kernels, name):
-    """cifar10_cond: B2 ×1 per forward, B2 ×1 and B5 ×1 per train step;
-    celeba: B2 ×8 per forward, B2 ×1 and B5 ×1 per train step (its pack1
-    calls, counted elsewhere, do not move)."""
+    """cifar10_cond: B2 ×1 per forward, B2 ×1, B5 ×1 and B4 ×17 per train
+    step; celeba: B2 ×8 per forward, B2 ×1, B5 ×1 and B4 ×16 per train step
+    (its pack1 calls, counted elsewhere, do not move); the FMA pair never
+    runs."""
     celeba = name == "celeba"
     model = _full_width(name, torch.bfloat16)
     res = 64 if celeba else 32

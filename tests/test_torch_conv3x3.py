@@ -148,14 +148,20 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(bad):
 def test_wrapper_lays_the_weights_out_tap_major_and_counts_its_launch(monkeypatch):
     """On the launch path (meta tensors into a stub library): the OIHW weights
     arrive as (9·C_in, C_out) in x's dtype, the FiLM halves with their row
-    stride, x and skip uncopied, and the two passes count one launch."""
+    stride, x and skip uncopied, and the two passes count one launch. bf16
+    calls reach the tensor-core entry (with the weights' row length and the
+    picked tile), f32 calls the FMA entry."""
     from vdiff_tpu_torch import kernels
 
     seen = {}
 
     class Stub:
         def vdiff_gn_silu_conv3x3(self, *args):
-            seen["args"] = args
+            seen["fma"] = args
+            return 0
+
+        def vdiff_gn_silu_conv3x3_tc(self, *args):
+            seen["tc"] = args
             return 0
 
     monkeypatch.setattr(kernels, "library", lambda: Stub())
@@ -165,15 +171,20 @@ def test_wrapper_lays_the_weights_out_tap_major_and_counts_its_launch(monkeypatc
     monkeypatch.setattr(C3.fused_gn_silu_conv3x3, "launches", 0)
     B, H, W, C, CO = 2, 4, 6, 64, 96
     meta = functools.partial(torch.empty, device="meta")
-    x = meta(B, H, W, C, dtype=torch.bfloat16)
-    shift, scale = meta(B, 2 * C, dtype=torch.bfloat16).chunk(2, dim=-1)
-    out = C3.fused_gn_silu_conv3x3(x, meta(CO, C, 3, 3), meta(CO), meta(C), meta(C), shift, scale,
-                                   meta(B, H, W, CO, dtype=torch.bfloat16))
-    assert out.shape == (B, H, W, CO) and out.dtype == torch.bfloat16
-    assert C3.fused_gn_silu_conv3x3.launches == 1
-    args = seen["args"]
-    # film_stride, film_f32 | B, H, W, C, CO, G | is_bf16
-    assert args[7:9] == (2 * C, 0) and args[12:18] == (B, H, W, C, CO, 32) and args[19] == 1
+    for n, dtype in enumerate((torch.bfloat16, torch.float32), 1):
+        x = meta(B, H, W, C, dtype=dtype)
+        shift, scale = meta(B, 2 * C, dtype=dtype).chunk(2, dim=-1)
+        out = C3.fused_gn_silu_conv3x3(x, meta(CO, C, 3, 3), meta(CO), meta(C), meta(C), shift,
+                                       scale, meta(B, H, W, CO, dtype=dtype))
+        assert out.shape == (B, H, W, CO) and out.dtype == dtype
+        assert C3.fused_gn_silu_conv3x3.launches == n
+    args = seen["fma"]
+    # film_stride, film_f32 (the f32 call's FiLM rows are f32) | B, H, W, C, CO, G | is_bf16
+    assert args[7:9] == (2 * C, 1) and args[12:18] == (B, H, W, C, CO, 32) and args[19] == 0
+    args = seen["tc"]
+    # ldw | film_stride, film_f32 | B, H, W, C, CO, G | tile_w
+    assert args[2] == CO and args[8:10] == (2 * C, 0) and args[13:19] == (B, H, W, C, CO, 32)
+    assert args[20] == C3.conv_tc_tile(W)
     # the re-layout itself, on real values: row (dy·3 + dx)·C_in + c, column o
     w = torch.arange(2 * 3 * 9, dtype=torch.float32).reshape(2, 3, 3, 3)
     w2 = w.permute(2, 3, 1, 0).reshape(27, 2)

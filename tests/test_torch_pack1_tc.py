@@ -246,7 +246,7 @@ def test_tc_b7_then_tc_b9_stays_near_jax_b7_then_jax_b9(B, T, N, C):
 
 COUNTERS = ("attn_fwd_online", "attn_fwd_qblk", "attn_fwd_train", "attn_bwd_rows",
             "attn_bwd_cols", "attn_fwd_tc", "attn_bwd_tc", "attn_fwd_pack1", "attn_fwd_pack1_lse",
-            "attn_bwd_pack1", "attn_bwd_pack1_kv")
+            "attn_bwd_pack1", "attn_bwd_pack1_kv", "attn_bwd")
 
 
 @pytest.fixture
@@ -305,11 +305,10 @@ def test_pack1_dispatch_on_dtype(recorded, T):
 
 def test_bf16_celeba_step_reaches_the_tc_entries(recorded):
     """One bf16 training forward and backward of the full-width celeba UNet
-    on the meta device: B8 ×9 and B5 ×1 launch vdiff_attn_bwd_tc, B9 ×1
-    vdiff_attn_bwd_tc_kv, B7 ×1 vdiff_attn_fwd_tc_lse, B6 ×9, B3 ×16 and B2
-    ×1 vdiff_attn_fwd_tc; the FMA entries of B1, B3, B7 and B9 run never and
-    the pair only B4's 16 calls; the per-counter launch counts are
-    chip_smoke's CELEBA_STEP_LAUNCHES_BF16, as before B3, B6 and B9 moved."""
+    on the meta device: B8 ×9, B5 ×1 and B4 ×16 launch vdiff_attn_bwd_tc, B9
+    ×1 vdiff_attn_bwd_tc_kv, B7 ×1 vdiff_attn_fwd_tc_lse, B6 ×9, B3 ×16 and
+    B2 ×1 vdiff_attn_fwd_tc; no FMA entry runs; the per-counter launch counts
+    are chip_smoke's CELEBA_STEP_LAUNCHES_BF16 (B4's under attn_bwd)."""
     from vdiff_tpu_torch.factory import CONFIG_DIR, build_unet, load_experiment_config
 
     cfg, _ = load_experiment_config(f"{CONFIG_DIR}/celeba.json")
@@ -322,11 +321,10 @@ def test_bf16_celeba_step_reaches_the_tc_entries(recorded):
     calls, counts = recorded()
     entries = {name: calls.count(name) for name in set(calls) if not name.endswith("_max_t")}
     assert entries == {"vdiff_attn_fwd_tc_lse": 1, "vdiff_attn_fwd_tc": 26,
-                       "vdiff_attn_bwd_tc": 10, "vdiff_attn_bwd_tc_kv": 1,
-                       "vdiff_attn_bwd_rows": 16, "vdiff_attn_bwd_cols": 16}
+                       "vdiff_attn_bwd_tc": 26, "vdiff_attn_bwd_tc_kv": 1}
     assert counts == {"attn_fwd_pack1": 9, "attn_fwd_pack1_lse": 1, "attn_bwd_pack1": 9,
                       "attn_bwd_pack1_kv": 1, "attn_fwd_train": 16, "attn_fwd_tc": 1,
-                      "attn_bwd_rows": 16, "attn_bwd_cols": 16, "attn_bwd_tc": 1}
+                      "attn_bwd": 16, "attn_bwd_tc": 1}
 
 
 @pytest.mark.parametrize("wrapper", ["attn_fwd_pack1", "attn_fwd_pack1_lse", "attn_bwd_pack1",

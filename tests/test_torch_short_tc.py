@@ -137,7 +137,7 @@ def test_q_tile_at_the_path_shapes(shape, rows):
 
 COUNTERS = ("attn_fwd_online", "attn_fwd_qblk", "attn_fwd_train", "attn_bwd_rows",
             "attn_bwd_cols", "attn_fwd_tc", "attn_bwd_tc", "attn_fwd_pack1", "attn_fwd_pack1_lse",
-            "attn_bwd_pack1", "attn_bwd_pack1_kv")
+            "attn_bwd_pack1", "attn_bwd_pack1_kv", "attn_bwd")
 
 
 @pytest.fixture
@@ -274,18 +274,15 @@ def test_bf16_sampling_forward_reaches_only_the_tc_forward(recorded, name):
 def test_bf16_cifar_train_step_reaches_only_the_tc_forward(recorded):
     """One bf16 training forward and backward of the full-width cifar10_cond
     UNet at B=128 on the meta device: B3 ×17 and B2 ×1 launch
-    vdiff_attn_fwd_tc (the 9 calls at T=64 on 32-row tiles), no FMA forward
-    entry runs; B4 ×17 keeps the FMA pair and B5 ×1 vdiff_attn_bwd_tc; the
-    per-counter counts are chip_smoke's TRAIN_STEP_LAUNCHES_BF16, as before
-    B3 moved."""
+    vdiff_attn_fwd_tc (the 9 calls at T=64 on 32-row tiles), B4 ×17 and B5
+    ×1 vdiff_attn_bwd_tc; no FMA entry runs; the per-counter counts are
+    chip_smoke's TRAIN_STEP_LAUNCHES_BF16 (B4's under attn_bwd)."""
     model = _full_width("cifar10_cond")
     model(*_inputs("cifar10_cond", 128), train=True).float().sum().backward()
     calls, counts = recorded()
-    assert _entries(calls) == ({"vdiff_attn_fwd_tc": 18, "vdiff_attn_bwd_tc": 1,
-                                "vdiff_attn_bwd_rows": 17, "vdiff_attn_bwd_cols": 17},
+    assert _entries(calls) == ({"vdiff_attn_fwd_tc": 18, "vdiff_attn_bwd_tc": 18},
                                {64: 9, 32: 9})
-    assert counts == {"attn_fwd_train": 17, "attn_fwd_tc": 1, "attn_bwd_rows": 17,
-                      "attn_bwd_cols": 17, "attn_bwd_tc": 1}
+    assert counts == {"attn_fwd_train": 17, "attn_fwd_tc": 1, "attn_bwd": 17, "attn_bwd_tc": 1}
 
 
 def test_q_tile_entry_is_built_and_bound():

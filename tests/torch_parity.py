@@ -1,9 +1,9 @@
 """Shared fixtures of the port's parity tests: one small UNet configuration,
 its JAX params (every constant leaf perturbed, so zero-init layers and biases
 all carry signal) and the port UNet loaded with the same weights; torch
-emulations of the bf16 tensor-core attention kernels' tile algorithms
-(``attn_fwd_tc.cu``, both entries of ``attn_bwd_tc.cu``), which no CPU can
-run; and stubs of
+emulations of the bf16 tensor-core kernels' tile algorithms
+(``attn_fwd_tc.cu``, both entries of ``attn_bwd_tc.cu``,
+``gn_silu_conv3x3_tc.cu``), which no CPU can run; and stubs of
 the kernel library for tests that drive the launch path on the meta
 device."""
 
@@ -280,6 +280,55 @@ def emulate_bwd_tc_kv(qkv, out, lse, g, N):
     δ = :func:`saved_delta` from its saved output, then
     :func:`emulate_bwd_tc_stats`."""
     return emulate_bwd_tc_stats(qkv, g, N, lse, saved_delta(out, g, N))
+
+
+# gn_silu_conv3x3_tc.cu's tiles: 8 output rows a block, input channels per K
+# chunk (ConvTile, kTh, kCk)
+CONV_TILE_H, CONV_CHUNK = 8, 32
+
+
+def emulate_conv3x3_tc(x, weight, bias, gamma=None, beta=None, film_shift=None, film_scale=None,
+                       skip=None, *, num_groups=32, eps=1e-6, tile_w=16):
+    """gn_silu_conv3x3_tc.cu's tile algorithm on bf16 NHWC ``x``, OIHW
+    ``weight``: per block of CONV_TILE_H × ``tile_w`` output pixels, per chunk
+    of CONV_CHUNK input channels, the halo tile (two more rows and columns)
+    as y = silu(x·A + B) in f32 with the statistics pass's f32 coefficients,
+    rounded once to bf16, zero outside the image (bare x without gamma); then
+    the 9 taps as one-pixel-shifted windows of it, each times the bf16
+    weights of its (tap, chunk) rows, summed in f32 chunk by chunk and tap by
+    tap. Returns the f32 (B, H, W, C_out) sums + f32 bias + f32 skip, before
+    the kernel's one cast to bf16. SiLU here is torch's; the kernel's takes
+    the SFU's exp and reciprocal, so a y may round to the other neighbouring
+    bf16 value, which the B11 limit's flip term covers."""
+    from vdiff_tpu_torch.ops.groupnorm import coefficients
+
+    B, H, W, C = x.shape
+    CO = weight.shape[0]
+    th, ck = CONV_TILE_H, CONV_CHUNK
+    if gamma is not None:
+        a, b = coefficients(x, gamma, beta, film_shift, film_scale, num_groups, eps)
+        a, b = a[:, None, None, :], b[:, None, None, :]
+    taps = weight.permute(2, 3, 1, 0).to(torch.bfloat16).float()  # (dy, dx, c, o)
+    out = torch.zeros(B, H, W, CO)
+    for y0 in range(0, H, th):
+        for x0 in range(0, W, tile_w):
+            gy, gx = torch.arange(y0 - 1, y0 + th + 1), torch.arange(x0 - 1, x0 + tile_w + 1)
+            inside = (((gy >= 0) & (gy < H))[:, None] & ((gx >= 0) & (gx < W))[None, :])[..., None]
+            xh = x[:, gy.clamp(0, H - 1)][:, :, gx.clamp(0, W - 1)].float()
+            acc = torch.zeros(B, th, tile_w, CO)
+            for c0 in range(0, C, ck):
+                xc = xh[..., c0:c0 + ck]
+                yc = (torch.nn.functional.silu(xc * a[..., c0:c0 + ck] + b[..., c0:c0 + ck])
+                      if gamma is not None else xc)
+                yc = torch.where(inside, _bf16(yc), torch.zeros(()))
+                for dy in range(3):
+                    for dx in range(3):
+                        win = yc[:, dy:dy + th, dx:dx + tile_w]
+                        acc = acc + win @ taps[dy, dx, c0:c0 + ck]
+            h, w = min(th, H - y0), min(tile_w, W - x0)
+            out[:, y0:y0 + h, x0:x0 + w] = acc[:, :h, :w]
+    out = out + bias.float()
+    return out + skip.float() if skip is not None else out
 
 
 class StubLibrary:

@@ -2,11 +2,12 @@
 // (B, T, 3*N*C) projection, into one buffer. Two entries:
 //
 // vdiff_attn_bwd_tc, from qkv and d(out) alone: replaces
-// vdiff_tpu/ops/attention.py::_attn_bwd_kernel_qblk (B5: the backward of
-// flash_attention_trainable at T > 512) and _attn_bwd_kernel_pack1 (B8: the
-// full-row backward of pack1_attention_trainable, head dim 32/64) for bf16
-// inputs; f32 inputs, and B4 (T <= 512), stay on attn_bwd_rows.cu +
-// attn_bwd_cols.cu. The function kept is the Pallas kernels':
+// vdiff_tpu/ops/attention.py::_attn_bwd_kernel (B4: the backward of
+// flash_attention_trainable at T <= 512), _attn_bwd_kernel_qblk (B5: the same
+// at T > 512) and _attn_bwd_kernel_pack1 (B8: the full-row backward of
+// pack1_attention_trainable, head dim 32/64) for bf16 inputs; f32 inputs stay
+// on attn_bwd_rows.cu + attn_bwd_cols.cu. The function kept is the Pallas
+// kernels' (all three compute it):
 //   S = q.k^T / sqrt(C), P = softmax(S) (f32), dP = dO.v^T,
 //   delta = rowsum(P o dP) over the whole row in f32,
 //   dS = P o (dP - delta),
@@ -33,8 +34,11 @@
 // 32; head dims 32, 64, 128, 256, and 32, 64 for the kv entry). Two kernels,
 // no atomics, so the result does not depend on the order in which blocks
 // run:
-//   rows: per 64-row q tile (four warps of 16 rows), sweeps over the key
-//         tiles (64 keys, 32 at C = 256). Full-row (kSaved = false), two:
+//   rows: per 64-row q tile (four warps of 16 rows; at CIFAR's T = 64 and
+//         B = 128 the 128 blocks leave 4 SMs idle, yet 32-row tiles ran the
+//         whole backward 5% slower there on the H100, so the tile stays),
+//         sweeps over the key tiles (64 keys, 32 at C = 256). Full-row
+//         (kSaved = false), two:
 //         1. S and dP, keeping per row the running max m, the sum l of
 //            exp(S - m) and the sum d of exp(S - m) * dP, rescaled as m
 //            grows (an online softmax); then lse = m + log l and

@@ -1,7 +1,8 @@
 """Build and load the port's hand-written CUDA kernels.
 
 The sources under ``csrc/`` (attention, among them the bf16 tensor-core
-forward and backward, GroupNorm+FiLM+SiLU and the fused GN→SiLU→conv3x3) expose plain C entry points. At first use each is
+forward and backward, GroupNorm+FiLM+SiLU and the fused GN→SiLU→conv3x3, FMA
+and bf16 tensor-core) expose plain C entry points. At first use each is
 compiled with ``nvcc`` for Hopper (``sm_90a``), all of them at once in parallel
 processes, then linked into one shared library under ``_build/`` and loaded
 with :mod:`ctypes`. The library's file name carries a hash of the sources and
@@ -24,7 +25,7 @@ BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 
 SOURCES = ("attn_fwd_online.cu", "attn_fwd_qblk.cu", "attn_fwd_train.cu", "attn_bwd_rows.cu",
            "attn_bwd_cols.cu", "attn_bwd_pack1_kv.cu", "attn_fwd_tc.cu", "attn_bwd_tc.cu",
-           "gn_film_silu.cu", "gn_silu_conv3x3.cu")
+           "gn_film_silu.cu", "gn_silu_conv3x3.cu", "gn_silu_conv3x3_tc.cu")
 HEADERS = ("attn_common.cuh", "attn_direct_fwd.cuh", "attn_tc.cuh", "gn_common.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -57,6 +58,10 @@ _ENTRY_POINTS = {
     # x, w, bias, gamma, beta, shift, scale, film_stride, film_f32, skip, out, coef,
     # B, H, W, C, CO, G, eps, bf16, stream
     "vdiff_gn_silu_conv3x3": [_P] * 7 + [_I] * 2 + [_P] * 3 + [_I] * 6 + [_F, _I, _P],
+    # x, w, ldw, bias, gamma, beta, shift, scale, film_stride, film_f32, skip, out, coef,
+    # B, H, W, C, CO, G, eps, tile_w, stream (bf16 only)
+    "vdiff_gn_silu_conv3x3_tc": [_P, _P, _I] + [_P] * 5 + [_I] * 2 + [_P] * 3 + [_I] * 6
+                                + [_F, _I, _P],
 }
 
 

@@ -17,13 +17,14 @@ d(qkv) in the same layout as one buffer:
   ``csrc/attn_fwd_qblk.cu``, ``csrc/attn_fwd_train.cu``);
   :func:`attn_bwd_rows` and :func:`attn_bwd_cols` the two passes of the
   backward (``csrc/attn_bwd_rows.cu``, ``csrc/attn_bwd_cols.cu``), which
-  :func:`attn_bwd` runs in turn. These run f32 FMAs.
+  :func:`attn_bwd` runs in turn for f32 calls. These run f32 FMAs.
 * :func:`attn_fwd_tc` and :func:`attn_bwd_tc` wrap the bf16 tensor-core
   kernels (``csrc/attn_fwd_tc.cu``, ``csrc/attn_bwd_tc.cu``). The bf16 calls
   of B1 (:func:`attn_fwd_online`), B2 (:func:`attn_fwd_qblk`), B3
-  (:func:`attn_fwd_train`) and B5 (:func:`attn_bwd` at T > 512) go to them
-  by an explicit dispatch on dtype; f32 calls keep the FMA kernels. B1 and
-  B3 count under their own wrappers, B2 and B5 under these two.
+  (:func:`attn_fwd_train`), B4 (:func:`attn_bwd` at T ≤ 512) and B5
+  (:func:`attn_bwd` at T > 512) go to them by an explicit dispatch on dtype;
+  f32 calls keep the FMA kernels. B1, B3 and B4 count under their own
+  wrappers, B2 and B5 under these two.
 * :func:`attn_fwd_pack1`, :func:`attn_fwd_pack1_lse`, :func:`attn_bwd_pack1`
   and :func:`attn_bwd_pack1_kv` are the counterparts of JAX's head-dim 32/64
   ``pack1`` kernels B6–B9, each with a launch counter of its own. They
@@ -366,8 +367,9 @@ def attn_bwd_tc(qkv: torch.Tensor, g: torch.Tensor, num_heads: int) -> torch.Ten
     and δ = rowsum(P∘dP), then dS and dQ) and a column kernel (per 64-key
     tile: dK and dV in f32 registers), all products mma.sync with P and dS
     rounded to bf16 as operands; no atomics, any T that is a multiple of 32,
-    head dims 32-256. One count per call; B8's bf16 calls
-    (:func:`attn_bwd_pack1`) launch the same kernel under their own count.
+    head dims 32-256. One count per call; B4's bf16 calls (:func:`attn_bwd`
+    at T ≤ 512) and B8's (:func:`attn_bwd_pack1`) launch the same kernel
+    under their own counts.
     Its CPU twin is :func:`attention_qkv_bwd_reference`."""
     B, T, C = _check_bwd_input(qkv, g, num_heads, "attn_bwd_tc")
     _check_tc("attn_bwd_tc", qkv, g)
@@ -383,8 +385,8 @@ attn_bwd_tc.launches = 0
 
 def _bwd_tc(fn_name, qkv, g, num_heads, B, T, C):
     """Launch ``vdiff_attn_bwd_tc`` on checked bf16 CUDA inputs; the caller
-    counts the launch (B5 under :func:`attn_bwd_tc`, B8 under
-    :func:`attn_bwd_pack1`)."""
+    counts the launch (B4 under :func:`attn_bwd`, B5 under
+    :func:`attn_bwd_tc`, B8 under :func:`attn_bwd_pack1`)."""
     _need_cuda(fn_name, qkv, g)
     dqkv = torch.empty_like(qkv)
     lse = torch.empty(B, num_heads, T, dtype=torch.float32, device=qkv.device)
@@ -401,19 +403,31 @@ def attn_bwd(qkv: torch.Tensor, g: torch.Tensor, num_heads: int) -> torch.Tensor
 
     Replaces JAX's Pallas ``_attn_bwd_kernel`` (B4, T ≤ 512) and
     ``_attn_bwd_kernel_qblk`` (B5, T > 512): both compute this one backward.
-    On a CPU tensor returns :func:`attention_qkv_bwd_reference`. B5's bf16
-    calls go to :func:`attn_bwd_tc`; every other CUDA call runs the row pass
-    (dQ, lse, δ) and then the column pass (dK, dV) into one buffer,
-    deterministically (no atomics)."""
+    On a CPU tensor returns :func:`attention_qkv_bwd_reference`. A bf16 CUDA
+    call runs the tensor-core backward (``attn_bwd_tc.cu``; 16-byte alignment
+    checked, refused before any launch): at T > 512 through
+    :func:`attn_bwd_tc`, counted there (B5); at T ≤ 512 counted here (B4).
+    An f32 CUDA call
+    runs the row pass (dQ, lse, δ) and then the column pass (dK, dV) into one
+    buffer, deterministically (no atomics), each counted under its own
+    wrapper."""
     B, T, C = _check_bwd_input(qkv, g, num_heads, "attn_bwd")
     if qkv.device.type == "cpu":
         return attention_qkv_bwd_reference(qkv, g, num_heads)
-    if qkv.dtype == torch.bfloat16 and T > QBLK_THRESHOLD:
-        return attn_bwd_tc(qkv, g, num_heads)
+    if qkv.dtype == torch.bfloat16:
+        if T > QBLK_THRESHOLD:
+            return attn_bwd_tc(qkv, g, num_heads)
+        _check_tc("attn_bwd", qkv, g)
+        dqkv = _bwd_tc("attn_bwd", qkv, g, num_heads, B, T, C)
+        attn_bwd.launches += 1
+        return dqkv
     dqkv = torch.empty_like(qkv)
     lse, delta = attn_bwd_rows(qkv, g, num_heads, dqkv)
     attn_bwd_cols(qkv, g, num_heads, lse, delta, dqkv)
     return dqkv
+
+
+attn_bwd.launches = 0
 
 
 def attn_fwd_trainable(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:

@@ -4,12 +4,16 @@ Counterpart of ``vdiff_tpu/ops/conv3x3.py``: the residual block's inference
 chain ``GN[(+FiLM)] → SiLU → conv3x3`` plus the residual add, with the
 normalised activation kept out of device memory.
 
-* :func:`fused_gn_silu_conv3x3` wraps the CUDA kernels of
-  ``csrc/gn_silu_conv3x3.cu``: a statistics pass that leaves the f32 (B, C_in)
-  coefficients A and B, then a conv pass that applies ``silu(x·A + B)`` to each
-  input value as it loads it. Given a CPU tensor it returns the twin's result;
-  given a CUDA tensor it launches the kernels or raises. It counts its calls
-  that launch in ``.launches`` (one per call: the two passes are one count).
+* :func:`fused_gn_silu_conv3x3` wraps two CUDA kernels: a statistics pass
+  that leaves the f32 (B, C_in) coefficients A and B (``gn_common.cuh``,
+  shared with B10), then a conv pass. bf16 calls run the tensor-core conv of
+  ``csrc/gn_silu_conv3x3_tc.cu`` (halo tiles of y = ``silu(x·A + B)`` staged
+  once per chunk of channels, mma.sync over the 9 shifted windows), at the
+  tile :func:`conv_tc_tile` picks; f32 calls the FMA conv of
+  ``csrc/gn_silu_conv3x3.cu``, which applies the prologue to each input value
+  as it loads it. Given a CPU tensor it returns the twin's result; given a
+  CUDA tensor it launches the kernels or raises. It counts its calls that
+  launch in ``.launches`` (one per call: the two passes are one count).
 * :func:`fused_gn_silu_conv3x3_reference` is the kernel's arithmetic in plain
   PyTorch. It is not the unfused path: the kernel keeps A and B in f32, rounds
   y once to x's dtype, multiplies operands of x's dtype with f32 accumulation
@@ -107,6 +111,16 @@ def fused_gn_silu_conv3x3_reference(
         eps=eps).to(x.dtype)
 
 
+def conv_tc_tile(W: int) -> int:
+    """Output columns of a block of ``gn_silu_conv3x3_tc.cu`` (8 rows × 128
+    output channels) for images W wide: 16, or 8 on images at most 8 wide,
+    where an 8×16 tile would be half outside the image (on the H100 the
+    8-wide tile ran 0.060 ms at B=64, 8×8, 256→256 against 0.076). The tile
+    moves no result: each output's sum runs over the same chunks and taps
+    in the same order."""
+    return 16 if W > 8 else 8
+
+
 def fused_gn_silu_conv3x3(
     x: torch.Tensor,
     weight: torch.Tensor,
@@ -121,7 +135,8 @@ def fused_gn_silu_conv3x3(
     eps: float = 1e-6,
 ) -> torch.Tensor:
     """out = conv3x3(silu(GN_film(x))) + bias (+ skip), CUDA kernels
-    ``csrc/gn_silu_conv3x3.cu``.
+    ``csrc/gn_silu_conv3x3_tc.cu`` (bf16) and ``csrc/gn_silu_conv3x3.cu``
+    (f32).
 
     x: (B, H, W, C_in) NHWC, contiguous (an NCHW ``channels_last`` tensor
     viewed as NHWC is read in place); weight: (C_out, C_in, 3, 3), the
@@ -132,35 +147,85 @@ def fused_gn_silu_conv3x3(
     Returns (B, H, W, C_out) in x's dtype.
 
     Replaces JAX's Pallas ``_gn_silu_conv_kernel`` (ops/conv3x3.py). Bound by
-    operations; the first version's product runs as f32 FMAs from shared
-    memory (see the source's header). The wrapper lays the weights out as the
-    kernel reads them, (9·C_in, C_out) with taps dy-major, in x's dtype: one
-    transposing copy of the weights per call."""
+    operations. A bf16 call runs the statistics pass, then the tensor-core
+    conv pass at the tile :func:`conv_tc_tile` picks; an f32 call the same
+    statistics pass, then the FMA conv pass (see the sources' headers). The
+    wrapper lays the weights out as both read them, (9·C_in, C_out) with taps
+    dy-major, in x's dtype (for bf16, columns padded with zeros to a multiple
+    of 8, the 16-byte rows the tensor-core kernel copies): one transposing
+    copy of the weights per call."""
     B, H, W, C, CO = _check("fused_gn_silu_conv3x3", x, weight, bias, gamma, beta, film_shift,
                             film_scale, skip, num_groups)
     if x.device.type == "cpu":
         return fused_gn_silu_conv3x3_reference(x, weight, bias, gamma, beta, film_shift,
                                                film_scale, skip, num_groups=num_groups, eps=eps)
     need_cuda("fused_gn_silu_conv3x3", x, weight, bias, gamma, beta, film_shift, film_scale, skip)
-    w2 = weight.permute(2, 3, 1, 0).reshape(9 * C, CO).to(x.dtype).contiguous()
-    bias = bias.float().contiguous()
-    out = torch.empty(B, H, W, CO, dtype=x.dtype, device=x.device)
-    coef = None
-    if gamma is not None:
-        gamma, beta = gamma.float().contiguous(), beta.float().contiguous()
-        coef = torch.empty(2, B, C, dtype=torch.float32, device=x.device)
-    ptr = lambda t: None if t is None else t.data_ptr()
-    err = kernels.library().vdiff_gn_silu_conv3x3(
-        x.data_ptr(), w2.data_ptr(), bias.data_ptr(), ptr(gamma), ptr(beta),
-        *film_args(film_shift, film_scale), ptr(skip), out.data_ptr(), ptr(coef),
-        B, H, W, C, CO, num_groups, eps, int(x.dtype == torch.bfloat16),
-        torch.cuda.current_stream(x.device).cuda_stream)
-    kernels.check(err, "vdiff_gn_silu_conv3x3")
+    launch = _launch_tc if x.dtype == torch.bfloat16 else _launch_fma
+    out = launch(x, weight, bias, gamma, beta, film_shift, film_scale, skip, num_groups, eps)
     fused_gn_silu_conv3x3.launches += 1
     return out
 
 
 fused_gn_silu_conv3x3.launches = 0
+
+
+def _operands(x, weight, bias, gamma, beta, ldw):
+    """The kernels' operands: the (9·C_in, ldw) weights in x's dtype (columns
+    past C_out zero), f32 bias, gamma and beta, the output and the f32
+    coefficient scratch (None without gamma)."""
+    B, H, W, C = x.shape
+    CO = weight.shape[0]
+    taps = weight.permute(2, 3, 1, 0).reshape(9 * C, CO)
+    if ldw == CO:
+        w2 = taps.to(x.dtype).contiguous()
+    else:
+        w2 = torch.zeros(9 * C, ldw, dtype=x.dtype, device=x.device)
+        w2[:, :CO] = taps
+    out = torch.empty(B, H, W, CO, dtype=x.dtype, device=x.device)
+    coef = None
+    if gamma is not None:
+        gamma, beta = gamma.float().contiguous(), beta.float().contiguous()
+        coef = torch.empty(2, B, C, dtype=torch.float32, device=x.device)
+    return w2, bias.float().contiguous(), gamma, beta, out, coef
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _launch_fma(x, weight, bias, gamma, beta, film_shift, film_scale, skip, num_groups, eps):
+    """The statistics pass, then the FMA conv pass (entry
+    ``vdiff_gn_silu_conv3x3``), on checked CUDA inputs of either dtype; the
+    caller counts the launch."""
+    B, H, W, C = x.shape
+    CO = weight.shape[0]
+    w2, bias, gamma, beta, out, coef = _operands(x, weight, bias, gamma, beta, CO)
+    err = kernels.library().vdiff_gn_silu_conv3x3(
+        x.data_ptr(), w2.data_ptr(), bias.data_ptr(), _ptr(gamma), _ptr(beta),
+        *film_args(film_shift, film_scale), _ptr(skip), out.data_ptr(), _ptr(coef),
+        B, H, W, C, CO, num_groups, eps, int(x.dtype == torch.bfloat16),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    kernels.check(err, "vdiff_gn_silu_conv3x3")
+    return out
+
+
+def _launch_tc(x, weight, bias, gamma, beta, film_shift, film_scale, skip, num_groups, eps,
+               tile_w=None):
+    """The statistics pass, then the tensor-core conv pass (entry
+    ``vdiff_gn_silu_conv3x3_tc``), on checked bf16 CUDA inputs, at ``tile_w``
+    output columns a block (default :func:`conv_tc_tile`); the caller counts
+    the launch."""
+    B, H, W, C = x.shape
+    CO = weight.shape[0]
+    ldw = -(-CO // 8) * 8
+    w2, bias, gamma, beta, out, coef = _operands(x, weight, bias, gamma, beta, ldw)
+    err = kernels.library().vdiff_gn_silu_conv3x3_tc(
+        x.data_ptr(), w2.data_ptr(), ldw, bias.data_ptr(), _ptr(gamma), _ptr(beta),
+        *film_args(film_shift, film_scale), _ptr(skip), out.data_ptr(), _ptr(coef),
+        B, H, W, C, CO, num_groups, eps, tile_w or conv_tc_tile(W),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    kernels.check(err, "vdiff_gn_silu_conv3x3_tc")
+    return out
 
 
 def fusable(x: torch.Tensor, c_out: int) -> bool:
