@@ -22,11 +22,14 @@ Phases, one output line each (any failure raises and exits non-zero):
   4a. fused-kernels: gn_film_silu_kernel (B10) and fused_gn_silu_conv3x3 (B11)
      against their twins at the fused sampling path's shapes (B=64: 32x32,
      16x16, 8x8; B10 at C=256 and 512 with and without SiLU and once with
-     FiLM; B11 at 256->256 in its conv1 and conv2 forms) and, off the path, at
-     celeba's fusable widths, one C_in != C_out case, the bare conv with and
-     without a skip and odd shapes (groups of 6 and 42, a non-square image,
-     ragged tiles); f32 and bf16, then timed in bf16 beside the twin, the
-     card's bound and, for the bare GroupNorm, F.group_norm; B11's bf16 calls
+     FiLM; B11 at 256->256 in its conv1 and conv2 forms), B10 at celeba's
+     B=32 shapes (64x64 at C=192, 384 and 576, whose slabs take clusters of 8
+     and 16 blocks, and 8x8 at 1536) with its plan printed and two bf16 calls
+     held to the same bits, and, off the path, at celeba's fusable widths,
+     one C_in != C_out case, the bare conv with and without a skip and odd
+     shapes (groups of 6 and 42, 4 groups of 6, a non-square image, ragged
+     tiles); f32 and bf16, then timed in bf16 beside the twin, the card's
+     bound and F.group_norm on the same x; B11's bf16 calls
      run the tensor-core conv of gn_silu_conv3x3_tc.cu, timed beside the FMA
      conv of gn_silu_conv3x3.cu on the same inputs and cuDNN's bf16 conv
      alone (F.conv2d, channels_last: the library call of the bare conv);
@@ -862,41 +865,57 @@ def phase_fused_kernels():
     gen = torch.Generator(device="cuda").manual_seed(3)
     record = {}
     B = FUSED_B
-    # (B, H, W, C, film, silu): the path's shapes, then off the path groups of
-    # 6 on a non-square image and groups of 42 (wider than a warp)
-    gn_cases = [(B, H, H, C, False, silu) for H in (32, 16, 8) for C in (256, 512)
+    # (B, H, W, C, groups, film, silu): the CIFAR path's shapes, celeba's
+    # 64x64 slabs (thread-block clusters of 8 and 16 blocks) and its 8x8 at
+    # 1536 channels at B=32, then off the path groups of 6 on a non-square
+    # image, groups of 42 (wider than a warp) and 4 groups of 6
+    gn_cases = [(B, H, H, C, 32, False, silu) for H in (32, 16, 8) for C in (256, 512)
                 for silu in (False, True)]
-    gn_cases += [(B, 32, 32, 256, True, True), (3, 5, 7, 192, True, True),
-                 (2, 8, 8, 1344, False, True)]
-    for Bc, H, W, C, film, silu in gn_cases:
+    gn_cases += [(B, 32, 32, 256, 32, True, True), (32, 64, 64, 192, 32, True, True),
+                 (32, 64, 64, 384, 32, False, True), (32, 64, 64, 576, 32, False, True),
+                 (32, 8, 8, 1536, 32, False, True), (3, 5, 7, 192, 32, True, True),
+                 (2, 8, 8, 1344, 32, False, True), (2, 4, 6, 24, 4, True, True)]
+    for Bc, H, W, C, groups, film, silu in gn_cases:
         for dtype in (torch.float32, torch.bfloat16):
             x, gamma, beta, shift, scale, *_ = _fused_inputs(Bc, H, W, C, 1, dtype, gen, film, False)
-            tag = (f"gn_film_silu_kernel B={Bc} {H}x{W} C={C} film={film} silu={silu} "
-                   f"{str(dtype)[6:]}")
+            plan = G.gn_plan(H, W, C, groups, dtype)
+            tag = (f"gn_film_silu_kernel B={Bc} {H}x{W} C={C} G={groups} film={film} silu={silu} "
+                   f"{str(dtype)[6:]} (plan: {plan.groups} groups, {plan.run_bytes} B a pixel, "
+                   f"cluster of {plan.ranks}, {plan.pixels} px a block, slab in "
+                   f"{plan.smem_bytes} B of shared memory)")
             ref = G.gn_film_silu_kernel_reference(
                 x.float(), gamma, beta, None if shift is None else shift.float(),
-                None if scale is None else scale.float(), apply_silu=silu)
-            err = _check_fused(tag, G.gn_film_silu_kernel(x, gamma, beta, shift, scale,
-                                                          apply_silu=silu), ref, dtype)
+                None if scale is None else scale.float(), num_groups=groups, apply_silu=silu)
+
+            def kernel():
+                return G.gn_film_silu_kernel(x, gamma, beta, shift, scale, num_groups=groups,
+                                             apply_silu=silu)
+
+            out = kernel()
+            err = _check_fused(tag, out, ref, dtype)
             del ref
             if dtype == torch.float32:
                 print(f"fused-kernels: {tag}: max_abs_err={err}", flush=True)
                 continue
-            library = None
-            if not film and not silu:  # the one form a single PyTorch call computes
-                nchw, g16, b16 = x.permute(0, 3, 1, 2), gamma.to(dtype), beta.to(dtype)
-                library = cuda_ms(lambda: group_norm(nchw, 32, g16, b16, 1e-6))
-            rec = {"max_abs_err": err,
-                   "ms": cuda_ms(lambda: G.gn_film_silu_kernel(x, gamma, beta, shift, scale,
-                                                               apply_silu=silu)),
+            if not torch.equal(out, kernel()):
+                fail(f"{tag}: two calls gave different bits")
+            del out
+            # F.group_norm on the same x: the one form a single PyTorch call
+            # computes (no FiLM, no SiLU), and the yardstick of every case
+            nchw, g16, b16 = x.permute(0, 3, 1, 2), gamma.to(dtype), beta.to(dtype)
+            group_norm_ms = cuda_ms(lambda: group_norm(nchw, groups, g16, b16, 1e-6))
+            rec = {"max_abs_err": err, "ms": cuda_ms(kernel),
                    "plain_ms": cuda_ms(lambda: G.gn_film_silu_kernel_reference(
-                       x, gamma, beta, shift, scale, apply_silu=silu)),
-                   "library_ms": library, **_gn_bound(Bc, H, W, C, dtype, film)}
-            chain = cuda_ms(lambda: G.gn_film_silu(x, gamma, beta, shift, scale, apply_silu=silu,
-                                                   use_kernel=False))
-            print(f"fused-kernels: {tag}: {_fmt(rec)} default_chain_ms={chain}", flush=True)
+                       x, gamma, beta, shift, scale, num_groups=groups, apply_silu=silu)),
+                   "library_ms": None if film or silu else group_norm_ms,
+                   **_gn_bound(Bc, H, W, C, dtype, film)}
+            chain = cuda_ms(lambda: G.gn_film_silu(x, gamma, beta, shift, scale, num_groups=groups,
+                                                   apply_silu=silu, use_kernel=False))
+            print(f"fused-kernels: {tag}: {_fmt(rec)} group_norm_ms={group_norm_ms} "
+                  f"default_chain_ms={chain} same_bits_twice=True", flush=True)
             if (Bc, H, C, film, silu) == (B, 32, 256, False, False):
                 record["gn_film_silu_kernel"] = rec
+            del x
 
     # (B, H, W, C_in, C_out, film, skip, gn): conv1 and conv2 forms on the path
     conv_cases = [(B, H, H, 256, 256, film, film, True) for H in (32, 16, 8)
@@ -1309,9 +1328,9 @@ def main():
                            "vdiff_tpu/ops/attention.py:470"),
         "attn_bwd_pack1_kv": ("vdiff_tpu_torch/csrc/attn_bwd_tc.cu",
                               "vdiff_tpu/ops/attention.py:567"),
-        # B11's statistics pass is gn_common.cuh's kernel, shared with B10;
-        # its bf16 conv pass the tensor-core kernel (f32 keeps
-        # gn_silu_conv3x3.cu, off these paths)
+        # B10: one launch that reads x once (both dtypes); B11: the
+        # statistics pass of gn_common.cuh, then in bf16 the tensor-core conv
+        # (f32 keeps gn_silu_conv3x3.cu, off these paths)
         "gn_film_silu_kernel": ("vdiff_tpu_torch/csrc/gn_film_silu.cu",
                                 "vdiff_tpu/ops/groupnorm.py:79"),
         "fused_gn_silu_conv3x3": ("vdiff_tpu_torch/csrc/gn_silu_conv3x3_tc.cu",

@@ -1,6 +1,6 @@
 """First look at the fused inference kernels of the port on one GPU.
 
-    python scripts/probe_torch_fused.py
+    python scripts/probe_torch_fused.py [--parent-csrc DIR]
 
 Prints the GPU's name and power limit; ptxas's register and spill report for
 gn_film_silu.cu, gn_silu_conv3x3.cu and gn_silu_conv3x3_tc.cu; the build time
@@ -12,15 +12,29 @@ shapes (B=64); B11's bf16 calls (the tensor-core conv) held to chip_smoke's
 limit, with every tile's output bit for bit the wrapper's; bf16 kernel times
 there (chip_smoke's device-held timer) beside the unfused chain's, the FMA
 conv's, cuDNN's conv alone, each tile's and the conv wrapper's weight
-re-layout; the full-width cifar10_cond UNet in bf16 at B=2 with both switches
-on against the same model with both off; and the time of one bf16 UNet
-forward at B=64 with the switches off, VDIFF_FUSED_GN=1 alone, and both on.
+re-layout; B10's bf16 time at the fused paths' shapes (CIFAR at B=64,
+celeba at B=32) with gn_plan's split and with other run widths and slab
+budgets (each held to chip_smoke's limit; another split adds the sums in
+another order, so its bits may differ); the full-width cifar10_cond UNet
+in bf16 at B=2 with both switches on against the same model with both off;
+and the time of one bf16 UNet forward at B=64 with the switches off,
+VDIFF_FUSED_GN=1 alone, and both on.
+
+With --parent-csrc DIR (an older tree's vdiff_tpu_torch/csrc), also builds
+DIR's gn_film_silu.cu and times that B10 on the same inputs in the same call
+(parent, new, new, parent), and compares the SASS of every kernel of
+gn_silu_conv3x3.cu and gn_silu_conv3x3_tc.cu (B11: the statistics pass of
+gn_common.cuh, the FMA and the tensor-core conv) with DIR's: "identical"
+when the instructions match; a difference fails the run at its end.
 A short check before a full chip_smoke run. Needs a CUDA device.
 """
 
+import argparse
+import ctypes
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -33,6 +47,7 @@ from vdiff_tpu_torch import kernels  # noqa: E402
 from vdiff_tpu_torch.factory import CONFIG_DIR, build_unet, load_experiment_config  # noqa: E402
 from vdiff_tpu_torch.ops import conv3x3 as C3  # noqa: E402
 from vdiff_tpu_torch.ops import groupnorm as G  # noqa: E402
+from probe_torch_tc import _sass  # noqa: E402
 
 
 def run(cmd):
@@ -135,6 +150,142 @@ def time_kernels(gen):
         print(f"{(B, H, H, C)}: b11 conv2 form by tile width: {tiles}", flush=True)
 
 
+# B10 on the fused paths in bf16: (B, H, W, C, film, silu)
+B10_SHAPES = [(64, 32, 32, 256, False, False), (64, 32, 32, 256, True, True),
+              (64, 16, 16, 512, False, False), (64, 16, 16, 256, True, True),
+              (64, 8, 8, 256, False, False), (64, 8, 8, 256, True, True),
+              (32, 64, 64, 192, True, True), (32, 64, 64, 384, False, True),
+              (32, 64, 64, 576, False, True), (32, 8, 8, 1536, False, True)]
+# other splits timed beside gn_plan's own: its keyword arguments
+PLAN_VARIANTS = ({"cluster_slab_bytes": G.SLAB_BYTES}, {"cluster_slab_bytes": 24 * 1024},
+                 {"run_bytes": 128}, {"run_bytes": 32}, {"warps": 8}, {"warps": 4},
+                 {"warps": 2})
+# the parent's entry: x, gamma, beta, shift, scale, film_stride, film_f32, out, B, HW, C, G,
+# eps, silu, bf16, stream
+_P, _I = ctypes.c_void_p, ctypes.c_int
+PARENT_ARGS = [_P] * 5 + [_I] * 2 + [_P] + [_I] * 4 + [ctypes.c_float] + [_I] * 2 + [_P]
+
+
+def parent_b10(csrc, tmp):
+    """DIR's B10 entry, built from DIR's gn_film_silu.cu, as a function of
+    (x, gamma, beta, shift, scale, silu)."""
+    so = os.path.join(tmp, "parent_gn.so")
+    subprocess.run([kernels.find_nvcc(), *kernels.NVCC_FLAGS, "-shared", "-o", so,
+                    os.path.join(csrc, "gn_film_silu.cu")], check=True)
+    fn = ctypes.CDLL(so).vdiff_gn_film_silu
+    fn.argtypes, fn.restype = PARENT_ARGS, ctypes.c_int
+
+    def call(x, gamma, beta, shift, scale, silu):
+        B, H, W, C = x.shape
+        out = torch.empty_like(x)
+        err = fn(x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), *G.film_args(shift, scale),
+                 out.data_ptr(), B, H * W, C, 32, 1e-6, int(silu), int(x.dtype == torch.bfloat16),
+                 torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"parent B10: CUDA error {err}")
+        return out
+
+    call.entry = fn
+    return call
+
+
+def time_b10(gen, parent):
+    """B10 in bf16 at the fused paths' shapes: gn_plan's split against the
+    twin's limit, other splits, and with ``parent`` the parent's kernel on
+    the same inputs (parent, new, new, parent)."""
+    dt = torch.bfloat16
+    for B, H, W, C, film, silu in B10_SHAPES:
+        x, gamma, beta, shift, scale = gn_inputs(B, H, W, C, dt, gen, film)
+        ref = G.gn_film_silu_kernel_reference(x.float(), gamma, beta, f32(shift), f32(scale),
+                                              apply_silu=silu)
+        out = G.gn_film_silu_kernel(x, gamma, beta, shift, scale, apply_silu=silu)
+        err = S._check_fused(f"b10 {(B, H, W, C)}", out, ref, dt)
+        del ref
+        plan = G.gn_plan(H, W, C, 32, dt)
+        line = (f"b10 {(B, H, W, C)} film={film} silu={silu}: err {err}, plan {plan}, bound "
+                f"{S._gn_bound(B, H, W, C, dt, film)['bound_ms']} ms")
+
+        def new():
+            return G.gn_film_silu_kernel(x, gamma, beta, shift, scale, apply_silu=silu)
+
+        if parent is not None:
+            def old():
+                return parent(x, gamma, beta, shift, scale, silu)
+
+            S._check_fused(f"parent b10 {(B, H, W, C)}", old(), G.gn_film_silu_kernel_reference(
+                x.float(), gamma, beta, f32(shift), f32(scale), apply_silu=silu), dt)
+            t = [S.cuda_ms(f) for f in (old, new, new, old)]
+            line += f", parent {t[0]} / {t[3]} ms, new {t[1]} / {t[2]} ms"
+        else:
+            line += f", new {S.cuda_ms(new)} ms"
+        for kw in PLAN_VARIANTS:
+            p = G.gn_plan(H, W, C, 32, dt, **kw)
+
+            def fn():
+                return G.launch_planned(x, gamma, beta, shift, scale, 32, 1e-6, silu, p)
+
+            S._check_fused(f"b10 {(B, H, W, C)} {p}", fn(), G.gn_film_silu_kernel_reference(
+                x.float(), gamma, beta, f32(shift), f32(scale), apply_silu=silu), dt)
+            same = torch.equal(fn(), out)
+            line += (f"; {kw}: run {p.run_bytes} B, cluster {p.ranks}, {p.threads} threads, "
+                     f"{p.pixels} px: {S.cuda_ms(fn)} ms, same bits {same}")
+        print(line, flush=True)
+        del x, out
+    torch.cuda.empty_cache()
+
+
+# a kernel's mangled name after its anonymous namespace, whose hash follows
+# the file's path: _ZN5vdiff<n>_GLOBAL__N__<hex>_<n>_<file>_<hex8><the rest>
+KERNEL_NAME = r"_GLOBAL__N__[0-9a-f]+_\d+_\w+?_[0-9a-f]{8}(\d+\w+)"
+
+
+def host_us(gen, parent):
+    """Host time of one call (µs, the mean of 200 enqueued without waiting)
+    at (64, 8, 8, 256) with FiLM and SiLU: the wrapper, gn_plan (cached),
+    the new entry and, with ``parent``, the parent's entry, both called
+    straight through ctypes."""
+    x, gamma, beta, shift, scale = gn_inputs(64, 8, 8, 256, torch.bfloat16, gen, True)
+    plan = G.gn_plan(8, 8, 256, 32, torch.bfloat16)
+    lib = kernels.library()
+    out = torch.empty_like(x)
+    args = (x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), *G.film_args(shift, scale),
+            out.data_ptr(), 64, 64, 256, 32, 1e-6, 1, 1)
+    stream = torch.cuda.current_stream().cuda_stream
+    calls = {"wrapper": lambda: G.gn_film_silu_kernel(x, gamma, beta, shift, scale),
+             "gn_plan": lambda: G.gn_plan(8, 8, 256, 32, torch.bfloat16),
+             "entry": lambda: lib.vdiff_gn_film_silu(*args, plan.groups, plan.ranks, plan.pixels,
+                                                     plan.threads, stream)}
+    if parent is not None:
+        calls["parent_entry"] = lambda: parent.entry(*args, stream)
+    line = []
+    for name, fn in calls.items():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            fn()
+        line.append(f"{name} {(time.perf_counter() - t0) / 200 * 1e6:.2f}")
+        torch.cuda.synchronize()
+    print("b10 host us a call: " + ", ".join(line), flush=True)
+
+
+def sass_report(parent_csrc):
+    """Every kernel of B11's two sources against DIR's build of the same
+    file; returns the kernels that differ."""
+    different = []
+    for src in ("gn_silu_conv3x3.cu", "gn_silu_conv3x3_tc.cu"):
+        new = _sass(os.path.join(kernels.CSRC_DIR, src), KERNEL_NAME)
+        old = _sass(os.path.join(parent_csrc, src), KERNEL_NAME)
+        for key in sorted(set(new) | set(old)):
+            same = new.get(key) == old.get(key)
+            print(f"sass {src} {key[0]}: {len(new.get(key, []))} instructions against "
+                  f"{len(old.get(key, []))} in {parent_csrc}: "
+                  f"{'identical' if same else 'DIFFERENT'}", flush=True)
+            if not same:
+                different.append((src, key[0]))
+    return different
+
+
 def unet(gen):
     cfg, _ = load_experiment_config(os.path.join(CONFIG_DIR, "cifar10_cond.json"))
     cpu_gen = torch.Generator().manual_seed(1234)
@@ -170,6 +321,9 @@ def unet(gen):
 
 
 def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--parent-csrc", help="an older tree's vdiff_tpu_torch/csrc")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("probe_torch_fused: needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -182,16 +336,23 @@ def main():
                    os.path.join(kernels.CSRC_DIR, src)])
         print("\n".join(line for line in out.splitlines()
                         if "registers" in line or "spill" in line or "error" in line.lower()
-                        or "warning" in line.lower()))
+                        or "warning" in line.lower() or "Compiling" in line))
+    different = sass_report(args.parent_csrc) if args.parent_csrc else []
     t0 = time.perf_counter()
     kernels.library()
     print("build", time.perf_counter() - t0, flush=True)
     gen = torch.Generator(device="cuda").manual_seed(0)
     check_gn(gen)
+    with tempfile.TemporaryDirectory() as tmp:
+        parent = parent_b10(args.parent_csrc, tmp) if args.parent_csrc else None
+        host_us(gen, parent)
+        time_b10(gen, parent)
     check_conv(gen)
     torch.cuda.empty_cache()
     time_kernels(gen)
     unet(gen)
+    if different:
+        S.fail(f"B11's SASS differs from {args.parent_csrc}'s: {different}")
 
 
 if __name__ == "__main__":

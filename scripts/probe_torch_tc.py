@@ -29,9 +29,9 @@ each q tile. ptxas's report
 covers the fused conv sources too. With --parent-csrc, the SASS of
 attn_bwd_tc.cu's full-row row kernel and of attn_fwd_tc.cu's 64-row
 forward (with and without lse) at every head dim, of gn_silu_conv3x3.cu's
-f32 conv instantiations and both files' GroupNorm statistics kernels, and of
-gn_film_silu.cu's B10 kernels, against the same kernels built from DIR (an
-older tree's csrc), and of the new gn_silu_conv3x3_tc.cu's statistics pass
+f32 conv instantiations and both files' GroupNorm statistics kernels,
+against the same kernels built from DIR (an older tree's csrc), and of the
+new gn_silu_conv3x3_tc.cu's statistics pass
 against DIR's gn_silu_conv3x3.cu's: "identical" when the instructions
 match. A short check before a full chip_smoke run. Needs a CUDA device.
 """
@@ -116,15 +116,15 @@ def ptxas_report():
 # template arguments that key it): the full-row row kernel (kSaved=false) and
 # the 64-row forward, both before and after that forward took its warp count
 # as a template argument; the FMA conv in f32 (kGn, kSkip); the
-# GroupNorm statistics kernels (element type, kApply), B10's among them; and
-# the tensor-core conv file's statistics pass against the FMA conv file's
+# GroupNorm statistics kernels (element type, kApply); and the tensor-core
+# conv file's statistics pass against the FMA conv file's (B10's kernel,
+# gn_film_silu.cu, is scripts/probe_torch_fused.py's)
 _GN = r"2gn6kernelI(f|13__nv_bfloat16)Lb([01])EE"
 SASS_KERNELS = (
     ("attn_bwd_tc.cu", "attn_bwd_tc.cu", r"attn_bwd_tc_rowsILi(\d+)E(?:Lb0E)?E"),
     ("attn_fwd_tc.cu", "attn_fwd_tc.cu", r"attn_fwd_tc_kernelILi(\d+)ELb([01])E(?:Li4E)?E"),
     ("gn_silu_conv3x3.cu", "gn_silu_conv3x3.cu", r"conv3x3_kernelIfLb([01])ELb([01])EE"),
     ("gn_silu_conv3x3.cu", "gn_silu_conv3x3.cu", _GN),
-    ("gn_film_silu.cu", "gn_film_silu.cu", _GN),
     ("gn_silu_conv3x3_tc.cu", "gn_silu_conv3x3.cu", _GN),
 )
 

@@ -32,13 +32,14 @@ def _j(a):
     return None if a is None else jnp.asarray(a)
 
 
-@pytest.mark.parametrize("C", [128, 192])
+@pytest.mark.parametrize("C", [128, 192, 576, 1344, 1536])
 @pytest.mark.parametrize("silu", [False, True])
 @pytest.mark.parametrize("film", [False, True])
 def test_twin_matches_the_pallas_kernel_in_interpret_mode(film, silu, C):
     """f32 on both sides: the same single-pass statistics and f32 coefficients;
     the Pallas kernel folds groups with one-hot matmuls and the twin with a
-    reshape, so only the order of the sums differs (C=192: groups of 6)."""
+    reshape, so only the order of the sums differs (C=192: groups of 6;
+    celeba's widths 576, 1344, 1536: groups of 18, 42, 48)."""
     from jax.experimental.pallas import tpu as pltpu
 
     from vdiff_tpu.ops.groupnorm import gn_film_silu_pallas
@@ -116,10 +117,20 @@ def test_dispatch_follows_the_switch_only_without_autograd(monkeypatch):
 
 
 @pytest.mark.parametrize("bad", ["device", "meta", "dtype", "rank", "groups", "layout", "gamma",
-                                 "half_film", "film_shape", "film_dtype"])
-def test_kernel_wrapper_refuses_what_the_kernel_does_not_take(bad):
+                                 "half_film", "film_shape", "film_dtype", "row", "pointer",
+                                 "slab"])
+def test_kernel_wrapper_refuses_what_the_kernel_does_not_take(bad, monkeypatch):
+    """Each refusal raises before any launch. The kernel's own refusals
+    (a pixel's C values not a multiple of 16 bytes, x not on a 16-byte
+    boundary, a slab no cluster holds) are reached with the device check
+    stubbed and a library that fails the test if it is called."""
+    from vdiff_tpu_torch import kernels
+
     x, gamma, beta, shift, scale = (_t(a) for a in _inputs(B=2, H=4, W=4, C=64, seed=7))
     kw, err = {}, ValueError
+    if bad in ("row", "pointer", "slab"):
+        monkeypatch.setattr(G, "need_cuda", lambda *a: None)
+        monkeypatch.setattr(kernels, "library", lambda: pytest.fail("launched"))
     if bad == "device":  # a CPU tensor: the wrapper is the kernel alone
         err = RuntimeError
     elif bad == "meta":
@@ -139,11 +150,21 @@ def test_kernel_wrapper_refuses_what_the_kernel_does_not_take(bad):
         scale = None
     elif bad == "film_shape":
         shift, scale = shift[:1], scale[:1]
-    else:
+    elif bad == "film_dtype":
         shift, scale = shift.half(), scale.half()
+    elif bad == "row":  # 36 bf16 channels: 72 bytes a pixel
+        x, gamma, beta = x[..., :36].bfloat16().contiguous(), gamma[:36], beta[:36]
+        shift, scale, kw = None, None, {"num_groups": 6}
+    elif bad == "pointer":  # contiguous, but 4 bytes past a 16-byte boundary
+        x = torch.empty(x.numel() + 1)[1:].view(x.shape).copy_(x)
+        assert x.is_contiguous() and x.data_ptr() % 16 == 4
+    else:  # a 256x256 bf16 sample of 576 channels: 590 KB slabs
+        x = torch.empty(1, 256, 256, 576, device="meta", dtype=torch.bfloat16)
+        gamma, beta = torch.ones(576), torch.zeros(576)
+        shift = scale = None
     with pytest.raises(err):
         G.gn_film_silu_kernel(x, gamma, beta, shift, scale, **kw)
-    if bad not in ("device", "meta"):  # the twin checks the same input
+    if bad not in ("device", "meta", "row", "pointer", "slab"):  # the twin checks the same input
         with pytest.raises(err):
             G.gn_film_silu_kernel_reference(x, gamma, beta, shift, scale, **kw)
 
@@ -175,6 +196,8 @@ def test_kernel_wrapper_passes_strided_film_rows_and_counts_its_launch(monkeypat
     assert out.shape == (B, H, W, C) and out.dtype == torch.bfloat16 and out.is_contiguous()
     assert G.gn_film_silu_kernel.launches == 1
     args = seen["args"]
-    # film_stride, film_f32 | B, HW, C, G | apply_silu, is_bf16
+    # film_stride, film_f32 | B, HW, C, G | apply_silu, is_bf16 | the plan
     assert args[5:7] == (2 * C, 0) and args[8:12] == (B, H * W, C, 32) and args[13:15] == (0, 1)
     assert args[12] == pytest.approx(1e-6)
+    plan = G.gn_plan(H, W, C, 32, torch.bfloat16)
+    assert args[15:19] == (plan.groups, plan.ranks, plan.pixels, plan.threads) == (8, 1, 16, 64)

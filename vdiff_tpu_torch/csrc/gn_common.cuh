@@ -1,7 +1,10 @@
-// GroupNorm statistics and the folded per-channel coefficients, shared by
-// gn_film_silu.cu (B10: statistics, then y = x*A + B and SiLU in one kernel)
-// and gn_silu_conv3x3.cu (B11: the statistics pass that leaves A and B for
-// the conv pass).
+// GroupNorm statistics and the folded per-channel coefficients: the
+// statistics pass of B11 (gn_silu_conv3x3.cu and gn_silu_conv3x3_tc.cu),
+// which leaves A and B for the conv pass, and the FiLM and SiLU helpers.
+// The kApply form (statistics, then y = x*A + B and SiLU from a second read
+// of x) was B10's kernel until gn_film_silu.cu took it over with one read;
+// nothing instantiates it now, and it stays only so that the statistics
+// pass, the same template, keeps its instructions.
 //
 // Per sample and group, in f32: mean = sum(x)/n and var = sum(x*x)/n - mean^2
 // over the group's H*W*cg values (one pass, the formula of both JAX paths),

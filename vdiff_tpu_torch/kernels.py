@@ -53,8 +53,9 @@ _ENTRY_POINTS = {
     "vdiff_attn_bwd_tc": [_P] * 5 + [_I] * 4 + [_P],
     # qkv, out, lse, dout, dqkv, delta, B, T, N, C, stream
     "vdiff_attn_bwd_tc_kv": [_P] * 6 + [_I] * 4 + [_P],
-    # x, gamma, beta, shift, scale, film_stride, film_f32, out, B, HW, C, G, eps, silu, bf16, stream
-    "vdiff_gn_film_silu": [_P] * 5 + [_I] * 2 + [_P] + [_I] * 4 + [_F] + [_I] * 2 + [_P],
+    # x, gamma, beta, shift, scale, film_stride, film_f32, out, B, HW, C, G, eps, silu, bf16,
+    # then ops/groupnorm.py::gn_plan's groups, ranks, pixels, threads; stream
+    "vdiff_gn_film_silu": [_P] * 5 + [_I] * 2 + [_P] + [_I] * 4 + [_F] + [_I] * 6 + [_P],
     # x, w, bias, gamma, beta, shift, scale, film_stride, film_f32, skip, out, coef,
     # B, H, W, C, CO, G, eps, bf16, stream
     "vdiff_gn_silu_conv3x3": [_P] * 7 + [_I] * 2 + [_P] * 3 + [_I] * 6 + [_F, _I, _P],

@@ -14,7 +14,8 @@ materialised in the compute dtype.
 
 :func:`gn_film_silu_kernel` is the counterpart of JAX's Pallas kernel
 (``_gn_kernel`` through ``gn_film_silu_pallas``): the whole chain as one CUDA
-kernel (``csrc/gn_film_silu.cu``), inference only. It keeps A and B in f32
+kernel (``csrc/gn_film_silu.cu``) that reads x once, split as
+:func:`gn_plan` says, inference only. It keeps A and B in f32
 and rounds once, at the output, where the default path rounds A, B, the
 multiply-add and the SiLU to the compute dtype, so in bf16 the two differ by
 construction; :func:`gn_film_silu_kernel_reference` is the kernel's
@@ -26,8 +27,10 @@ dispatch never takes its kernel unasked).
 
 from __future__ import annotations
 
+import functools
+import math
 import os
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -212,29 +215,122 @@ def film_args(film_shift, film_scale):
             int(film_shift.dtype == torch.float32))
 
 
+# gn_plan's defaults (measured on an H100, PERF.md §6): a run of at least 64
+# bytes a pixel, so that a warp's 16-byte loads fill whole 32-byte sectors;
+# a whole slab in one block up to 96 KB (two blocks an SM); past that a
+# cluster whose blocks hold at most 48 KB each (four blocks an SM hide the
+# cluster's barriers better than two); warps enough for 8 16-byte vectors
+# a thread, 2 to 8 (small slabs lose to long folds over idle warps)
+RUN_BYTES = 64
+SLAB_BYTES = 96 * 1024
+CLUSTER_SLAB_BYTES = 48 * 1024
+VECTORS_PER_THREAD = 8
+MIN_WARPS, MAX_WARPS = 2, 8  # csrc/gn_film_silu.cu's kGnThreads = 32 * MAX_WARPS
+MAX_RANKS = 16  # the largest (non-portable) thread-block cluster
+MAX_SMEM_BYTES = 232448  # H100: 227 KB of dynamic shared memory a block
+
+
+class GNPlan(NamedTuple):
+    """How :func:`gn_film_silu_kernel` splits a call. A block takes one
+    sample's ``pixels`` pixels × one run of ``groups`` whole groups
+    (``run_bytes`` a pixel, a multiple of 16); a thread-block cluster of
+    ``ranks`` blocks takes the sample's whole (HW, run) slab; each block
+    holds its part in ``smem_bytes`` of dynamic shared memory (the slab, the
+    warps' per-channel sums, the per-channel A and B) and runs ``threads``,
+    whole warps of which each lane takes one 16-byte column of the run."""
+    groups: int
+    run_bytes: int
+    ranks: int
+    pixels: int
+    threads: int
+    smem_bytes: int
+
+
+@functools.lru_cache(maxsize=None)  # on every call of the wrapper: keep the host fast
+def gn_plan(H, W, C, num_groups, dtype, *, run_bytes=RUN_BYTES,
+            cluster_slab_bytes=CLUSTER_SLAB_BYTES, warps=None) -> GNPlan:
+    """The split of a call on (B, H, W, C) ``dtype`` input (the batch is
+    the grid's other dimension and does not enter): the fewest whole groups
+    per run that divide ``num_groups``, make a multiple of 16 bytes a pixel
+    and reach ``run_bytes`` (else all the groups); one block a slab if it
+    fits SLAB_BYTES, else the smallest cluster (2, 4, 8 or 16 blocks
+    along the pixels) whose blocks' parts fit ``cluster_slab_bytes``, else
+    the smallest whose blocks' parts fit their shared memory; and
+    ``warps`` warps a block, or as many as give each thread
+    VECTORS_PER_THREAD 16-byte vectors. Raises ValueError where the kernel
+    cannot take the call: a pixel's C values are not a multiple of 16 bytes,
+    a run is wider than a warp's 32 16-byte loads, or no cluster of up to 16
+    blocks holds the slab."""
+    size = dtype.itemsize
+    if (C * size) % 16 or C % num_groups:
+        raise ValueError(f"gn_plan: a pixel's {C} channels of {dtype} are {C * size} bytes, not "
+                         f"a multiple of 16, or not {num_groups} whole groups")
+    cg = C // num_groups
+    step = 16 // math.gcd(cg * size, 16)  # the fewest groups that make 16-byte multiples
+    fits = [r for r in range(step, num_groups + 1, step) if num_groups % r == 0]
+    groups = next((r for r in fits if r * cg * size >= run_bytes), fits[-1])
+    run_ch, vecs = groups * cg, groups * cg * size // 16
+    if vecs > 32:
+        raise ValueError(f"gn_plan: a run of {groups} groups is {vecs} 16-byte vectors a pixel, "
+                         "more than a warp's 32 lanes")
+    HW = H * W
+    clusters = (2, 4, 8, MAX_RANKS)
+    # one block; a cluster within its budget; a cluster within shared memory
+    for ranks, budget in ([(1, SLAB_BYTES)] + [(k, cluster_slab_bytes) for k in clusters]
+                          + [(k, MAX_SMEM_BYTES) for k in clusters]):
+        pixels = -(-HW // ranks)
+        w = warps or min(MAX_WARPS, max(MIN_WARPS, -(-pixels * vecs // (32 * VECTORS_PER_THREAD))))
+        # the slab, the warps' per-channel sums, the channels' parameters
+        # (then A and B), the group sums
+        smem = 16 * pixels * vecs + 4 * (2 * w * run_ch + 4 * run_ch + 2 * groups)
+        if pixels * (ranks - 1) < HW and 16 * pixels * vecs <= budget and smem <= MAX_SMEM_BYTES:
+            return GNPlan(groups, run_ch * size, ranks, pixels, 32 * w, smem)
+    raise ValueError(f"gn_plan: no cluster of up to {MAX_RANKS} blocks holds a slab of {HW} "
+                     f"pixels x {run_ch * size} bytes in {MAX_SMEM_BYTES} bytes of shared memory "
+                     "a block")
+
+
 def gn_film_silu_kernel(x, gamma, beta, film_shift=None, film_scale=None, *,
                         num_groups: int = 32, eps: float = 1e-6,
                         apply_silu: bool = True) -> torch.Tensor:
     """GroupNorm(+FiLM)(+SiLU) as one CUDA kernel (``csrc/gn_film_silu.cu``).
 
     Replaces JAX's Pallas ``_gn_kernel`` (ops/groupnorm.py, through
-    ``gn_film_silu_pallas``). Bound by bytes; a block takes one sample and a
-    run of groups about 32 channels wide, reads its slab for the sums and
-    once more from L2 to write y (see the source's header). CUDA tensors
+    ``gn_film_silu_pallas``). Bound by bytes: one launch reads x once into
+    shared memory and writes y once, a block (or a thread-block cluster
+    where one block cannot hold it) per (sample, run of groups) slab, as
+    :func:`gn_plan` splits the call (see the source's header). CUDA tensors
     only, like the backward passes of the attention: the CPU path is
     :func:`gn_film_silu_kernel_reference`, which :func:`gn_film_silu` takes
-    for a CPU tensor. Inference only: nothing here is differentiable."""
-    B, H, W, C = check_gn_input("gn_film_silu_kernel", x, gamma, beta, film_shift, film_scale,
+    for a CPU tensor. Raises before any launch where the kernel cannot take
+    the call (see :func:`gn_plan`; x not 16-byte aligned). Inference only:
+    nothing here is differentiable."""
+    _, H, W, C = check_gn_input("gn_film_silu_kernel", x, gamma, beta, film_shift, film_scale,
                                 num_groups)
     need_cuda("gn_film_silu_kernel", x, gamma, beta, film_shift, film_scale)
+    out = launch_planned(x, gamma, beta, film_shift, film_scale, num_groups, eps, apply_silu,
+                         gn_plan(H, W, C, num_groups, x.dtype))
+    gn_film_silu_kernel.launches += 1
+    return out
+
+
+def launch_planned(x, gamma, beta, film_shift, film_scale, num_groups, eps, apply_silu, plan):
+    """One launch of ``csrc/gn_film_silu.cu`` split as ``plan`` says, on
+    input :func:`gn_film_silu_kernel` has checked (its body; the probe
+    scripts time other plans through it). Counts nothing. Raises before the
+    launch where x is not on a 16-byte boundary."""
+    if x.data_ptr() % 16:
+        raise ValueError("gn_film_silu_kernel: x must start on a 16-byte boundary (16-byte "
+                         f"loads), got address {x.data_ptr():#x}")
+    B, H, W, C = x.shape
     gamma, beta = gamma.float().contiguous(), beta.float().contiguous()
     out = torch.empty_like(x)
     err = kernels.library().vdiff_gn_film_silu(
         x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), *film_args(film_shift, film_scale),
         out.data_ptr(), B, H * W, C, num_groups, eps, int(apply_silu),
-        int(x.dtype == torch.bfloat16), torch.cuda.current_stream(x.device).cuda_stream)
+        int(x.dtype == torch.bfloat16), plan.groups, plan.ranks, plan.pixels, plan.threads,
+        torch.cuda.current_stream(x.device).cuda_stream)
     kernels.check(err, "vdiff_gn_film_silu")
-    gn_film_silu_kernel.launches += 1
     return out
 
 
