@@ -15,10 +15,19 @@ Phases, one output line each (any failure raises and exits non-zero):
      beside the f32-FMA kernel it replaced on the same inputs;
   3. unet: the full-width cifar10_cond UNet (random weights, zero-init layers
      perturbed) in f32 on the GPU against the same UNet on the CPU;
+  3a. graph: the sampler with its CUDA graph (step 0 eager, one capture,
+     the other steps replayed) against its eager loop from the same x_T, on
+     the full-width bf16 cifar10_cond model: 8 DDIM steps at w=0 B=64 with
+     the switches off, with VDIFF_FUSED_GN=1 and with both, CFG w=0.1 at
+     B=32, and eta=1 from one generator seed; equal bit for bit, and the
+     sampler's stats showing one capture, 7 replays and the per-forward
+     launches on the device;
   4. sample: the port's CLI (vdiff_tpu_torch.generate) draws 256-step DDIM
-     samples at w=0 (B=64, two batches) and with CFG at w=0.1 (B=32), and the
-     kernels' launch counters must show 17 (attn_fwd_online) + 1 (attn_fwd_tc)
-     launches per UNet forward;
+     samples at w=0 (B=64, two batches) and with CFG at w=0.1 (B=32), each
+     batch replaying the step's graph, and the device must have run 17
+     (attn_fwd_online) + 1 (attn_fwd_tc) launches per UNet forward;
+  4p. progressive: generate --progressive (16 steps at w=0.1, a snapshot
+     every 4, B=16): 16 finite strips of 32x128 pixels;
   4a. fused-kernels: gn_film_silu_kernel (B10) and fused_gn_silu_conv3x3 (B11)
      against their twins at the fused sampling path's shapes (B=64: 32x32,
      16x16, 8x8; B10 at C=256 and 512 with and without SiLU and once with
@@ -39,7 +48,8 @@ Phases, one output line each (any failure raises and exits non-zero):
      with VDIFF_FUSED_GN=1 alone) beside the unchanged 17 + 1 of attention;
   4c. fused-sample: the generate CLI with both switches on (DDIM-256, w=0,
      B=64, one batch, bf16), then with VDIFF_FUSED_GN=1 alone: finite PNGs,
-     the per-forward counts times 256, and samples/s beside the default path's;
+     the per-forward counts times 256 on the device, and samples/s beside the
+     default path's;
   5. train-kernels: the training forward (attn_fwd_train, B3, at T <= 512,
      whose bf16 calls run attn_fwd_tc.cu; at T=1024 attn_fwd_qblk in f32,
      attn_fwd_tc in bf16) and the backward (attn_bwd: the two-pass
@@ -77,17 +87,26 @@ Phases, one output line each (any failure raises and exits non-zero):
      (in bf16, phase 11, attn_fwd_tc takes attn_fwd_qblk's 8);
  10. celeba-train-unet: one full-width f32 train step at B=1 on the GPU against
      the CPU, dropout off, with the per-step launch counts of CELEBA_STEP_LAUNCHES;
+ 10a. celeba-graph: phase 3a's check on the celeba model in bf16 at B=32, 4
+     steps, with the switches off and with VDIFF_FUSED_GN=1 (B10 on thread-block
+     clusters at 64x64);
  11. celeba-sample: the generate CLI on the random-weight model with
      celeba.json, B=32, 16 DDIM steps at w=0, bf16, tags drawn from a written
      list_attr_celeba.txt: finite PNGs and 10 / 8 / 9 launches per forward
      (attn_fwd_pack1 / attn_fwd_tc / attn_fwd_online);
  12. celeba-train: 3 steps of the bf16 train step at B=48 on seeded images and
      multi-hot tags, each with CELEBA_STEP_LAUNCHES_BF16, a finite loss and
-     the peak device memory.
+     the peak device memory;
+ 13. bench: python -m vdiff_tpu_torch.bench at full width with its sampling
+     cut to 16 steps (--sample-steps), in this process: its JSON lines (the
+     root bench's five, the canary and three arms, the headline last).
 Every kernel's launches in the JSON record are counted on the main paths
 (phases 4, 4c, 7, 11, 12), each run with the counts set to 0 just before it and
 read just after: "launches" is their sum over the paths, and
-"launches_by_path" each path's own count. The line before last is the
+"launches_by_path" each path's own count. A sampling path replays CUDA
+graphs, whose replays the wrappers do not count and whose captures launch
+nothing: its device launches are the counts less the captures' plus the
+replays', which the sampler reports (diffusion.py::_reverse). The line before last is the
 kernels' JSON record (with each kernel's time, its twin's, one PyTorch
 call's where there is one, the card's bound for the same work, and for the
 tensor-core kernels of B1-B9 and B11 the FMA kernel's time on the same
@@ -98,7 +117,6 @@ Imports nothing of JAX.
 """
 
 import collections
-import contextlib
 import copy
 import glob
 import json
@@ -151,6 +169,18 @@ FUSED_FWD_LAUNCHES = _launches(attn_fwd_online=ONLINE_PER_FWD, attn_fwd_tc=QBLK_
 FUSED_GN_FWD_LAUNCHES = _launches(attn_fwd_online=ONLINE_PER_FWD, attn_fwd_tc=QBLK_PER_FWD,
                                   gn_film_silu_kernel=73)
 FUSED_B = 64  # the fused sampling path's batch
+# the celeba forward with VDIFF_FUSED_GN=1: all 100 GroupNorms through B10
+CELEBA_FUSED_GN_FWD_LAUNCHES = _launches(attn_fwd_pack1=10, attn_fwd_tc=8, attn_fwd_online=9,
+                                         gn_film_silu_kernel=100)
+# the graph phase: DDIM steps of each graph-vs-eager run (CIFAR, celeba)
+GRAPH_STEPS, CELEBA_GRAPH_STEPS = 8, 4
+# a replayed graph runs the eager step's kernels on the same inputs: no
+# difference is allowed
+GRAPH_ATOL = 0.0
+# generate --progressive: steps and the snapshot interval (4 snapshots)
+PROGRESSIVE_STEPS, PROGRESSIVE_FREQ = 16, 4
+# the bench phase's sampling steps (the module's --sample-steps)
+BENCH_SAMPLE_STEPS = 16
 # the celeba UNet's 27 attention calls (head dim 64), routed as JAX routes
 # them on a TPU without head padding: one forward launches the head-dim 64
 # forward 10 times (T=1024 and T=256 at N=6, T=256 at N=12, T=4096 in
@@ -644,10 +674,12 @@ def phase_unet(cfg):
 
 def _wrappers():
     """Every kernel wrapper by name (each carries its ``launches`` count)."""
-    from vdiff_tpu_torch.ops import attention, conv3x3, groupnorm
+    from vdiff_tpu_torch.ops import counted_wrappers
 
-    homes = {"gn_film_silu_kernel": groupnorm, "fused_gn_silu_conv3x3": conv3x3}
-    return {name: getattr(homes.get(name, attention), name) for name in KERNELS}
+    wrappers = counted_wrappers()
+    if set(wrappers) != set(KERNELS):
+        fail(f"the package counts {sorted(wrappers)}, this script {sorted(KERNELS)}")
+    return wrappers
 
 
 def _counts():
@@ -723,11 +755,17 @@ def phase_train_cli(tmp):
     summary = train.main(["--config-path", TRAIN_CONFIG, "--allow-bf16", "--epochs", "1",
                           "--exp-dir", os.path.join(tmp, "exps")])
     seconds = time.perf_counter() - t0
-    launched = _counts()
+    # the epoch-end sample grid replays a CUDA graph: its captures launched
+    # nothing, its replays launched uncounted (diffusion.py::_reverse)
+    sampler = summary["sampler"]
+    launched = {k: n - sampler["captured_launches"].get(k, 0)
+                + sampler["replayed_launches"].get(k, 0) for k, n in _counts().items()}
     ckpt = os.path.join(summary["ckpt_dir"], "ckpt_last.pt")
     print(f"train-cli: synthetic_flagship bf16 B=128, {summary['steps']} steps, loss "
           f"{summary['loss']}, {summary['img_per_s']} img/s over the steps after the first, "
-          f"{seconds:.1f} s with the sample grid and checkpoint, launches {launched}", flush=True)
+          f"{seconds:.1f} s with the sample grid ({sampler['eager_steps']} eager step, "
+          f"{sampler['captures']} capture, {sampler['replays']} replays) and checkpoint, device "
+          f"launches {_nonzero(launched)}", flush=True)
     steps = summary["steps"]
     if steps != 4 or summary["loss"] is None or not math.isfinite(summary["loss"]):
         fail(f"train-cli: {steps} steps, loss {summary['loss']}")
@@ -749,42 +787,198 @@ def phase_train_cli(tmp):
     return launched
 
 
+def _nonzero(counts):
+    return {k: v for k, v in counts.items() if v}
+
+
+def _device_launches(name, counted, stats, per_fwd, forwards):
+    """The launches a sampling run made on the device, from the wrappers'
+    counts and the sampler's ``stats`` (diffusion.py::_reverse): a graph's
+    capture counts its wrappers' calls and launches nothing, its replays
+    launch them uncounted. They must be ``per_fwd`` times the run's UNet
+    forwards, and so must the captured step's count times each batch's
+    replays; every batch ran one eager step, one capture and the rest as
+    replays. Returns them."""
+    device = {k: counted[k] - stats["captured_launches"].get(k, 0)
+              + stats["replayed_launches"].get(k, 0) for k in counted}
+    steps = stats["eager_steps"] + stats["replays"]
+    want = {k: v * forwards for k, v in per_fwd.items()}
+    print(f"{name}: {stats['eager_steps']} eager step(s), {stats['captures']} graph capture(s), "
+          f"{stats['replays']} replays; device launches {_nonzero(device)}", flush=True)
+    if device != want or stats["launches"] != want:
+        fail(f"{name}: device launches {device} (sampler: {stats['launches']}), expected {want}")
+    if steps != forwards or stats["eager_steps"] != stats["captures"]:
+        fail(f"{name}: {stats['eager_steps']} eager steps, {stats['captures']} captures and "
+             f"{stats['replays']} replays for {forwards} steps: the graph did not run")
+    if stats["captured_launches"] != {k: v * stats["captures"] for k, v in per_fwd.items()}:
+        fail(f"{name}: the captures counted {stats['captured_launches']}, expected {per_fwd} each")
+    return device
+
+
 def phase_sample(model, tmp):
-    """The CLI end to end; returns the launch counts of the whole phase, the
+    """The CLI end to end (the steps after each batch's first replay its
+    CUDA graph); returns the device's launches over the phase, the
     checkpoint it wrote and the w=0 run's samples/s."""
     from vdiff_tpu_torch import generate
-    from vdiff_tpu_torch.ops import attention as A
 
     ckpt = os.path.join(tmp, "model.pt")
     sd = model.state_dict()
     torch.save({"model": sd, "ema": {"shadow": sd}}, ckpt)
     runs = [("w=0", "0", 64, 128), ("cfg w=0.1", "0.1", 32, 32)]
-    rates = {}
-    _reset_counts()
+    rates, launched = {}, collections.Counter()
     for name, w, bs, total in runs:
-        n_on, n_q = A.attn_fwd_online.launches, A.attn_fwd_tc.launches
+        _reset_counts()
         summary = generate.main([
             "--config-path", CONFIG, "--ckpt-path", ckpt, "--save-dir", os.path.join(tmp, "out"),
             "--use-ema", "--use-ddim", "--allow-bf16", "--sample-timesteps", str(STEPS),
             "--w-guide", w, "--batch-size", str(bs), "--total-size", str(total), "--seed", "0",
         ])
         forwards = STEPS * (total // bs)
-        d_on, d_q = A.attn_fwd_online.launches - n_on, A.attn_fwd_tc.launches - n_q
+        device = _device_launches(f"sample: {name}", _counts(), summary["stats"],
+                                  SAMPLE_FWD_LAUNCHES_BF16, forwards)
+        launched.update(device)
         pngs = len(glob.glob(os.path.join(summary["save_dir"], "*.png")))
         rates[name] = summary["images"] / summary["seconds"]
         print(f"sample: {name} B={bs} x{total // bs} batches, {STEPS} DDIM steps: "
-              f"{summary['images'] / summary['seconds']} samples/s, {pngs} PNGs, "
-              f"finite={summary['finite']}, launches online={d_on} tc={d_q}", flush=True)
+              f"{summary['images'] / summary['seconds']} samples/s (the first batch's warm-up "
+              f"included), {pngs} PNGs, finite={summary['finite']}", flush=True)
         if pngs != total or not summary["finite"]:
             fail(f"sample {name}: {pngs} PNGs (want {total}), finite={summary['finite']}")
-        if (d_on, d_q) != (ONLINE_PER_FWD * forwards, QBLK_PER_FWD * forwards):
-            fail(f"sample {name}: launches online={d_on} tc={d_q}, expected "
-                 f"{ONLINE_PER_FWD * forwards} and {QBLK_PER_FWD * forwards}")
-    launched = _counts()
-    forwards = STEPS * sum(total // bs for _, _, bs, total in runs)
-    if launched != {k: v * forwards for k, v in SAMPLE_FWD_LAUNCHES_BF16.items()}:
-        fail(f"sample: the bf16 sampler launched {launched}: B1 and attn_fwd_tc alone expected")
-    return launched, ckpt, rates["w=0"]
+    return {k: launched[k] for k in KERNELS}, ckpt, rates["w=0"]
+
+
+def _png_size(path):
+    """(width, height) from a PNG's IHDR chunk."""
+    with open(path, "rb") as f:
+        head = f.read(24)
+    if head[:8] != b"\x89PNG\r\n\x1a\n" or head[12:16] != b"IHDR":
+        fail(f"{path}: not a PNG")
+    return int.from_bytes(head[16:20], "big"), int.from_bytes(head[20:24], "big")
+
+
+def phase_progressive(ckpt, tmp):
+    """generate --progressive on the card: PROGRESSIVE_STEPS DDIM steps at
+    w=0.1, a snapshot every PROGRESSIVE_FREQ, one 32x(32·L) strip a sample."""
+    from vdiff_tpu_torch import generate
+
+    _reset_counts()
+    B, L = 16, PROGRESSIVE_STEPS // PROGRESSIVE_FREQ
+    summary = generate.main([
+        "--config-path", CONFIG, "--ckpt-path", ckpt, "--save-dir", os.path.join(tmp, "prog"),
+        "--use-ema", "--use-ddim", "--allow-bf16", "--sample-timesteps", str(PROGRESSIVE_STEPS),
+        "--progressive", "--pred-freq", str(PROGRESSIVE_FREQ), "--batch-size", str(B),
+        "--total-size", str(B), "--seed", "0"])
+    _device_launches("progressive", _counts(), summary["stats"], SAMPLE_FWD_LAUNCHES_BF16,
+                     PROGRESSIVE_STEPS)
+    sizes = {_png_size(f) for f in glob.glob(os.path.join(summary["save_dir"], "*.png"))}
+    n = len(glob.glob(os.path.join(summary["save_dir"], "*.png")))
+    print(f"progressive: w=0.1 B={B}, {PROGRESSIVE_STEPS} DDIM steps, a snapshot every "
+          f"{PROGRESSIVE_FREQ}: {n} strips of {sizes} (width, height), finite={summary['finite']}",
+          flush=True)
+    if n != B or sizes != {(32 * L, 32)} or not summary["finite"]:
+        fail(f"progressive: {n} strips of {sizes}, finite={summary['finite']}")
+
+
+def _graph_vs_eager(name, model, cfg, w_guide, x_T, y, steps, per_fwd, eta=0.0):
+    """``steps`` DDIM steps of p_sample with the CUDA graph (one eager step,
+    one capture, steps-1 replays) against the eager loop from the same x_T,
+    and for eta > 0 the same generator seed: the same kernels on the same
+    inputs, so the samples must be equal bit for bit (GRAPH_ATOL). Both
+    must launch ``per_fwd`` per step on the device, the capture once."""
+    from vdiff_tpu_torch.factory import build_diffusion
+
+    diffusion, _ = build_diffusion(cfg["diffusion"], w_guide=w_guide, sample_timesteps=steps,
+                                   continuous_gate=False)
+    out, stats, ms = {}, {}, {}
+    for graph in (True, False):
+        gen = torch.Generator(device="cuda").manual_seed(21) if eta else None
+        stats[graph] = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[graph] = diffusion.p_sample(model, x_T, label=y, use_ddim=True, eta=eta, generator=gen,
+                                        graph=graph, stats=stats[graph])
+        torch.cuda.synchronize()
+        ms[graph] = (time.perf_counter() - t0) * 1e3
+    diff = (out[True] - out[False]).abs().max().item()
+    moved = (out[True] - x_T).abs().max().item()
+    g = stats[True]
+    print(f"graph: {name}: {steps} DDIM steps, graph vs eager max_abs_diff={diff} (bound "
+          f"{GRAPH_ATOL}), moved {moved} from x_T, {ms[True]:.1f} ms against {ms[False]:.1f} ms "
+          f"(host clock, one capture included), {g['eager_steps']} eager step, {g['captures']} "
+          f"capture, {g['replays']} replays, captured launches {_nonzero(g['captured_launches'])}",
+          flush=True)
+    if not bool(torch.isfinite(out[True]).all()) or diff > GRAPH_ATOL or not moved > 0.1:
+        fail(f"graph: {name}: graph vs eager max diff {diff} (bound {GRAPH_ATOL}), moved {moved}")
+    want = {k: v * steps for k, v in per_fwd.items()}
+    if (g["eager_steps"], g["captures"], g["replays"]) != (1, 1, steps - 1) or \
+            g["captured_launches"] != per_fwd or g["launches"] != want or \
+            stats[False]["launches"] != want:
+        fail(f"graph: {name}: stats {stats}, expected {per_fwd} a step")
+
+
+def phase_graph(cfg):
+    """The full-width bf16 cifar10_cond model (seeded random weights, zero-init
+    layers perturbed): graph against eager at w=0 B=64 with the switches off,
+    with VDIFF_FUSED_GN=1 and with both switches, CFG w=0.1 at B=32, and DDIM
+    eta=1 at B=64."""
+    model = _perturbed_unet(cfg, dtype=torch.bfloat16).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    per_fwd = {(False, False): SAMPLE_FWD_LAUNCHES_BF16, (False, True): FUSED_GN_FWD_LAUNCHES,
+               (True, True): FUSED_FWD_LAUNCHES}
+    for B, w, eta, conv, gn in ((FUSED_B, 0.0, 0.0, False, False), (FUSED_B, 0.0, 0.0, False, True),
+                                (FUSED_B, 0.0, 0.0, True, True), (32, 0.1, 0.0, False, False),
+                                (FUSED_B, 0.0, 1.0, False, False)):
+        x_T = torch.randn(B, 32, 32, 3, device="cuda", generator=gen)
+        y = (torch.arange(B, device="cuda") % 10 + 1).float()
+        with _switches(conv, gn):
+            _graph_vs_eager(f"cifar10_cond w={w} B={B} eta={eta} VDIFF_FUSED_CONV={int(conv)} "
+                            f"VDIFF_FUSED_GN={int(gn)}", model, cfg, w, x_T, y, GRAPH_STEPS,
+                            per_fwd[conv, gn], eta)
+
+
+def phase_celeba_graph(cfg, model):
+    """The celeba model in bf16 at B=32: graph against eager, with the
+    switches off and with VDIFF_FUSED_GN=1 (B10 on thread-block clusters at
+    64x64)."""
+    from vdiff_tpu_torch.factory import build_unet
+
+    with torch.device("meta"):
+        bf16 = build_unet(cfg["model"], in_channels=3, model_out_type=cfg["diffusion"]["model_out_type"],
+                          num_classes=40, multitags=True, dtype=torch.bfloat16)
+    bf16.load_state_dict({k: v.cuda() for k, v in model.state_dict().items()}, assign=True)
+    bf16.eval()
+    _, y = _celeba_inputs(CELEBA_SAMPLE_B, torch.Generator().manual_seed(22))
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    for gn in (False, True):
+        x_T = torch.randn(CELEBA_SAMPLE_B, 64, 64, 3, device="cuda", generator=gen)
+        with _switches(False, gn):
+            _graph_vs_eager(f"celeba w=0 B={CELEBA_SAMPLE_B} VDIFF_FUSED_GN={int(gn)}", bf16, cfg,
+                            0.0, x_T, y.cuda(), CELEBA_GRAPH_STEPS,
+                            CELEBA_FUSED_GN_FWD_LAUNCHES if gn else CELEBA_FWD_LAUNCHES_BF16)
+    del bf16
+    torch.cuda.empty_cache()
+
+
+def phase_bench():
+    """python -m vdiff_tpu_torch.bench at full width with the sampling cut to
+    BENCH_SAMPLE_STEPS steps, in this process: every root line and arm once,
+    the headline last, each positive."""
+    from vdiff_tpu_torch import bench
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    lines = bench.main(["--sample-steps", str(BENCH_SAMPLE_STEPS)])
+    metrics = [line["metric"] for line in lines]
+    want = {"session_canary_matmul_tf_per_sec", "cifar10_train_img_per_sec_per_chip_bf16",
+            "celeba_samples_per_sec_per_chip_ddim256", "celeba_train_img_per_sec_per_chip",
+            "cifar10_samples_per_sec_per_chip_ddim256_cfg0.1",
+            "celeba_samples_per_sec_per_chip_ddim256_fused_gn",
+            "cifar10_samples_per_sec_per_chip_ddim256_eager",
+            "cifar10_samples_per_sec_per_chip_ddim256_fused_gn", bench.HEADLINE}
+    print(f"bench: {len(lines)} lines in {time.perf_counter() - t0:.1f} s", flush=True)
+    if sorted(metrics) != sorted(want) or metrics[-1] != bench.HEADLINE or \
+            not all(line["value"] > 0 for line in lines):
+        fail(f"bench: lines {metrics}")
 
 
 def _gn_bound(B, H, W, C, dtype, film):
@@ -970,20 +1164,11 @@ def phase_fused_kernels():
     return record
 
 
-@contextlib.contextmanager
 def _switches(conv, gn):
     """VDIFF_FUSED_CONV / VDIFF_FUSED_GN set for a block, restored after it."""
-    want = {"VDIFF_FUSED_CONV": conv, "VDIFF_FUSED_GN": gn}
-    before = {k: os.environ.get(k) for k in want}
-    os.environ.update({k: "1" if v else "0" for k, v in want.items()})
-    try:
-        yield
-    finally:
-        for k, v in before.items():
-            if v is None:
-                del os.environ[k]
-            else:
-                os.environ[k] = v
+    from vdiff_tpu_torch.bench import switches
+
+    return switches(VDIFF_FUSED_CONV=int(conv), VDIFF_FUSED_GN=int(gn))
 
 
 def phase_fused_unet(cfg):
@@ -1037,18 +1222,16 @@ def phase_fused_sample(ckpt, tmp, default_rate):
                 "--sample-timesteps", str(STEPS), "--w-guide", "0", "--batch-size", str(FUSED_B),
                 "--total-size", str(FUSED_B), "--seed", "0",
             ])
-            launched = _counts()
+            launched = _device_launches(f"fused-sample: {name}", _counts(), summary["stats"],
+                                        per_fwd, STEPS)
         pngs = len(glob.glob(os.path.join(summary["save_dir"], "*.png")))
         print(f"fused-sample: {name} w=0 B={FUSED_B}, {STEPS} DDIM steps, finite="
-              f"{summary['finite']}, {pngs} PNGs, launches {launched}", flush=True)
+              f"{summary['finite']}, {pngs} PNGs", flush=True)
         print(f"fused-sample: {name}: {summary['images'] / summary['seconds']} samples/s against "
               f"{default_rate} samples/s of the default path (sample phase, w=0 B=64, two batches)",
               flush=True)
         if pngs != FUSED_B or not summary["finite"]:
             fail(f"fused-sample {name}: {pngs} PNGs (want {FUSED_B}), finite={summary['finite']}")
-        want = {k: v * STEPS for k, v in per_fwd.items()}
-        if launched != want:
-            fail(f"fused-sample {name}: launches {launched}, expected {want}")
         by_path[path] = launched
     return by_path
 
@@ -1208,17 +1391,14 @@ def phase_celeba_sample(model, tmp):
         "--sample-timesteps", str(CELEBA_STEPS), "--w-guide", "0", "--batch-size", str(B),
         "--total-size", str(B), "--seed", "0",
     ])
-    launched = _counts()
+    launched = _device_launches("celeba-sample", _counts(), summary["stats"],
+                                CELEBA_FWD_LAUNCHES_BF16, CELEBA_STEPS)
     pngs = len(glob.glob(os.path.join(summary["save_dir"], "*.png")))
     print(f"celeba-sample: w=0 B={B}, {CELEBA_STEPS} DDIM steps bf16: "
           f"{summary['images'] / summary['seconds']} samples/s ({summary['seconds']} s, the first "
-          f"batch's warm-up included), {pngs} PNGs, finite={summary['finite']}, launches {launched}",
-          flush=True)
+          f"batch's warm-up included), {pngs} PNGs, finite={summary['finite']}", flush=True)
     if pngs != B or not summary["finite"]:
         fail(f"celeba-sample: {pngs} PNGs (want {B}), finite={summary['finite']}")
-    want = {k: v * CELEBA_STEPS for k, v in CELEBA_FWD_LAUNCHES_BF16.items()}
-    if launched != want:
-        fail(f"celeba-sample: launches {launched}, expected {want}")
     return launched
 
 
@@ -1275,10 +1455,12 @@ def main():
     record = phase_kernels()
     cfg, _ = load_experiment_config(CONFIG)
     model = phase_unet(cfg)
-    by_path = {}  # each main path's counts, read just after its run
+    phase_graph(cfg)
+    by_path = {}  # each main path's device launches, read just after its run
     with tempfile.TemporaryDirectory() as tmp:
         by_path["cifar_sample"], ckpt, default_rate = phase_sample(model, tmp)
         del model
+        phase_progressive(ckpt, tmp)
         record.update(phase_fused_kernels())
         phase_fused_unet(cfg)
         by_path.update(phase_fused_sample(ckpt, tmp, default_rate))
@@ -1294,9 +1476,11 @@ def main():
         celeba_cfg, _ = load_experiment_config(CELEBA_CONFIG)
         model = phase_celeba_unet(celeba_cfg)
         phase_celeba_train_unet(celeba_cfg, model)
+        phase_celeba_graph(celeba_cfg, model)
         by_path["celeba_sample"] = phase_celeba_sample(model, tmp)
         del model
         by_path["celeba_train"] = phase_celeba_train(celeba_cfg)
+    phase_bench()
 
     meta = {
         # B1 and B3 in bf16, the paths' type: attn_fwd_tc.cu (their f32 calls

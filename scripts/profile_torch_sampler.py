@@ -1,7 +1,7 @@
 """Where the port's sampling step spends its time on the GPU.
 
     python scripts/profile_torch_sampler.py [--config cifar10_cond|celeba] [--steps 4]
-        [--fused] [--out profile_sampler.txt]
+        [--fused] [--graph] [--out profile_sampler.txt]
 
 Builds the full-width UNet of ``vdiff_tpu_torch`` for ``--config`` (random
 weights), then for its sampling cells of the JAX bench — cifar10_cond: DDIM
@@ -13,9 +13,11 @@ kernel time over wall time) and the kernels by total device time; the full
 tables go to ``--out``. ``--fused`` sets ``VDIFF_FUSED_CONV=1`` and
 ``VDIFF_FUSED_GN=1`` first, so the same profile comes back for the fused
 inference kernels (set ``VDIFF_FUSED_GN=1`` alone in the environment for the
-one-kernel GroupNorm without the fused conv); the first lines printed give
-the card's name and power limit and say which switches were on. Needs a
-CUDA device.
+one-kernel GroupNorm without the fused conv); ``--graph`` profiles the
+steps as the sampler runs them on CUDA, each a replay of one CUDA graph of
+the step (``diffusion.StaticStep``, captured after the first warm-up step).
+The first lines printed give the card's name and power limit and say which
+switches were on. Needs a CUDA device.
 """
 
 import argparse
@@ -29,8 +31,10 @@ from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+from vdiff_tpu_torch.diffusion import StaticStep  # noqa: E402
 from vdiff_tpu_torch.factory import build_diffusion, build_unet, load_experiment_config  # noqa: E402
 from vdiff_tpu_torch.generate import fused_note  # noqa: E402
+from vdiff_tpu_torch.utils.profiling import device_us  # noqa: E402
 
 CONFIG_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                           "vdiff_tpu", "configs")
@@ -41,15 +45,8 @@ SETUPS = {
 }
 
 
-def _device_us(evt):
-    """Device time of a kernel/memcpy event; 0 for host-side (aten) events,
-    whose device time would count their kernels a second time."""
-    if not str(evt.device_type).endswith("CUDA"):
-        return 0
-    return getattr(evt, "self_device_time_total", None) or getattr(evt, "self_cuda_time_total", 0)
-
-
-def profile_cell(model, cfg, w_guide, batch, steps, num_classes, multitags, res, warmup=3):
+def profile_cell(model, cfg, w_guide, batch, steps, num_classes, multitags, res, graph=False,
+                 warmup=3):
     diffusion, _ = build_diffusion(cfg["diffusion"], w_guide=w_guide, sample_timesteps=256,
                                    continuous_gate=False)
     tables = {k: torch.as_tensor(v, device="cuda")
@@ -64,6 +61,21 @@ def profile_cell(model, cfg, w_guide, batch, steps, num_classes, multitags, res,
     def step(i, x):
         row = {k: v[i] for k, v in tables.items()}
         return diffusion._p_sample_step(model, x, row, y, None, use_ddim=True)[0]
+
+    if graph:  # as GaussianDiffusion._graph_steps runs them: x advances in place
+        static = StaticStep(diffusion, model, x, y, diffusion.sample_tables(use_ddim=True), True,
+                            {"clip_denoised": True, "use_ddim": True})
+        side, replay = torch.cuda.Stream(), torch.cuda.CUDAGraph()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.inference_mode(), torch.cuda.stream(side):
+            static()
+        torch.cuda.current_stream().wait_stream(side)
+        with torch.inference_mode(), torch.cuda.graph(replay, stream=side):
+            static()
+
+        def step(i, x):
+            replay.replay()
+            return x
 
     with torch.inference_mode():
         for i in range(warmup):
@@ -83,7 +95,7 @@ def profile_cell(model, cfg, w_guide, batch, steps, num_classes, multitags, res,
         torch.cuda.synchronize()
         step_ms = (time.perf_counter() - t0) / steps * 1e3
     events = prof.key_averages()
-    busy_us = sum(_device_us(e) for e in events)
+    busy_us = sum(device_us(e) for e in events)
     return step_ms, busy_us / (wall * 1e6), busy_us / steps / 1e3, events
 
 
@@ -93,6 +105,8 @@ def main():
     p.add_argument("--steps", type=int, default=4)
     p.add_argument("--fused", action="store_true",
                    help="set VDIFF_FUSED_CONV=1 and VDIFF_FUSED_GN=1 for this run")
+    p.add_argument("--graph", action="store_true",
+                   help="profile replays of the step's CUDA graph, as the sampler runs on CUDA")
     p.add_argument("--out", default="profile_sampler.txt")
     args = p.parse_args()
     if not torch.cuda.is_available():
@@ -113,14 +127,14 @@ def main():
         f.write(fused_note() + "\n")
         for name, w, batch in cells:
             step_ms, busy, kernel_ms, events = profile_cell(model, cfg, w, batch, args.steps,
-                                                            num_classes, multitags, res)
-            head = (f"{args.config} {name}: {step_ms:.3f} ms/step ({batch * 1e3 / step_ms / 256:.3f} samples/s "
+                                                            num_classes, multitags, res, args.graph)
+            head = (f"{args.config} {name}{' (graph)' if args.graph else ''}: {step_ms:.3f} ms/step ({batch * 1e3 / step_ms / 256:.3f} samples/s "
                     f"at 256 steps), device busy {busy:.3f} of the profiled wall time, "
                     f"kernel time {kernel_ms:.3f} ms/step")
             print(head)
-            top = sorted((e for e in events if _device_us(e) > 0), key=_device_us, reverse=True)
+            top = sorted((e for e in events if device_us(e) > 0), key=device_us, reverse=True)
             for e in top[:12]:
-                print(f"  {_device_us(e) / args.steps / 1e3:8.3f} ms/step  {e.count // args.steps:5d}x/step"
+                print(f"  {device_us(e) / args.steps / 1e3:8.3f} ms/step  {e.count // args.steps:5d}x/step"
                       f"  {e.key[:90]}")
             f.write(head + "\n")
             key = "self_device_time_total" if hasattr(events[0], "self_device_time_total") \

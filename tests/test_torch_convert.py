@@ -171,7 +171,8 @@ def test_generate_cli_on_cpu(tmp_path, w_guide):
     assert summary["images"] == len(pngs) == 3 and summary["finite"]
 
 
-@pytest.mark.parametrize("flags", [["--dp"], ["--tp"], ["--spatial-shard"], ["--progressive"],
+@pytest.mark.parametrize("flags", [["--dp"], ["--tp"], ["--spatial-shard"],
+                                   ["--progressive", "--pred-freq", "0"],
                                    ["--use-ddim", "--eta", "1.5"], ["--eta", "0.5"]])
 def test_generate_cli_refuses_what_is_not_ported(tmp_path, flags):
     from vdiff_tpu_torch.generate import main

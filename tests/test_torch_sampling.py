@@ -1,6 +1,10 @@
 """Port sampler (vdiff_tpu_torch.diffusion, ops.numerics' host path) vs the JAX
 package on the CPU: step tables, single reverse steps with shared numpy noise,
-and a whole 4-step DDIM run of the small UNet from the same x_T."""
+whole DDIM runs of the small UNet from the same x_T (p_sample and
+p_sample_progressive), the step a CUDA graph captures run eagerly against the
+eager loop, and the generate CLI's --progressive strips."""
+
+import os
 
 import numpy as np
 import pytest
@@ -158,3 +162,118 @@ def test_pred_conversions_match_jax(name):
     got = getattr(N, name)(*(torch.from_numpy(v) for v in args))
     # f32 elementwise; exp(±λ/2) reaches ~55 at |λ|=8
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("T,pred_freq", [(8, 4), (10, 4)], ids=["T8-f4", "T10-f4-head2"])
+def test_p_sample_progressive_matches_jax(T, pred_freq):
+    """DDIM η=0 of the small UNet from the same x_T: the final sample and the
+    L = T // pred_freq snapshots of x̂_0, the most denoised first, against
+    JAX's; with T % pred_freq = 2, the two leading steps take none. The
+    p_sample bound (f32 UNet round-off over the steps)."""
+    jd, td = _pair(sample_timesteps=T, w_guide=0.1)
+    model, params = P.jax_unet()
+    x, _, _ = P.inputs(B=2, seed=9)
+    y = np.array([3.0, 7.0], np.float32)
+    ref_x, ref_snaps = jax.jit(lambda x_T, y: jd.p_sample_progressive(
+        lambda a, b, c: model.apply({"params": params}, a, b, c), x_T.shape,
+        jax.random.key(0), noise=x_T, label=y, use_ddim=True, pred_freq=pred_freq))(
+        jnp.asarray(x), jnp.asarray(y))
+    port = P.port_unet()
+    stats = {}
+    got_x, got_snaps = td.p_sample_progressive(port, torch.from_numpy(x), label=torch.from_numpy(y),
+                                               use_ddim=True, pred_freq=pred_freq, stats=stats)
+    assert got_snaps.shape == (T // pred_freq, 2, 32, 32, 3) == ref_snaps.shape
+    np.testing.assert_allclose(got_x.numpy(), np.asarray(ref_x), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(got_snaps.numpy(), np.asarray(ref_snaps), rtol=1e-4, atol=1e-4)
+    # most denoised first: the last snapshot is the first step's x̂_0, and
+    # each snapshot sits nearer the final sample than the one after it
+    dist = [np.abs(s - got_x.numpy()).mean() for s in got_snaps.numpy()]
+    assert dist == sorted(dist) and dist[-1] > dist[0]
+    assert stats["eager_steps"] == T and stats["captures"] == stats["replays"] == 0
+    np.testing.assert_array_equal(got_x.numpy(), td.p_sample(
+        port, torch.from_numpy(x), label=torch.from_numpy(y), use_ddim=True).numpy())
+
+
+SAMPLER_MODES = [dict(use_ddim=True, eta=0.0), dict(use_ddim=True, eta=1.0), dict(use_ddim=False)]
+
+
+@pytest.mark.parametrize("mode", SAMPLER_MODES, ids=["ddim-eta0", "ddim-eta1", "ancestral"])
+def test_static_step_equals_the_eager_loop_bit_for_bit(mode):
+    """The step a CUDA graph captures (diffusion.StaticStep: fixed buffers,
+    the table row picked on the device, noise drawn into a buffer), run
+    eagerly on the CPU for all T steps, gives the eager loop's sample bit for
+    bit, CFG on, from one generator seed; so do its x̂_0 at every step."""
+    from vdiff_tpu_torch.diffusion import StaticStep
+
+    T = 4
+    _, td = _pair(sample_timesteps=T, w_guide=0.1)
+    port = P.port_unet()
+    x, _, _ = P.inputs(B=2, seed=6)
+    x, y = torch.from_numpy(x), torch.tensor([3.0, 7.0])
+    ref_x, ref_preds = td.p_sample_progressive(port, x, label=y, pred_freq=1,
+                                               generator=torch.Generator().manual_seed(3), **mode)
+    deterministic = mode["use_ddim"] and mode.get("eta") == 0.0
+    step = StaticStep(td, port, x, y, td.sample_tables(**mode), deterministic,
+                      dict(clip_denoised=True, use_ddim=mode["use_ddim"]))
+    gen = torch.Generator().manual_seed(3)
+    preds = []
+    with torch.inference_mode():
+        for _ in range(T):
+            step.draw(gen)
+            preds.append(step())
+    assert int(step.index) == T
+    assert torch.equal(step.x, ref_x)
+    assert torch.equal(torch.stack(preds[::-1]), ref_preds)
+    assert not torch.equal(ref_x, x)
+    if not deterministic:  # the noise moved the sample: another seed differs
+        other = td.p_sample(port, x, label=y, generator=torch.Generator().manual_seed(4), **mode)
+        assert not torch.equal(other, ref_x)
+
+
+def test_p_sample_stats_add_up_on_the_cpu():
+    """The CPU runs the eager loop: T eager steps, no capture, and no kernel
+    launch (the wrappers run their twins), summed over calls."""
+    _, td = _pair(sample_timesteps=3)
+    stats = {}
+    for _ in range(2):
+        td.p_sample(_denoiser(torch, 1), torch.zeros(1, 4, 4, 3), use_ddim=True, stats=stats)
+    assert stats["eager_steps"] == 6 and stats["captures"] == stats["replays"] == 0
+    assert set(stats["launches"]) >= {"attn_fwd_online", "gn_film_silu_kernel"}
+    assert not any(stats["launches"].values())
+    assert stats["captured_launches"] == stats["replayed_launches"] == {}
+
+
+def test_generate_progressive_writes_the_snapshot_strips(tmp_path):
+    """``generate --progressive`` on the CPU writes one 32×(32·L) strip per
+    sample (L = 4 // 2), and the strips are the concatenated x̂_0 snapshots
+    of the same x_T, labels and weights, as PNG pixels."""
+    Image = pytest.importorskip("PIL.Image")
+    from tests.test_torch_convert import _tiny_setup
+    from vdiff_tpu_torch.data import DATA_INFO
+    from vdiff_tpu_torch.factory import build_diffusion, load_experiment_config
+    from vdiff_tpu_torch.generate import main, make_label_stream
+
+    cfg_path, ckpt = _tiny_setup(tmp_path)
+    summary = main(["--config-path", cfg_path, "--ckpt-path", ckpt, "--save-dir", str(tmp_path),
+                    "--device", "cpu", "--use-ema", "--use-ddim", "--sample-timesteps", "4",
+                    "--progressive", "--pred-freq", "2", "--batch-size", "2", "--total-size", "2",
+                    "--seed", "5"])
+    strips = []
+    for name in sorted(os.listdir(summary["save_dir"])):
+        if name.endswith(".png"):
+            with Image.open(os.path.join(summary["save_dir"], name)) as im:
+                strips.append(np.asarray(im))
+    assert summary["images"] == len(strips) == 2 and summary["finite"]
+    assert all(s.shape == (32, 64, 3) for s in strips)
+
+    cfg, _ = load_experiment_config(cfg_path)
+    diffusion, _ = build_diffusion(cfg["diffusion"], w_guide=0.1, sample_timesteps=4,
+                                   continuous_gate=False)
+    gen = torch.Generator().manual_seed(5)
+    x_T = torch.randn((2, 32, 32, 3), generator=gen)
+    y = torch.as_tensor(make_label_stream(DATA_INFO["cifar10"], True, False, 5)(2))
+    _, snaps = diffusion.p_sample_progressive(P.port_unet(), x_T, label=y, use_ddim=True,
+                                              pred_freq=2, generator=gen)
+    want = np.clip(torch.cat(list(snaps), dim=2).numpy() * 127.5 + 127.5, 0, 255).astype(np.uint8)
+    key = lambda a: a.tobytes()
+    assert sorted(map(key, strips)) == sorted(map(key, want))

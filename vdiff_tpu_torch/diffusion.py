@@ -3,9 +3,12 @@
 
 Per-step schedule and posterior scalars are precomputed on the host in numpy
 float64 and cast to float32 (:meth:`GaussianDiffusion.sample_tables`), exactly
-as the JAX package does. The reverse process is a Python loop over the table
-rows on the device. Classifier-free guidance doubles the batch as
-concatenated halves [cond; uncond]. Randomness is explicit: the caller passes
+as the JAX package does. The reverse process runs the step once per table
+row: on a CUDA device the first step eagerly, then the step captured as one
+CUDA graph and replayed for the rest (the port's counterpart of the JAX
+package's jitted ``lax.scan``); on the CPU, or with ``graph=False``, a
+Python loop. Classifier-free guidance doubles the batch as concatenated
+halves [cond; uncond]. Randomness is explicit: the caller passes
 ``x_T`` and, for ancestral or η>0 DDIM sampling, a ``torch.Generator``;
 deterministic DDIM (η=0) draws no noise.
 
@@ -23,6 +26,7 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
+from .ops import launch_counts
 from .ops import numerics as N
 
 
@@ -209,19 +213,163 @@ class GaussianDiffusion:
 
     def p_sample(self, denoise_fn, x_T: torch.Tensor, label=None, use_ddim: bool = False,
                  clip_denoised: bool = True, eta: float = 0.0,
-                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                 generator: Optional[torch.Generator] = None, graph: bool = True,
+                 stats: Optional[dict] = None) -> torch.Tensor:
         """All T reverse steps from ``x_T`` (B, H, W, C). ``generator`` draws
-        the per-step noise; it is required unless DDIM with η=0."""
+        the per-step noise; it is required unless DDIM with η=0.
+
+        On a CUDA ``x_T`` the steps after the first replay one CUDA graph of
+        the step, captured in this call (:meth:`_graph_steps`); ``graph=False``,
+        or a CPU ``x_T``, runs the eager loop. ``stats``, where given, is
+        updated with what ran (:meth:`_reverse`)."""
+        x, _ = self._reverse(denoise_fn, x_T, label, use_ddim, clip_denoised, eta, generator,
+                             graph, stats, snapshot_rows=())
+        return x
+
+    def p_sample_progressive(self, denoise_fn, x_T: torch.Tensor, label=None,
+                             use_ddim: bool = False, pred_freq: int = 50, eta: float = 0.0,
+                             generator: Optional[torch.Generator] = None, graph: bool = True,
+                             stats: Optional[dict] = None):
+        """:meth:`p_sample` that also returns x̂_0 snapshots: (x_0, (L, B, H,
+        W, C)) with L = T // pred_freq, the most denoised first, as JAX's
+        ``p_sample_progressive`` returns them. The ``T % pred_freq`` leading
+        steps take no snapshot; after them the first step of every run of
+        ``pred_freq`` does (reverse steps ti with (ti + 1) % pred_freq == 0)."""
+        T = self.sample_timesteps
+        head = T % pred_freq
+        rows = range(head, T, pred_freq)
+        x, snaps = self._reverse(denoise_fn, x_T, label, use_ddim, True, eta, generator, graph,
+                                 stats, snapshot_rows=rows)
+        if not snaps:
+            return x, x.new_empty((0,) + tuple(x.shape))
+        return x, torch.stack(snaps[::-1])
+
+    def _reverse(self, denoise_fn, x_T, label, use_ddim, clip_denoised, eta, generator, graph,
+                 stats, snapshot_rows):
+        """The reverse process under ``torch.inference_mode``; returns (x_0,
+        the x̂_0 of the table rows in ``snapshot_rows``). ``stats`` gets, added
+        to what it holds: ``eager_steps``, ``captures`` and ``replays``;
+        ``launches``, each kernel wrapper's launches on the device (the eager
+        steps' plus the replays'); ``captured_launches``, the wrappers' counts
+        during the captures, which launch nothing; ``replayed_launches``, the
+        launches of the replays, which the wrappers do not count. So the
+        device ran the wrappers' counts less ``captured_launches`` plus
+        ``replayed_launches``."""
         deterministic = use_ddim and eta == 0.0
         if not deterministic and generator is None:
             raise ValueError("ancestral / eta>0 sampling needs an explicit torch.Generator")
-        tables = {k: torch.as_tensor(v, device=x_T.device)
-                  for k, v in self.sample_tables(use_ddim=use_ddim, eta=eta).items()}
-        x = x_T
+        tables = self.sample_tables(use_ddim=use_ddim, eta=eta)
+        step_args = dict(clip_denoised=clip_denoised, use_ddim=use_ddim)
+        before = launch_counts()
+        with torch.inference_mode():
+            if graph and x_T.is_cuda:
+                x, snaps, run = self._graph_steps(denoise_fn, x_T, label, tables, deterministic,
+                                                  generator, step_args, snapshot_rows)
+            else:
+                x, snaps = self._eager_steps(denoise_fn, x_T, label, tables, deterministic,
+                                             generator, step_args, snapshot_rows)
+                run = {"eager_steps": self.sample_timesteps, "captures": 0, "replays": 0,
+                       "launches": _delta(launch_counts(), before), "captured_launches": {},
+                       "replayed_launches": {}}
+        if stats is not None:
+            for key, value in run.items():
+                if isinstance(value, dict):
+                    total = stats.setdefault(key, {})
+                    for name, n in value.items():
+                        total[name] = total.get(name, 0) + n
+                else:
+                    stats[key] = stats.get(key, 0) + value
+        return x, snaps
+
+    def _eager_steps(self, denoise_fn, x_T, label, tables, deterministic, generator, step_args,
+                     snapshot_rows):
+        """The plain loop: one step after another from the table rows."""
+        tables = {k: torch.as_tensor(v, device=x_T.device) for k, v in tables.items()}
+        x, snaps = x_T, []
         for i in range(self.sample_timesteps):
             row = {k: v[i] for k, v in tables.items()}
             noise = None if deterministic else torch.randn(
                 x.shape, generator=generator, device=x.device, dtype=x.dtype)
-            x, _ = self._p_sample_step(denoise_fn, x, row, label, noise,
-                                       clip_denoised=clip_denoised, use_ddim=use_ddim)
-        return x
+            x, pred = self._p_sample_step(denoise_fn, x, row, label, noise, **step_args)
+            if i in snapshot_rows:
+                snaps.append(pred)
+        return x, snaps
+
+    def _graph_steps(self, denoise_fn, x_T, label, tables, deterministic, generator, step_args,
+                     snapshot_rows):
+        """Step 0 eagerly, then the step captured once as a CUDA graph and
+        replayed for the other T-1 steps; the graph is freed on return.
+
+        Step 0 runs on the stream the capture then uses: it builds and loads
+        the kernels, lets cuBLAS and cuDNN (its autotuner too, where on) pick
+        their algorithms and allocates their workspaces, none of which may
+        happen inside a capture. Each replay's noise is drawn from
+        ``generator`` into the static buffer before it, outside the graph, so
+        the draws are the eager loop's. A capture or replay error raises;
+        nothing falls back to the eager loop."""
+        step = StaticStep(self, denoise_fn, x_T, label, tables, deterministic, step_args)
+        T = self.sample_timesteps
+        side = torch.cuda.Stream(device=x_T.device)
+        side.wait_stream(torch.cuda.current_stream(x_T.device))
+        c0 = launch_counts()
+        with torch.cuda.stream(side):
+            step.draw(generator)
+            pred = step()
+        torch.cuda.current_stream(x_T.device).wait_stream(side)
+        c1 = launch_counts()
+        snaps = [pred] if 0 in snapshot_rows else []
+        captured = {}
+        if T > 1:
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, stream=side):
+                pred = step()
+            captured = _delta(launch_counts(), c1)
+            for i in range(1, T):
+                step.draw(generator)
+                graph.replay()
+                if i in snapshot_rows:
+                    snaps.append(pred.clone())
+            del graph
+        eager = _delta(c1, c0)
+        replayed = {k: n * (T - 1) for k, n in captured.items()}
+        run = {"eager_steps": 1, "captures": int(T > 1), "replays": T - 1,
+               "launches": {k: eager[k] + replayed.get(k, 0) for k in eager},
+               "captured_launches": captured, "replayed_launches": replayed}
+        return step.x, snaps, run
+
+
+def _delta(after: dict, before: dict) -> dict:
+    return {k: after[k] - before[k] for k in after}
+
+
+class StaticStep:
+    """One reverse step over buffers whose addresses stay fixed, the form a
+    CUDA graph captures: a call reads ``x``, the table row at ``index``, the
+    labels and ``noise``, writes x_s into ``x`` in place, advances ``index``
+    on the device and returns x̂_0. Each buffer is the caller's value copied
+    once; :meth:`draw` fills ``noise`` from the caller's generator as the
+    eager loop draws it. Called eagerly it computes what the eager loop's
+    step computes, operation for operation."""
+
+    def __init__(self, diffusion: GaussianDiffusion, denoise_fn, x_T: torch.Tensor, label,
+                 tables: Dict[str, np.ndarray], deterministic: bool, step_args: dict):
+        self.diffusion, self.denoise_fn, self.step_args = diffusion, denoise_fn, step_args
+        self.keys = list(tables)
+        self.table = torch.as_tensor(np.stack([tables[k] for k in self.keys], axis=1),
+                                     device=x_T.device)
+        self.index = torch.zeros(1, dtype=torch.long, device=x_T.device)
+        self.x = x_T.clone()
+        self.label = None if label is None else label.clone()
+        self.noise = None if deterministic else torch.empty_like(self.x)
+
+    def draw(self, generator: Optional[torch.Generator]):
+        if self.noise is not None:
+            torch.randn(self.noise.shape, generator=generator, out=self.noise)
+
+    def __call__(self) -> torch.Tensor:
+        row = dict(zip(self.keys, self.table.index_select(0, self.index)[0].unbind()))
+        x_s, pred = self.diffusion._p_sample_step(self.denoise_fn, self.x, row, self.label,
+                                                  self.noise, **self.step_args)
+        self.x.copy_(x_s)
+        self.index.add_(1)
+        return pred

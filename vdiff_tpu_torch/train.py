@@ -15,7 +15,8 @@ Flag mapping: ``--allow-bf16`` runs the UNet in bfloat16 (params stay f32),
 ``--cudnn-benchmark`` sets cuDNN's autotuner, ``--allow-fp16`` and
 ``--use-xformers`` are accepted for parity (the port always runs its own
 attention kernels), and ``--prng-impl`` is accepted and ignored (the port draws
-from ``torch.Generator``). Refused until their slice: ``--distributed``,
+from ``torch.Generator``), as are ``--train-device`` and ``--eval-device`` (the
+JAX CLI's; ``--device`` places both here). Refused until their slice: ``--distributed``,
 ``--fsdp``, ``--fsdp-size`` (multi-GPU, ROADMAP A10), ``--remat``,
 ``--remat-policy`` (activation checkpointing, A7) and ``--eval`` (in-training
 FID, A9).
@@ -178,6 +179,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--num-workers", type=int, default=4,
                    help="CelebA's JPEG decode threads (other datasets are in memory)")
     p.add_argument("--device", type=str, default="cuda")
+    p.add_argument("--train-device", type=str, default="cuda",
+                   help="(parity) accepted and ignored: --device places training")
+    p.add_argument("--eval-device", type=str, default="cuda",
+                   help="(parity) accepted and ignored: --device places sampling")
     p.add_argument("--image-intv", type=int)
     p.add_argument("--num-save-images", type=int, help="number of images to generate & save")
     p.add_argument("--use-ddim", action="store_true", help="whether to use DDIM sampler")

@@ -279,6 +279,8 @@ class Trainer:
         # throughput over the steps after the run's first (the first pays for
         # cuDNN's autotuning and the kernels' build)
         self.timing = {"images": 0, "seconds": 0.0}
+        # the sampler's stats summed over the sample grids (diffusion.p_sample)
+        self.sampler_stats = {}
 
     @property
     def num_classes(self):
@@ -343,7 +345,7 @@ class Trainer:
         y = None if label is None else torch.as_tensor(label, device=self.device)
         with torch.inference_mode():
             x = self.diffusion.p_sample(self.sampling_model(), x_T, label=y, use_ddim=use_ddim,
-                                        generator=gen)
+                                        generator=gen, stats=self.sampler_stats)
         return x.float().cpu().numpy()
 
     def sample_labels(self):
@@ -361,7 +363,8 @@ class Trainer:
     def train(self, ckpt_dir=None, image_dir=None, use_ddim=False,
               logger: Callable[[str], None] = print) -> dict:
         """Run the remaining epochs; returns a summary (steps, last epoch's
-        loss, images/s over the steps after the first)."""
+        loss, images/s over the steps after the first, the sample grids'
+        sampler stats)."""
         if ckpt_dir and self.ckpt_manager is None:
             self.ckpt_manager = CheckpointManager(ckpt_dir, self.max_ckpts_kept)
         nrow, labels = 8, None
@@ -402,7 +405,8 @@ class Trainer:
                 self.save_checkpoint(epoch=e + 1, extra=dict(stats))
         t = self.timing
         return {"steps": self.host_step - first_step, "loss": stats.get("loss"),
-                "img_per_s": t["images"] / t["seconds"] if t["images"] else None}
+                "img_per_s": t["images"] / t["seconds"] if t["images"] else None,
+                "sampler": self.sampler_stats}
 
     def save_checkpoint(self, epoch: int, extra=None) -> str:
         assert self.ckpt_manager is not None
