@@ -26,6 +26,24 @@ Phases, one output line each (any failure raises and exits non-zero):
      samples at w=0 (B=64, two batches) and with CFG at w=0.1 (B=32), each
      batch replaying the step's graph, and the device must have run 17
      (attn_fwd_online) + 1 (attn_fwd_tc) launches per UNet forward;
+  4e. nll: the eval CLI (vdiff_tpu_torch.eval --metrics nll) on phase 4's
+     checkpoint in f32, 256 steps, 2 batches of 64 synthetic test images:
+     finite bits/dim, forwards/s, and per forward B1 x17 and B2 x1 on their
+     f32 FMA kernels (attn_fwd_online.cu, attn_fwd_qblk.cu); then
+     calc_all_bpd at B=2, T=8 on CUDA against the CPU, same weights and
+     noise: total within 1e-3 relative;
+  4f. metric-nets: synthetic release-format FID Inception (with the IS head)
+     and VGG16 weights written to <tmp>/precomputed; Inception's 2048-d
+     features, its IS probabilities and VGG16's fc7 on the card vs the CPU
+     for 8 images, f32, within 1e-3 of max|ref|; images/s of each at B=256;
+  4g. rehearsal: generate writes 2 x 1024 PNGs of the full-width model (bf16,
+     16 DDIM steps) as folders A and B, and 1024 noise PNGs; the fid CLI saves
+     A's statistics, A's P&R manifold is cached, and the eval CLI runs fid,
+     is and pr on A from <tmp>: FID(A, A's stats) < 1e-2, FID(A, B) finite
+     and below FID(A, noise), P&R (1, 1), IS finite and >= 1;
+  4h. evaluator: train_lib.Evaluator with the Trainer's graph-replayed eval
+     sampler (16 DDIM steps, labels drawn), 3 batches of 128, against A's
+     statistics: a finite FID;
   4p. progressive: generate --progressive (16 steps at w=0.1, a snapshot
      every 4, B=16): 16 finite strips of 32x128 pixels;
   4a. fused-kernels: gn_film_silu_kernel (B10) and fused_gn_silu_conv3x3 (B11)
@@ -101,7 +119,7 @@ Phases, one output line each (any failure raises and exits non-zero):
      cut to 16 steps (--sample-steps), in this process: its JSON lines (the
      root bench's five, the canary and three arms, the headline last).
 Every kernel's launches in the JSON record are counted on the main paths
-(phases 4, 4c, 7, 11, 12), each run with the counts set to 0 just before it and
+(phases 4, 4e, 4c, 7, 11, 12), each run with the counts set to 0 just before it and
 read just after: "launches" is their sum over the paths, and
 "launches_by_path" each path's own count. A sampling path replays CUDA
 graphs, whose replays the wrappers do not count and whose captures launch
@@ -111,7 +129,9 @@ kernels' JSON record (with each kernel's time, its twin's, one PyTorch
 call's where there is one, the card's bound for the same work, and for the
 tensor-core kernels of B1-B9 and B11 the FMA kernel's time on the same
 inputs, "before_ms"; phases 2 and 5 list every bf16 shape of a wrapper under
-"shapes", the first of them the record's own); the last line is
+"shapes", the first of them the record's own; B1's and B2's f32 calls, the
+eval path's, are attn_fwd_online_f32 and attn_fwd_qblk, with phase 2's f32
+shapes); the last line is
 {"ok": true, "device": {...}}.
 Imports nothing of JAX.
 """
@@ -127,6 +147,7 @@ import sys
 import tempfile
 import time
 
+import numpy as np
 import torch
 
 CONFIGS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "vdiff_tpu", "configs")
@@ -390,14 +411,22 @@ def phase_kernels():
             print(f"kernels: {tag}: " + _fmt(rec), flush=True)
             if tc:
                 _keep_shape(record, name, (B, T, N, C), rec)
+            else:  # f32: the FMA kernels, which the eval path's f32 UNet runs
+                _keep_shape(record, F32_RECORDS[fn.__name__], (B, T, N, C), rec)
             del qkv
     torch.cuda.empty_cache()
     return record
 
 
+# the kernels' JSON names of B1's and B2's f32 calls (attn_fwd_online.cu,
+# attn_fwd_qblk.cu): B1's wrapper counts both dtypes, so its f32 record and
+# launches go under a name of their own
+F32_RECORDS = {"attn_fwd_online": "attn_fwd_online_f32", "attn_fwd_qblk": "attn_fwd_qblk"}
+
+
 def _keep_shape(record, name, shape, rec):
-    """The first bf16 shape's record is the wrapper's own; every shape's,
-    that one too, goes under its "shapes"."""
+    """The first shape's record is the kernel's own; every shape's, that one
+    too, goes under its "shapes"."""
     record.setdefault(name, dict(rec, shapes=[]))["shapes"].append(
         dict(zip("BTNC", shape), **rec))
 
@@ -1443,6 +1472,252 @@ def phase_celeba_train(cfg):
     return total
 
 
+
+# ---------------------------------------------------------------------------
+# the eval path: nll, the metric nets, the dress rehearsal, the Evaluator
+# ---------------------------------------------------------------------------
+
+# the nll phase: the eval CLI over synthetic's test images in f32, so every
+# forward runs B1's and B2's FMA kernels (attn_fwd_online.cu ×17 and
+# attn_fwd_qblk.cu ×1); and calc_all_bpd on CUDA against the CPU
+NLL_B, NLL_TOTAL = 64, 128
+NLL_FWD_LAUNCHES = _launches(attn_fwd_online=ONLINE_PER_FWD, attn_fwd_qblk=QBLK_PER_FWD)
+BPD_B, BPD_T = 2, 8
+# total bits/dim on CUDA vs the CPU, relative: the terms move with the UNet's
+# output (UNET_RTOL). The decoder's NLL (step 0) takes -log of bin masses that
+# f32 resolves only to ~2^-24 near a CDF of 0 or 1, so a tail bin whose mass
+# rounds the other way moves the total by ~1e-4 of itself: the bound holds ~10
+BPD_RTOL = 1e-3
+# the metric nets, f32 on the card (TF32 off) vs the CPU, same 8 images:
+# 1e-3 of max|ref| (cuDNN's and the CPU's conv sums in other orders over
+# ~95 convs)
+METRIC_NET_RTOL, METRIC_NET_IMAGES = 1e-3, 8
+# the dress rehearsal: two folders of the full-width model's samples (16
+# DDIM steps, bf16), one of uniform noise
+REHEARSAL_N, REHEARSAL_NOISE_N, REHEARSAL_STEPS = 1024, 1024, 16
+FID_SELF_BOUND = 1e-2
+
+
+def phase_nll(cfg, model, ckpt):
+    """The eval CLI's nll on the full-width cifar10_cond checkpoint (f32, the
+    config's 256 steps, 2 batches of 64 synthetic test images): finite bits/dim
+    and, per forward, B1 ×17 and B2 ×1 on their FMA kernels; then calc_all_bpd
+    at B=2, T=8 on CUDA against the CPU, same weights and noise. Returns the
+    run's launches under the f32 kernels' names."""
+    from vdiff_tpu_torch import eval as eval_cli
+    from vdiff_tpu_torch.factory import build_diffusion
+
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = eval_cli.main(["--dataset", "synthetic", "--metrics", "nll", "--config-path", CONFIG,
+                         "--ckpt-path", ckpt, "--use-ema", "--eval-batch-size", str(NLL_B),
+                         "--eval-total-size", str(NLL_TOTAL)])
+    seconds = time.perf_counter() - t0
+    launched = _counts()
+    forwards = STEPS * (NLL_TOTAL // NLL_B)
+    print(f"nll: cifar10_cond f32, {NLL_TOTAL} synthetic test images in batches of {NLL_B}, "
+          f"{STEPS} steps: {out.get('nll')} bits/dim in {seconds:.1f} s, "
+          f"{forwards / seconds:.2f} forwards/s ({forwards * NLL_B / seconds:.1f} images·steps/s, "
+          f"the first batch's warm-up included), launches {_nonzero(launched)}", flush=True)
+    if not isinstance(out.get("nll"), float) or not math.isfinite(out["nll"]):
+        fail(f"nll: {out}")
+    want = {k: v * forwards for k, v in NLL_FWD_LAUNCHES.items()}
+    if launched != want:
+        fail(f"nll: launches {launched}, expected {want}")
+
+    diffusion, _ = build_diffusion(cfg["diffusion"], w_guide=0.0, sample_timesteps=BPD_T,
+                                   continuous_gate=False)
+    gen = torch.Generator().manual_seed(30)
+    x_0 = torch.randint(0, 256, (BPD_B, 32, 32, 3), generator=gen).float() / 127.5 - 1.0
+    y = torch.tensor([3.0, 7.0])
+    noise = torch.randn((BPD_T,) + tuple(x_0.shape), generator=gen)
+    model_gpu = copy.deepcopy(model).cuda()
+    got = diffusion.calc_all_bpd(model_gpu, x_0.cuda(), y.cuda(), noise=noise.cuda())
+    del model_gpu
+    ref = diffusion.calc_all_bpd(model, x_0, y, noise=noise)
+    total, ref_total = got[0].cpu().numpy(), ref[0].numpy()
+    err = abs(total - ref_total)
+    bound = BPD_RTOL * abs(ref_total)
+    kl_err = (got[1][:, 1:].cpu() - ref[1][:, 1:]).abs().max().item()
+    print(f"nll: calc_all_bpd B={BPD_B} T={BPD_T} f32 cuda vs cpu: total {total} vs {ref_total}, "
+          f"err {err} (bound {BPD_RTOL} relative), KL terms max err "
+          f"{kl_err} of {ref[1][:, 1:].abs().max().item()}, decoder terms {got[1][:, 0].tolist()} "
+          f"vs {ref[1][:, 0].tolist()}", flush=True)
+    if not (bool((err <= bound).all()) and math.isfinite(float(total.sum()))):
+        fail(f"nll: calc_all_bpd cuda {total} vs cpu {ref_total}, bound {bound}")
+    return {"attn_fwd_online_f32": launched["attn_fwd_online"],
+            "attn_fwd_qblk": launched["attn_fwd_qblk"]}
+
+
+def _write_metric_weights(pre):
+    """Release-format synthetic weights in ``pre``: the FID Inception (with
+    its IS head) and VGG16, both through manifests.he_rescaled, so their
+    features depend on the images (and VGG's fc7 stays within float16's
+    range, where P&R keeps its features)."""
+    from vdiff_tpu_torch.metrics import inception, vgg
+    from vdiff_tpu_torch.metrics.manifests import (fid_inception_manifest, he_rescaled,
+                                                   synth_state_dict, vgg16_manifest)
+
+    os.makedirs(pre, exist_ok=True)
+    inc = he_rescaled(synth_state_dict(fid_inception_manifest(), seed=0))
+    vgg_sd = he_rescaled(synth_state_dict(vgg16_manifest(), seed=1))
+    for sd, name in ((inc, inception.FID_WEIGHTS_FILENAME), (vgg_sd, vgg.VGG_FILENAMES[1])):
+        torch.save({k: torch.from_numpy(np.asarray(v)) for k, v in sd.items()},
+                   os.path.join(pre, name))
+
+
+def phase_metric_nets(pre):
+    """The Inception's 2048-d features and IS probabilities and VGG16's fc7
+    from the written weights, f32 on the card vs the CPU on the same 8
+    images; then each net's images/s on the card at the eval CLI's batch."""
+    from vdiff_tpu_torch.metrics import inception, vgg
+
+    imgs = np.random.RandomState(31).randint(0, 256, (METRIC_NET_IMAGES, 32, 32, 3)).astype(np.uint8)
+    nets = {
+        "inception": inception._load_inception(
+            os.path.join(pre, inception.FID_WEIGHTS_FILENAME), True, "cpu"),
+        "vgg16": vgg.VGG16Features(),
+    }
+    vgg.load_vgg_state_dict(nets["vgg16"], torch.load(os.path.join(pre, vgg.VGG_FILENAMES[1]),
+                                                      weights_only=True))
+    inputs = {"inception": torch.from_numpy(imgs.astype(np.float32) / 127.5 - 1.0),
+              "vgg16": torch.from_numpy(imgs.astype(np.float32))}
+
+    def outputs(name, net, x):
+        with torch.inference_mode():
+            out = net(x)
+        if name == "inception":
+            return {"features": out[0][:, 0, 0, :], "is_probs": torch.softmax(out[1], -1)}
+        return {"fc7": out}
+
+    for name, net in nets.items():
+        ref = outputs(name, net, inputs[name])
+        net.cuda()
+        got = outputs(name, net, inputs[name].cuda())
+        for key, r in ref.items():
+            scale = r.abs().max().item()
+            err = (got[key].cpu() - r).abs().max().item()
+            print(f"metric-nets: {name} {key} f32 cuda vs cpu, {METRIC_NET_IMAGES} images: max_abs_err "
+                  f"{err} (bound {METRIC_NET_RTOL} x max|ref| {scale})", flush=True)
+            if not (scale > 0 and err <= METRIC_NET_RTOL * scale):
+                fail(f"metric-nets: {name} {key} err {err} > {METRIC_NET_RTOL} * {scale}")
+        B = 256
+        x = inputs[name][:1].cuda().expand(B, -1, -1, -1).contiguous()
+        with torch.inference_mode():
+            ms = cuda_ms(lambda: net(x), iters=5, warmup=2)
+        print(f"metric-nets: {name} f32 B={B} (32x32 in, {299 if name == 'inception' else 224}"
+              f" after the resize): {ms:.2f} ms a batch, {B / ms * 1e3:.1f} images/s", flush=True)
+        net.cpu()
+    torch.cuda.empty_cache()
+
+
+def phase_rehearsal(ckpt, tmp, pre):
+    """generate → fid --save-stats → eval: two folders A and B of the
+    full-width model's samples (bf16, REHEARSAL_STEPS DDIM steps, w=0, other
+    seeds) and one of uniform noise; A's statistics written by the fid CLI,
+    A's P&R manifold cache written beside them; then the eval CLI's fid, is
+    and pr on A, with cwd at ``tmp`` so the search directories find the
+    weights. FID(A, A's stats) < 1e-2, FID(A, B) finite and below FID(A,
+    noise), P&R (1, 1), IS finite and ≥ 1."""
+    from vdiff_tpu_torch import eval as eval_cli
+    from vdiff_tpu_torch import generate
+    from vdiff_tpu_torch.data import ImageFolder
+    from vdiff_tpu_torch.metrics import fid
+    from vdiff_tpu_torch.metrics.precision_recall import ManifoldBuilder
+
+    t0 = time.perf_counter()
+    folders = {}
+    for name, seed in (("A", "1"), ("B", "2")):
+        summary = generate.main([
+            "--config-path", CONFIG, "--ckpt-path", ckpt, "--save-dir", os.path.join(tmp, name),
+            "--use-ema", "--use-ddim", "--allow-bf16", "--sample-timesteps", str(REHEARSAL_STEPS),
+            "--w-guide", "0", "--batch-size", "256", "--total-size", str(REHEARSAL_N),
+            "--seed", seed])
+        if summary["images"] != REHEARSAL_N or not summary["finite"]:
+            fail(f"rehearsal: generate {name} gave {summary}")
+        folders[name] = summary["save_dir"]
+    folders["noise"] = os.path.join(tmp, "noise")
+    os.makedirs(folders["noise"])
+    generate.write_pngs(folders["noise"], np.random.RandomState(32).uniform(
+        -1, 1, (REHEARSAL_NOISE_N, 32, 32, 3)).astype(np.float32))
+    t_gen = time.perf_counter() - t0
+
+    stats = os.path.join(pre, "fid_stats_synthetic.npz")
+    cwd = os.getcwd()
+    os.chdir(tmp)  # the loaders' search directories are relative: ./precomputed
+    try:
+        marks = [time.perf_counter()]
+        fid.main([folders["A"], stats, "--save-stats"])
+        ManifoldBuilder(data=ImageFolder(folders["A"]), extr_batch_size=256).save(
+            os.path.join(pre, "pr_manifold_synthetic_train.npz"))
+        marks.append(time.perf_counter())
+        out = eval_cli.main(["--dataset", "synthetic", "--metrics", "fid", "is", "pr",
+                             "--eval-dir", folders["A"], "--eval-batch-size", "256",
+                             "--eval-total-size", str(REHEARSAL_N)])
+        marks.append(time.perf_counter())
+        fid_ab = fid.main([stats, folders["B"]])
+        marks.append(time.perf_counter())
+        fid_noise = fid.main([stats, folders["noise"]])
+        marks.append(time.perf_counter())
+        t_metrics = marks[-1] - marks[0]
+        split = ", ".join(f"{name} {b - a:.1f} s" for name, a, b in zip(
+            ("stats and manifold", "eval fid/is/pr", "fid A-B", "fid A-noise"), marks, marks[1:]))
+    finally:
+        os.chdir(cwd)
+    is_mean, is_std = (float(v) for v in str(out.get("is", "nan +/- nan")).split(" +/- "))
+    pr = tuple(float(v) for v in str(out.get("pr", "nan/nan")).split("/"))
+    print(f"rehearsal: {2 * REHEARSAL_N} samples (A, B) + {REHEARSAL_NOISE_N} noise PNGs in "
+          f"{t_gen:.1f} s; metrics in {t_metrics:.1f} s ({split}): FID(A, stats of A) {out.get('fid')}, "
+          f"FID(A, B) {fid_ab}, FID(A, noise) {fid_noise}, P&R {pr}, IS {is_mean} +/- {is_std} "
+          "(synthetic Inception/VGG weights, random UNet)", flush=True)
+    if not (isinstance(out.get("fid"), float) and abs(out["fid"]) < FID_SELF_BOUND):
+        fail(f"rehearsal: FID(A, stats of A) {out.get('fid')}")
+    if not (math.isfinite(fid_ab) and fid_ab < fid_noise):
+        fail(f"rehearsal: FID(A, B) {fid_ab}, FID(A, noise) {fid_noise}")
+    if pr != (1.0, 1.0):
+        fail(f"rehearsal: P&R of A against its own manifold {pr}")
+    if not (math.isfinite(is_mean) and is_mean >= 1.0 and math.isfinite(is_std)):
+        fail(f"rehearsal: IS {out.get('is')}")
+    return stats
+
+
+def phase_evaluator(cfg, model, tmp, pre):
+    """train_lib.Evaluator with the Trainer's eval sampler (graph-replayed
+    DDIM, REHEARSAL_STEPS steps, w=0, conditional labels) on the full-width
+    bf16 model: max_eval_count 256 at batch 128 (3 batches) against A's
+    statistics; the FID must be finite."""
+    from vdiff_tpu_torch.factory import build_diffusion, build_unet
+    from vdiff_tpu_torch.train_lib import Evaluator, Trainer
+
+    with torch.device("meta"):
+        bf16 = build_unet(cfg["model"], in_channels=3, model_out_type=cfg["diffusion"]["model_out_type"],
+                          num_classes=10, multitags=False, dtype=torch.bfloat16)
+    bf16.load_state_dict({k: v.cuda() for k, v in model.state_dict().items()}, assign=True)
+    diffusion, timesteps = build_diffusion(cfg["diffusion"], w_guide=0.0,
+                                           sample_timesteps=REHEARSAL_STEPS, continuous_gate=False)
+    trainer = Trainer(bf16.eval(), diffusion, timesteps, epochs=1, trainloader=None, use_cfg=True,
+                      shape=(32, 32, 3), device="cuda")
+    cwd = os.getcwd()
+    os.chdir(tmp)
+    try:
+        evaluator = Evaluator("synthetic", diffusion=diffusion, eval_batch_size=128,
+                              max_eval_count=256, precomputed_dir=pre, device="cuda")
+        t0 = time.perf_counter()
+        out = evaluator.eval(trainer.eval_sampler(0, use_ddim=True))
+        seconds = time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+    s = trainer.sampler_stats
+    print(f"evaluator: FID {out.get('fid')} of {evaluator.istats.count} samples against A's "
+          f"statistics in {seconds:.1f} s ({s['eager_steps']} eager steps, {s['captures']} "
+          f"captures, {s['replays']} replays)", flush=True)
+    if not (isinstance(out.get("fid"), float) and math.isfinite(out["fid"])) or \
+            s["captures"] != 3 or s["replays"] != 3 * (REHEARSAL_STEPS - 1):
+        fail(f"evaluator: {out}, sampler stats {s}")
+    del trainer, bf16
+    torch.cuda.empty_cache()
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this check needs an NVIDIA GPU")
@@ -1459,6 +1734,14 @@ def main():
     by_path = {}  # each main path's device launches, read just after its run
     with tempfile.TemporaryDirectory() as tmp:
         by_path["cifar_sample"], ckpt, default_rate = phase_sample(model, tmp)
+        # the eval path: nll in f32 (the eval path's launches), then the
+        # metric nets, the dress rehearsal and the Evaluator
+        by_path["eval_nll"] = phase_nll(cfg, model, ckpt)
+        pre = os.path.join(tmp, "precomputed")
+        _write_metric_weights(pre)
+        phase_metric_nets(pre)
+        phase_rehearsal(ckpt, tmp, pre)
+        phase_evaluator(cfg, model, tmp, pre)
         del model
         phase_progressive(ckpt, tmp)
         record.update(phase_fused_kernels())
@@ -1519,10 +1802,17 @@ def main():
                                 "vdiff_tpu/ops/groupnorm.py:79"),
         "fused_gn_silu_conv3x3": ("vdiff_tpu_torch/csrc/gn_silu_conv3x3_tc.cu",
                                   "vdiff_tpu/ops/conv3x3.py:58"),
+        # B1 and B2 in f32, the eval path's type (its f32 UNet, as JAX's
+        # compute_nll runs it): the FMA kernels
+        "attn_fwd_online_f32": ("vdiff_tpu_torch/csrc/attn_fwd_online.cu",
+                                "vdiff_tpu/ops/attention.py:37"),
+        "attn_fwd_qblk": ("vdiff_tpu_torch/csrc/attn_fwd_qblk.cu",
+                          "vdiff_tpu/ops/attention.py:224"),
     }
     kernels = []
     for name, (source, replaces) in meta.items():
-        paths = {path: counts[name] for path, counts in by_path.items() if counts[name]}
+        paths = {path: counts.get(name, 0) for path, counts in by_path.items()
+                 if counts.get(name, 0)}
         if not paths:
             fail(f"{name} was not launched on the main path")
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,

@@ -22,6 +22,10 @@ PORT_MODULES = [
     "vdiff_tpu_torch.models.convert", "vdiff_tpu_torch.diffusion", "vdiff_tpu_torch.factory",
     "vdiff_tpu_torch.generate", "vdiff_tpu_torch.utils.config", "vdiff_tpu_torch.data",
     "vdiff_tpu_torch.utils.misc", "vdiff_tpu_torch.train_lib", "vdiff_tpu_torch.train",
+    "vdiff_tpu_torch.eval", "vdiff_tpu_torch.metrics", "vdiff_tpu_torch.metrics.fid",
+    "vdiff_tpu_torch.metrics.inception", "vdiff_tpu_torch.metrics.vgg",
+    "vdiff_tpu_torch.metrics.inception_score", "vdiff_tpu_torch.metrics.precision_recall",
+    "vdiff_tpu_torch.metrics.device_apply", "vdiff_tpu_torch.metrics.manifests",
 ]
 
 

@@ -190,12 +190,30 @@ def test_train_cli_on_cpu_writes_a_checkpoint_generate_samples_from(tmp_path, mo
 
 @pytest.mark.parametrize("flags,item", [
     (["--distributed"], "A10"), (["--fsdp"], "A10"), (["--fsdp-size", "2"], "A10"),
-    (["--remat"], "A7"), (["--remat-policy", "conv"], "A7"), (["--eval"], "A9")])
+    (["--remat"], "A7"), (["--remat-policy", "conv"], "A7")])
 def test_train_cli_refuses_what_is_not_ported(flags, item):
     from vdiff_tpu_torch.train import main
 
     with pytest.raises(SystemExit, match=item):
         main(["--config-path", SMOKE, "--device", "cpu", *flags])
+
+
+def test_train_cli_accepts_eval(tmp_path, monkeypatch):
+    """--eval and --eval-intv reach the trainer: an Evaluator is built and
+    handed to Trainer.train, the interval to the Trainer (no refusal)."""
+    from vdiff_tpu_torch import train
+
+    got = {}
+
+    def fake_train(self, ckpt_dir=None, image_dir=None, use_ddim=False, evaluator=None):
+        got.update(evaluator=evaluator, eval_intv=self.eval_intv)
+        return {}
+
+    monkeypatch.setattr(train.Trainer, "train", fake_train)
+    train.main(["--config-path", SMOKE, "--device", "cpu", "--eval", "--eval-intv", "3",
+                "--exp-dir", str(tmp_path / "exps")])
+    assert isinstance(got["evaluator"], train.Evaluator) and got["eval_intv"] == 3
+    assert got["evaluator"].diffusion.w_guide == 0.0  # a CFG model evaluates at w=0
 
 
 def test_train_cli_refuses_missing_cuda(monkeypatch):

@@ -130,12 +130,45 @@ def test_train_loss_matches_jax(reweight, out_type):
 
 
 def test_train_loss_refuses_kl():
+    """Named for what it checked before the kl loss was ported (a refusal);
+    it now holds ``loss_type="kl"`` to JAX's: the per-sample loss at t that
+    quantise to steps with s > 0 (the KL of the step, 1e-5) and to the first
+    step (the decoder's NLL, 1e-5 plus tests/test_torch_bpd.py's slack, which
+    must stay below 1e-3 of the term), CFG labels dropped by the keep mask,
+    dropout off. The denoiser is the small UNet's output scaled by 0.1 plus
+    the true noise, the same in both frameworks: a prediction near the
+    noise, so that the decoder's bins resolve (the random UNet alone leaves
+    some in the tails, whose masses f32 resolves only to ~2^-24)."""
     from vdiff_tpu_torch.diffusion import GaussianDiffusion
     from vdiff_tpu_torch.ops.numerics import get_logsnr_schedule
+    from vdiff_tpu.diffusion import GaussianDiffusion as JaxDiffusion
+    from vdiff_tpu.ops.numerics import get_logsnr_schedule as jax_schedule
+    from tests.test_torch_bpd import _close_nll, _decoder_slack
 
-    d = GaussianDiffusion(logsnr_fn=get_logsnr_schedule("cosine"), loss_type="kl")
-    with pytest.raises(NotImplementedError, match="A5"):
-        d.train_loss(None, torch.zeros(1, 4, 4, 3), torch.zeros(1), None, torch.zeros(1, 4, 4, 3))
+    T = 16
+    kw = dict(model_out_type="eps", loss_type="kl", p_uncond=0.1, sample_timesteps=T)
+    x, _, y = P.inputs(B=4, seed=8)
+    x = np.clip(np.round(x * 64) / 127.5, -1, 1).astype(np.float32)  # on the 8-bit grid
+    t = np.array([0.02, 0.3, 0.7, 0.97], np.float32)  # the first is step 0
+    noise = np.random.RandomState(9).randn(*x.shape).astype(np.float32)
+    keep = np.array([True, False, True, True])
+    jm, params = P.jax_unet()
+    jd = JaxDiffusion(logsnr_fn=jax_schedule("cosine"), **kw)
+    jden = lambda x_t, t_, y_: 0.1 * jm.apply({"params": params}, x_t, t_, y_) + noise
+    ref = np.asarray(jax.jit(lambda a, b, c, d: jd.train_loss(jden, a, b, c, d))(
+        jnp.asarray(x), jnp.asarray(t), jnp.asarray(y * keep), jnp.asarray(noise)))
+    td = GaussianDiffusion(logsnr_fn=get_logsnr_schedule("cosine"), **kw)
+    model = P.port_unet()
+    tden = lambda x_t, t_, y_: 0.1 * model(x_t, t_, y_, train=True) + _t(noise)
+    got = td.train_loss(tden, _t(x), _t(t), _t(y), _t(noise), keep=_t(keep)).detach().numpy()
+    assert got.shape == (4,)
+    _close(got[1:], ref[1:], 1e-5)
+    lt, t_adj = jd.t2logsnr(jnp.full(4, 1.0 / T))
+    x_t = np.array(x * jnp.sqrt(jax.nn.sigmoid(lt)) + noise * jnp.sqrt(jax.nn.sigmoid(-lt)))
+    with torch.no_grad():  # the slack from the port's output: within 1e-5 of JAX's
+        out = tden(_t(x_t), _t(np.array(t_adj)), _t(y * keep)).numpy()[:1]
+    _close_nll(got[:1], ref[:1], 1e-5, _decoder_slack(
+        jd, out, x_t[:1], x[:1], np.zeros(1, np.float32), np.full(1, 1.0 / T, np.float32), False))
 
 
 def test_small_unet_loss_and_grads_match_jax():

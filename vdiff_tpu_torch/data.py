@@ -1,5 +1,6 @@
 """Data layer (counterpart of ``vdiff_tpu/data.py``): the dataset registry,
-raw-format loaders, an in-memory dataset and the epoch loader.
+raw-format loaders, an in-memory dataset, the eval CLI's image folder and the
+epoch loader.
 
 Numpy on the host with a prefetch thread, NHWC batches in [-1, 1], the same
 seeded per-epoch permutation and flips as the JAX package, so a loader built
@@ -266,6 +267,29 @@ class CelebADataset:
         else:
             raws = [self._decode_one(f) for f in names]
         return crop_resize_bilinear(np.stack(raws), 40, 15, 148, 148, 64, 64)
+
+
+class ImageFolder:
+    """A flat directory of images (the eval CLI's input), decoded batch by
+    batch with PIL (imported where it is used) into uint8 NHWC RGB."""
+
+    EXTS = {"jpg", "jpeg", "png", "bmp", "webp", "tiff"}
+
+    def __init__(self, img_dir: str):
+        self.img_dir = img_dir
+        self.img_list = [f for f in os.listdir(img_dir) if f.split(".")[-1].lower() in self.EXTS]
+
+    def __len__(self):
+        return len(self.img_list)
+
+    def load_batch(self, indices: np.ndarray) -> np.ndarray:
+        from PIL import Image
+
+        out = []
+        for i in indices:
+            with Image.open(os.path.join(self.img_dir, self.img_list[i])) as im:
+                out.append(np.asarray(im.convert("RGB"), np.uint8))
+        return np.stack(out)
 
 
 def _build_dataset(dataset: str, root: str, split: str, num_workers: int = 0):

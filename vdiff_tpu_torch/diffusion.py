@@ -12,14 +12,17 @@ halves [cond; uncond]. Randomness is explicit: the caller passes
 ``x_T`` and, for ancestral or η>0 DDIM sampling, a ``torch.Generator``;
 deterministic DDIM (η=0) draws no noise.
 
-The training loss (:meth:`GaussianDiffusion.train_loss`) evaluates the schedule
-on the device for the per-example t, in f32, as the JAX package does. Its t,
-noise and CFG keep mask are passed in; the train step draws them. Only
-``loss_type="mse"`` is ported; the KL/bpd surface is ROADMAP A5.
+The training loss (:meth:`GaussianDiffusion.train_loss`, ``mse`` or ``kl``)
+evaluates the schedule on the device for the per-example t, in f32, as the JAX
+package does. Its t, noise and CFG keep mask are passed in; the train step
+draws them. The bits/dim surface (:meth:`GaussianDiffusion.calc_all_bpd`, the
+eval CLI's ``nll``) runs the posterior on the device the same way, one
+denoiser forward per step with its noise from an explicit generator.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass, field
 from typing import Callable, Dict, Optional
 
@@ -88,15 +91,18 @@ class GaussianDiffusion:
                    keep: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Per-sample loss (B,). CFG label dropout zeroes the labels where
         ``keep`` (bool (B,), the JAX package's U(0,1) > p_uncond) is false;
-        without ``keep`` the labels stay."""
-        if self.loss_type == "kl":
-            raise NotImplementedError("loss_type='kl' (the bpd/KL surface) is not ported yet "
-                                      "(ROADMAP.md queue A: A5)")
-        if self.loss_type != "mse":
-            raise NotImplementedError(self.loss_type)
-        assert self.model_var_type != "learned"
-        assert self.reweight_type in {"constant", "snr", "snr_trunc", "snr_1plus"}
+        without ``keep`` the labels stay.
+
+        ``loss_type="kl"`` quantises t to ceil(t·T)/T (T the sampling steps)
+        and takes s = t − 1/T: the loss is the bits/dim KL of the step s ← t
+        where s > 0 and the decoder's NLL at the first step."""
         ndim = x_0.ndim
+        if self.loss_type == "kl":
+            T = self.sample_timesteps
+            t = torch.ceil(t * T) / T
+            s = torch.clamp(t - 1.0 / T, min=0.0)
+        elif self.loss_type != "mse":
+            raise NotImplementedError(self.loss_type)
         logsnr_t, t_adj = self.t2logsnr(t, ndim)
         x_t = N.q_sample(x_0, logsnr_t, noise)
 
@@ -104,6 +110,14 @@ class GaussianDiffusion:
             y = y * keep.to(y.dtype).reshape((-1,) + (1,) * (y.ndim - 1))
 
         model_out = denoise_fn(x_t, t_adj, y)
+        if self.loss_type == "kl":
+            logsnr_s, _ = self.t2logsnr(s, ndim)
+            kl, nll, _ = self._loss_term_bpd(model_out, x_0=x_0, x_t=x_t, logsnr_s=logsnr_s,
+                                             logsnr_t=logsnr_t, clip_denoised=False)
+            return torch.where(s != 0, kl, nll)
+
+        assert self.model_var_type != "learned"
+        assert self.reweight_type in {"constant", "snr", "snr_trunc", "snr_1plus"}
         target = {
             "constant": x_0,
             "snr": noise,
@@ -118,6 +132,107 @@ class GaussianDiffusion:
         # the other targets compare against the raw model output: the head
         # type must pair with the reweight type
         return N.flat_mean((target - model_out) ** 2)
+
+    # the posterior on the device, for the kl loss and the bits/dim
+
+    def q_posterior_mean_var(self, x_0, x_t, logsnr_s, logsnr_t, model_var_type=None,
+                             intp_frac=None):
+        """Mean and log-variance of q(x_s | x_t, x_0); ``intp_frac`` (a number
+        or a per-element tensor) defaults to the diffusion's."""
+        model_var_type = model_var_type or self.model_var_type
+        if intp_frac is None:
+            intp_frac = self.intp_frac
+        coefs = N.logsnr_to_posterior(logsnr_s, logsnr_t, var_type=model_var_type,
+                                      intp_frac=intp_frac, x0eps_coef=self.x0eps_coef)
+        return coefs.mean_coef1 * x_t + coefs.mean_coef2 * x_0, coefs.logvar
+
+    def q_posterior_mean_var_ddim(self, x_0, x_t, logsnr_s, logsnr_t):
+        """The deterministic (η=0) DDIM posterior."""
+        coefs = N.logsnr_to_posterior_ddim(logsnr_s, logsnr_t, eta=0.0, x0eps_coef=self.x0eps_coef)
+        return coefs.mean_coef1 * x_t + coefs.mean_coef2 * x_0, coefs.logvar
+
+    def p_mean_var(self, model_out, x_t, logsnr_s, logsnr_t, clip_denoised, use_ddim=False):
+        """(mean, log-variance, x̂_0) of p(x_s | x_t) from a model output. A
+        learned-variance model's output stacks (prediction, variance logit)
+        on the last (channel) axis of its NHWC output; the logit's sigmoid
+        interpolates the log-variance between fixed_small and fixed_large."""
+        intp_frac = None
+        if self.model_var_type == "learned":
+            model_out, frac_raw = model_out.chunk(2, dim=-1)
+            intp_frac = torch.sigmoid(frac_raw)
+
+        pred_x_0 = self.pred_x0(model_out, x_t, logsnr_t)
+        if clip_denoised:
+            pred_x_0 = pred_x_0.clamp(-1.0, 1.0)
+
+        if self.x0eps_coef:
+            # the posterior mean in terms of (eps, x_0): eps takes x_t's place
+            if clip_denoised or self.model_out_type != "eps":
+                x_t = N.pred_eps_from_x0(x_t, pred_x_0, logsnr_t)
+            else:
+                x_t = model_out
+
+        if use_ddim:
+            mean, logvar = self.q_posterior_mean_var_ddim(pred_x_0, x_t, logsnr_s, logsnr_t)
+        else:
+            mean, logvar = self.q_posterior_mean_var(
+                pred_x_0, x_t, logsnr_s, logsnr_t,
+                model_var_type="fixed_medium" if intp_frac is not None else None,
+                intp_frac=intp_frac)
+        return mean, logvar, pred_x_0
+
+    # bits per dimension
+
+    def _loss_term_bpd(self, model_out, x_0, x_t, logsnr_s, logsnr_t, clip_denoised):
+        """(KL of the step s ← t, the decoder's NLL, x̂_0), each (B,) in
+        bits/dim but x̂_0."""
+        true_mean, true_logvar = self.q_posterior_mean_var(
+            x_0=x_0, x_t=x_t, logsnr_s=logsnr_s, logsnr_t=logsnr_t, model_var_type="fixed_small")
+        model_mean, model_logvar, pred_x_0 = self.p_mean_var(
+            model_out, x_t=x_t, logsnr_s=logsnr_s, logsnr_t=logsnr_t,
+            clip_denoised=clip_denoised, use_ddim=False)
+        kl = N.flat_mean(N.normal_kl(true_mean, true_logvar, model_mean, model_logvar))
+        decoder_nll = -N.discretized_gaussian_loglik(x_0, pred_x_0, log_scale=0.5 * model_logvar)
+        return kl / math.log(2.0), N.flat_mean(decoder_nll) / math.log(2.0), pred_x_0
+
+    def _prior_bpd(self, x_0):
+        """KL(q(x_1 | x_0) ‖ N(0, I)) in bits/dim, (B,)."""
+        t = torch.ones(x_0.shape[0], dtype=torch.float32, device=x_0.device)
+        logsnr_t, _ = self.t2logsnr(t, x_0.ndim)
+        mean, logvar = N.q_mean_var(x_0=x_0, logsnr_t=logsnr_t)
+        return N.flat_mean(N.normal_kl(mean, logvar, 0.0, 0.0)) / math.log(2.0)
+
+    @torch.inference_mode()
+    def calc_all_bpd(self, denoise_fn, x_0, y=None, generator: Optional[torch.Generator] = None,
+                     noise: Optional[torch.Tensor] = None, clip_denoised: bool = True):
+        """The variational bound in bits/dim over all T steps: (total (B,),
+        loss (B, T), prior (B,), mse (B, T)), column i of loss and mse the
+        step s = i/T ← t = (i+1)/T, as JAX's ``calc_all_bpd`` returns them.
+
+        The steps run from i = T−1 down to 0, each one denoiser forward of
+        x_t = q_sample(x_0, λ_t, eps) with eps drawn from ``generator`` in
+        that order, or taken from ``noise`` (T, B, ...), row k for i = T−1−k
+        (JAX's scan order: its keys[k] drive step T−1−k). Step 0 counts the
+        decoder's NLL, the others the KL of their posterior."""
+        B, T = x_0.shape[0], self.sample_timesteps
+        if noise is None and generator is None:
+            raise ValueError("calc_all_bpd needs an explicit torch.Generator or the noise")
+        loss, mse = torch.empty(B, T, device=x_0.device), torch.empty(B, T, device=x_0.device)
+        for k, i in enumerate(range(T - 1, -1, -1)):
+            s = torch.full((B,), i / T, dtype=torch.float32, device=x_0.device)
+            t = torch.full((B,), (i + 1.0) / T, dtype=torch.float32, device=x_0.device)
+            logsnr_s, _ = self.t2logsnr(s, x_0.ndim)
+            logsnr_t, t_adj = self.t2logsnr(t, x_0.ndim)
+            eps = noise[k] if noise is not None else torch.randn(
+                x_0.shape, generator=generator, device=x_0.device, dtype=x_0.dtype)
+            x_t = N.q_sample(x_0, logsnr_t, eps)
+            model_out = denoise_fn(x_t, t_adj, y)
+            kl, nll, pred_x_0 = self._loss_term_bpd(model_out, x_0, x_t=x_t, logsnr_s=logsnr_s,
+                                                    logsnr_t=logsnr_t, clip_denoised=clip_denoised)
+            loss[:, i] = kl if i > 0 else nll
+            mse[:, i] = N.flat_mean((pred_x_0 - x_0) ** 2)
+        prior_bpd = self._prior_bpd(x_0)
+        return loss.sum(dim=1) + prior_bpd, loss, prior_bpd, mse
 
     def sample_tables(self, use_ddim: bool = False, eta: float = 0.0) -> Dict[str, np.ndarray]:
         """Per-step scalars, host float64 math, float32 (T,) arrays. Row ``i``

@@ -119,15 +119,18 @@ def build_diffusion(diff_section: dict, *, w_guide: float, p_uncond: float = 0.0
 
 def build_unet(model_section: dict, *, in_channels: int, model_out_type: str,
                num_classes: int, multitags: bool, dtype: torch.dtype = torch.float32,
-               generator: torch.Generator | None = None):
+               generator: torch.Generator | None = None, model_var_type: str = "fixed_large"):
     """(resolved) ``config["model"]`` → UNet; out_channels follows the
-    prediction head ("both" doubles it)."""
+    prediction head ("both" doubles it) and the variance ("learned" doubles
+    it again: the variance logits follow the prediction on the channel axis,
+    where ``GaussianDiffusion.p_mean_var`` splits them off)."""
     from .models.unet import UNet
 
     cfg = {k: v for k, v in model_section.items() if k != "use_xformers"}
     cfg.setdefault("in_channels", in_channels)
     assert cfg["in_channels"] == in_channels, (cfg["in_channels"], in_channels)
     head_mult = 2 if normalize_out_type(model_out_type) == "both" else 1
+    head_mult *= 2 if model_var_type == "learned" else 1
     cfg.setdefault("out_channels", head_mult * in_channels)
     return UNet(num_classes=num_classes, multitags=multitags, dtype=dtype,
                 generator=generator, **cfg)

@@ -166,6 +166,7 @@ def main(argv=None) -> dict:
         num_classes=info.get("num_classes", 0) if use_cfg else 0,
         multitags=info.get("multitags", False) if use_cfg else False,
         dtype=torch.bfloat16 if args.allow_bf16 else torch.float32,
+        model_var_type=config["diffusion"]["model_var_type"],
     )
     if heads_note(config["model"]):
         print(heads_note(config["model"]))

@@ -39,7 +39,9 @@ def _sigmoid(x):
 
 
 def log_sigmoid(x):
-    """Stable log(sigmoid(x))."""
+    """Stable log(sigmoid(x)) (numpy float64 on the host, torch on a tensor)."""
+    if isinstance(x, torch.Tensor):
+        return torch.nn.functional.logsigmoid(x)
     x = np.asarray(x, dtype=np.float64)
     return np.where(x < 0, x - np.log1p(np.exp(-np.abs(x))), -np.log1p(np.exp(-np.abs(x))))
 
@@ -156,22 +158,30 @@ class PosteriorCoefs(NamedTuple):
     logvar: np.ndarray
 
 
+def _f32(x):
+    return x.to(torch.float32) if isinstance(x, torch.Tensor) else x.astype(np.float32)
+
+
 def logsnr_to_posterior(logsnr_s, logsnr_t, var_type: str, intp_frac=None,
                         x0eps_coef: bool = False) -> PosteriorCoefs:
-    """Closed-form posterior coefficients from (λ_s, λ_t)."""
-    logsnr_s = np.asarray(logsnr_s, dtype=np.float64)
-    logsnr_t = np.asarray(logsnr_t, dtype=np.float64)
+    """Closed-form posterior coefficients from (λ_s, λ_t): numpy float64 on
+    host arrays (the tables), float32 torch on tensors (the bpd surface, whose
+    ``intp_frac`` may be a per-element tensor)."""
+    xp = _xp(logsnr_s)
+    if xp is np:
+        logsnr_s = np.asarray(logsnr_s, dtype=np.float64)
+        logsnr_t = np.asarray(logsnr_t, dtype=np.float64)
 
     log_alpha_st = 0.5 * (log_sigmoid(logsnr_s) - log_sigmoid(logsnr_t))
     logr = logsnr_t - logsnr_s
     log_one_minus_r = stable_log1mexp(logr)
 
     if x0eps_coef:
-        mean_coef1 = np.exp(0.5 * (log_sigmoid(logsnr_s) - logsnr_t) + logr)
-        mean_coef2 = np.sqrt(_sigmoid(logsnr_s))
+        mean_coef1 = xp.exp(0.5 * (log_sigmoid(logsnr_s) - logsnr_t) + logr)
+        mean_coef2 = xp.sqrt(_sigmoid(logsnr_s))
     else:
-        mean_coef1 = np.exp(logr + log_alpha_st)
-        mean_coef2 = np.exp(log_one_minus_r + 0.5 * log_sigmoid(logsnr_s))
+        mean_coef1 = xp.exp(logr + log_alpha_st)
+        mean_coef2 = xp.exp(log_one_minus_r + 0.5 * log_sigmoid(logsnr_s))
 
     if var_type == "fixed_large":
         logvar = log_one_minus_r + log_sigmoid(-logsnr_t)
@@ -185,14 +195,17 @@ def logsnr_to_posterior(logsnr_s, logsnr_t, var_type: str, intp_frac=None,
     else:
         raise NotImplementedError(var_type)
 
-    return PosteriorCoefs(*(x.astype(np.float32) for x in (mean_coef1, mean_coef2, logvar)))
+    return PosteriorCoefs(*(_f32(x) for x in (mean_coef1, mean_coef2, logvar)))
 
 
 def logsnr_to_posterior_ddim(logsnr_s, logsnr_t, eta: float = 0.0,
                              x0eps_coef: bool = False) -> PosteriorCoefs:
-    """DDIM-family posterior coefficients with η ∈ [0, 1]."""
-    logsnr_s = np.asarray(logsnr_s, dtype=np.float64)
-    logsnr_t = np.asarray(logsnr_t, dtype=np.float64)
+    """DDIM-family posterior coefficients with η ∈ [0, 1] (host arrays or
+    tensors, as :func:`logsnr_to_posterior`)."""
+    xp = _xp(logsnr_s)
+    if xp is np:
+        logsnr_s = np.asarray(logsnr_s, dtype=np.float64)
+        logsnr_t = np.asarray(logsnr_t, dtype=np.float64)
 
     if eta == 1.0:
         # as the JAX package (and the reference) do: x0eps_coef is not passed on
@@ -202,23 +215,23 @@ def logsnr_to_posterior_ddim(logsnr_s, logsnr_t, eta: float = 0.0,
     if eta == 0.0:
         log_one_minus_sqrt_r = stable_log1mexp(0.5 * logr)
         if x0eps_coef:
-            mean_coef1 = np.exp(0.5 * log_sigmoid(-logsnr_s))
-            mean_coef2 = np.exp(0.5 * log_sigmoid(logsnr_s))
+            mean_coef1 = xp.exp(0.5 * log_sigmoid(-logsnr_s))
+            mean_coef2 = xp.exp(0.5 * log_sigmoid(logsnr_s))
         else:
-            mean_coef1 = np.exp(0.5 * (log_sigmoid(-logsnr_s) - log_sigmoid(-logsnr_t)))
-            mean_coef2 = np.exp(log_one_minus_sqrt_r + 0.5 * log_sigmoid(logsnr_s))
-        logvar = np.full_like(np.asarray(mean_coef1), -np.inf)
+            mean_coef1 = xp.exp(0.5 * (log_sigmoid(-logsnr_s) - log_sigmoid(-logsnr_t)))
+            mean_coef2 = xp.exp(log_one_minus_sqrt_r + 0.5 * log_sigmoid(logsnr_s))
+        logvar = xp.full_like(xp.asarray(mean_coef1), -math.inf)
     else:
         log_one_minus_r = stable_log1mexp(logr)
         log_eta2 = 2.0 * math.log(eta)
         logvar = log_one_minus_r + log_sigmoid(-logsnr_s) + log_eta2
         if x0eps_coef:
-            mean_coef1 = np.exp(
+            mean_coef1 = xp.exp(
                 0.5 * (stable_log1mexp(log_eta2 + log_one_minus_r) + log_sigmoid(-logsnr_s))
             )
-            mean_coef2 = np.exp(0.5 * log_sigmoid(logsnr_s))
+            mean_coef2 = xp.exp(0.5 * log_sigmoid(logsnr_s))
         else:
-            mean_coef1 = np.exp(
+            mean_coef1 = xp.exp(
                 0.5
                 * (
                     stable_log1mexp(log_eta2 + log_one_minus_r)
@@ -226,12 +239,12 @@ def logsnr_to_posterior_ddim(logsnr_s, logsnr_t, eta: float = 0.0,
                     - log_sigmoid(-logsnr_t)
                 )
             )
-            mean_coef2 = np.exp(
+            mean_coef2 = xp.exp(
                 stable_log1mexp(0.5 * (logr + stable_log1mexp(log_eta2 + log_one_minus_r)))
                 + 0.5 * log_sigmoid(logsnr_s)
             )
 
-    return PosteriorCoefs(*(x.astype(np.float32) for x in (mean_coef1, mean_coef2, logvar)))
+    return PosteriorCoefs(*(_f32(x) for x in (mean_coef1, mean_coef2, logvar)))
 
 
 # ---------------------------------------------------------------------------
@@ -274,6 +287,41 @@ def pred_eps_from_v(x_t, v, logsnr_t):
 def q_sample(x_0, logsnr_t, eps):
     """Forward process: x_t = √σ(λ)·x_0 + √σ(-λ)·ε."""
     return x_0 * torch.sqrt(torch.sigmoid(logsnr_t)) + eps * torch.sqrt(torch.sigmoid(-logsnr_t))
+
+
+def q_mean_var(x_0, logsnr_t):
+    """Mean and log-variance of q(x_t | x_0)."""
+    return x_0 * torch.sqrt(torch.sigmoid(logsnr_t)), log_sigmoid(-logsnr_t)
+
+
+def normal_kl(mean1, logvar1, mean2, logvar2):
+    """KL(N(mean1, e^logvar1) ‖ N(mean2, e^logvar2)) per element; the second
+    pair may be Python numbers."""
+    logvar2 = torch.as_tensor(logvar2, dtype=mean1.dtype, device=mean1.device)
+    diff_logvar = logvar1 - logvar2
+    return 0.5 * (-1.0 - diff_logvar + (mean1 - mean2) ** 2 * torch.exp(-logvar2)
+                  + torch.exp(diff_logvar))
+
+
+def approx_std_normal_cdf(x):
+    """The standard normal CDF in the tanh approximation (the reference's,
+    kept instead of an exact erf so the decoder NLL agrees with it)."""
+    return 0.5 * (1.0 + torch.tanh(math.sqrt(2.0 / math.pi) * (x + 0.044715 * x**3)))
+
+
+def discretized_gaussian_loglik(x, means, log_scale, precision: float = 1.0 / 255,
+                                cutoff=(-0.999, 0.999), tol: float = 1e-12):
+    """Log-likelihood of x under the Gaussian (means, e^log_scale) integrated
+    over x's 8-bit bin; the bins at the edges of [-1, 1] extend to ±∞."""
+    if isinstance(cutoff, float):
+        cutoff = (-cutoff, cutoff)
+    x_centered = x - means
+    inv_stdv = torch.exp(-log_scale)
+    upper = inv_stdv * (x_centered + precision)
+    cdf_upper = torch.where(x > cutoff[1], 1.0, approx_std_normal_cdf(upper))
+    lower = inv_stdv * (x_centered - precision)
+    cdf_lower = torch.where(x < cutoff[0], 0.0, approx_std_normal_cdf(lower))
+    return torch.log(torch.clamp(cdf_upper - cdf_lower - tol, min=0.0) + tol)
 
 
 def flat_mean(x: torch.Tensor, start_dim: int = 1) -> torch.Tensor:

@@ -16,15 +16,19 @@ Flag mapping: ``--allow-bf16`` runs the UNet in bfloat16 (params stay f32),
 ``--use-xformers`` are accepted for parity (the port always runs its own
 attention kernels), and ``--prng-impl`` is accepted and ignored (the port draws
 from ``torch.Generator``), as are ``--train-device`` and ``--eval-device`` (the
-JAX CLI's; ``--device`` places both here). Refused until their slice: ``--distributed``,
-``--fsdp``, ``--fsdp-size`` (multi-GPU, ROADMAP A10), ``--remat``,
-``--remat-policy`` (activation checkpointing, A7) and ``--eval`` (in-training
-FID, A9).
+JAX CLI's; ``--device`` places both here). ``--eval`` computes the FID of
+10,000 samples against the dataset's precomputed statistics every
+``--eval-intv`` epochs (``train_lib.Evaluator``; a conditional model samples
+conditionally at w=0, as the root CLI does), and skips it with a message
+where the statistics or the Inception weights are missing. Refused until
+their slice: ``--distributed``, ``--fsdp``, ``--fsdp-size`` (multi-GPU,
+ROADMAP A10), ``--remat`` and ``--remat-policy`` (activation checkpointing, A7).
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 from datetime import datetime, timezone
@@ -34,7 +38,7 @@ import torch
 from .data import DATA_INFO, get_dataloader
 from .factory import (DEFAULT_CONFIG_PATH, build_diffusion, build_unet, heads_note,
                       load_experiment_config, resolve_section)
-from .train_lib import Trainer
+from .train_lib import Evaluator, Trainer
 from .utils.misc import seed_all
 
 # 3-level precedence schema (CLI > experiment JSON > defaults), the root
@@ -64,7 +68,7 @@ SCHEMA = {
 
 _NOT_PORTED = "is not ported yet (ROADMAP.md queue A: {})"
 _REFUSED = {"distributed": "A10", "fsdp": "A10", "fsdp_size": "A10", "remat": "A7",
-            "remat_policy": "A7", "eval": "A9"}
+            "remat_policy": "A7"}
 
 
 def make_experiment_dirs(exp_dir: str, exp_name: str):
@@ -112,7 +116,8 @@ def main(argv=None) -> dict:
     model = build_unet(config["model"], in_channels=info["channels"],
                        model_out_type=config["diffusion"]["model_out_type"],
                        num_classes=num_classes, multitags=info.get("multitags", False),
-                       dtype=dtype, generator=torch.Generator().manual_seed(train.seed))
+                       dtype=dtype, generator=torch.Generator().manual_seed(train.seed),
+                       model_var_type=config["diffusion"]["model_var_type"])
     if heads_note(config["model"]):
         print(heads_note(config["model"]))
     trainloader, _ = get_dataloader(dataset, batch_size=train.batch_size,
@@ -134,8 +139,16 @@ def main(argv=None) -> dict:
         num_accum=args.num_accum, shape=image_shape, ckpt_intv=train.ckpt_intv,
         max_ckpts_kept=train.max_ckpts_kept, image_intv=train.image_intv,
         num_save_images=train.num_save_images, ema_decay=train.ema_decay, seed=train.seed,
-        device=device,
+        eval_intv=args.eval_intv, device=device,
     )
+    evaluator = None
+    if args.eval:
+        # the headline FID's condition: class-conditional sampling at w=0, so
+        # a CFG model's evaluation skips the doubled batch; the trainer draws
+        # the labels
+        evaluator = Evaluator(dataset=dataset, device=device,
+                              diffusion=dataclasses.replace(diffusion, w_guide=0.0)
+                              if cond.use_cfg else None)
     if args.resume:
         try:
             trainer.load_checkpoint(ckpt_path=args.from_ckpt, ckpt_dir=ckpt_dir)
@@ -148,7 +161,8 @@ def main(argv=None) -> dict:
         json.dump(config, f, indent=2)
 
     print("Training starts...", flush=True)
-    summary = trainer.train(ckpt_dir=ckpt_dir, image_dir=image_dir, use_ddim=args.use_ddim)
+    summary = trainer.train(ckpt_dir=ckpt_dir, image_dir=image_dir, use_ddim=args.use_ddim,
+                            evaluator=evaluator)
     return {"exp_dir": exp_dir, "ckpt_dir": ckpt_dir, "image_dir": image_dir, **summary}
 
 
@@ -196,8 +210,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, help="random seed")
     p.add_argument("--resume", action="store_true", help="to resume training from a checkpoint")
     p.add_argument("--from-ckpt", type=str, help="from which checkpoint to resume")
-    p.add_argument("--eval", action="store_true", help=_NOT_PORTED.format("A9"))
-    p.add_argument("--eval-intv", type=int, default=128, help=_NOT_PORTED.format("A9"))
+    p.add_argument("--eval", action="store_true", help="whether to evaluate fid during training")
+    p.add_argument("--eval-intv", type=int, default=128, help="frequency of evaluating the model")
     p.add_argument("--ema-decay", type=float, help="decay factor of ema")
     p.add_argument("--distributed", action="store_true", help=_NOT_PORTED.format("A10"))
     p.add_argument("--cudnn-benchmark", action="store_true", help="cuDNN autotuner")

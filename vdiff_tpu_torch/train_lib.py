@@ -13,8 +13,8 @@ EMA, the train step, checkpoints and the epoch loop.
 * :class:`CheckpointManager` writes ``ckpt_{epoch}.pt`` / ``ckpt_last.pt`` with
   ``torch.save`` and an atomic rename, in the reference layout the port's
   ``generate`` reads (``{"model": sd, "ema": {"shadow": sd}, ...}``).
-* :class:`Trainer` is the epoch loop. The in-training FID ``Evaluator`` is the
-  metrics slice's (ROADMAP A9).
+* :class:`Trainer` is the epoch loop; every ``eval_intv`` epochs it hands an
+  :class:`Evaluator` (in-training FID) a sampler of the EMA model.
 """
 
 from __future__ import annotations
@@ -247,7 +247,7 @@ class Trainer:
                  use_ema: bool = False, grad_norm: float = 1.0, num_accum: int = 1, shape=None,
                  ckpt_intv: int = 512, max_ckpts_kept: int = -1, image_intv: int = 64,
                  num_save_images: int = 64, ema_decay: float = 0.9999, seed: int = 1234,
-                 device="cuda"):
+                 eval_intv: int = 128, device="cuda"):
         self.device = torch.device(device)
         self.model = model.to(self.device)
         self.diffusion = diffusion
@@ -261,6 +261,7 @@ class Trainer:
         self.max_ckpts_kept = max_ckpts_kept
         self.image_intv = image_intv
         self.num_save_images = num_save_images
+        self.eval_intv = eval_intv
         self.seed = seed
 
         opt_cfg = dict(lr=2e-4, beta1=0.9, beta2=0.999, weight_decay=0.0, warmup=0)
@@ -333,10 +334,12 @@ class Trainer:
     def sampling_model(self):
         return self.ema_model if self.ema_model is not None else self.model
 
-    def sample_fn(self, label=None, batch_size=None, use_ddim=False, seed=0) -> np.ndarray:
-        """A batch of samples under the EMA weights, x_T and the sampler's
-        noise from a generator seeded with ``seed``; a conditional model
-        without ``label`` gets the null label."""
+    def sample_fn(self, label=None, batch_size=None, use_ddim=False, seed=0,
+                  diffusion=None) -> np.ndarray:
+        """A batch of samples under the EMA weights from ``diffusion`` (the
+        trainer's by default), x_T and the sampler's noise from a generator
+        seeded with ``seed``; a conditional model without ``label`` gets the
+        null label."""
         B = batch_size or self.num_save_images
         H, W, C = self.shape
         gen = torch.Generator(device=self.device).manual_seed(seed)
@@ -344,9 +347,38 @@ class Trainer:
         label = self._dummy_label(B) if label is None else label
         y = None if label is None else torch.as_tensor(label, device=self.device)
         with torch.inference_mode():
-            x = self.diffusion.p_sample(self.sampling_model(), x_T, label=y, use_ddim=use_ddim,
-                                        generator=gen, stats=self.sampler_stats)
+            x = (diffusion or self.diffusion).p_sample(
+                self.sampling_model(), x_T, label=y, use_ddim=use_ddim, generator=gen,
+                stats=self.sampler_stats)
         return x.float().cpu().numpy()
+
+    def eval_labels(self, b: int, rng: np.random.RandomState) -> np.ndarray:
+        """Random conditional labels for in-training FID, as the generate CLI
+        draws them: classes uniform in [1, K], or tag rows of the training
+        set for a multi-tag model."""
+        if self.multitags:
+            targets = np.asarray(self.trainloader.dataset.targets, np.float32)
+            return targets[rng.randint(len(targets), size=(b,))]
+        return rng.randint(1, self.num_classes + 1, size=(b,)).astype(np.float32)
+
+    def eval_sampler(self, epoch: int, use_ddim: bool = False):
+        """``sample_fn(batch_size, diffusion)`` for the :class:`Evaluator` at
+        ``epoch``: the k-th call's noise and labels come from seeds of (seed,
+        epoch, k), so every batch differs and a rerun draws the same. A
+        conditional model samples conditionally (the headline FID's
+        protocol) when CFG training is on."""
+        draws = iter(range(1 << 30))
+
+        def sample(b, diffusion=None):
+            k = next(draws)
+            seed = int(np.random.SeedSequence([self.seed, 1 + epoch, k]).generate_state(1)[0])
+            y = None
+            if self.use_cfg and self.num_classes:
+                y = self.eval_labels(b, np.random.RandomState(seed))
+            return self.sample_fn(label=y, batch_size=b, use_ddim=use_ddim, seed=seed,
+                                  diffusion=diffusion)
+
+        return sample
 
     def sample_labels(self):
         """A balanced class grid: labels 1..K, each repeated ~n/K times; for a
@@ -361,10 +393,12 @@ class Trainer:
         return np.repeat(labels, repeats)
 
     def train(self, ckpt_dir=None, image_dir=None, use_ddim=False,
-              logger: Callable[[str], None] = print) -> dict:
+              logger: Callable[[str], None] = print, evaluator=None) -> dict:
         """Run the remaining epochs; returns a summary (steps, last epoch's
-        loss, images/s over the steps after the first, the sample grids'
-        sampler stats)."""
+        loss, images/s over the steps after the first, the sample grids' and
+        evaluations' sampler stats, the last evaluation's results). With an
+        ``evaluator``, every ``eval_intv`` epochs end with its ``eval``, the
+        results logged with the epoch's stats and kept in the checkpoint."""
         if ckpt_dir and self.ckpt_manager is None:
             self.ckpt_manager = CheckpointManager(ckpt_dir, self.max_ckpts_kept)
         nrow, labels = 8, None
@@ -376,9 +410,10 @@ class Trainer:
                 nrow = math.floor(math.sqrt(self.num_save_images))
 
         first_step = self.host_step
-        stats = {}
+        stats, last_eval = {}, {}
         for e in range(self.start_epoch, self.epochs):
             self.stats.reset()
+            results = {}  # this epoch's evaluation, kept in its checkpoint
             self.trainloader.set_epoch(e)
             n = len(self.trainloader)
             t_start = time.perf_counter()
@@ -396,17 +431,21 @@ class Trainer:
                     logger(f"{e + 1}/{self.epochs} epochs, {i + 1}/{n} steps: {stats}")
             self._sync()
             self.timing["seconds"] += time.perf_counter() - t_start
+            if evaluator is not None and not (e + 1) % self.eval_intv:
+                results = last_eval = {**stats, **evaluator.eval(self.eval_sampler(e, use_ddim),
+                                                                  logger)}
+                logger(f"{e + 1}/{self.epochs} epochs: {results}")
 
             last = (e + 1) == self.epochs
             if (last or not (e + 1) % self.image_intv) and self.num_save_images and image_dir:
                 x = self.sample_fn(label=labels, use_ddim=use_ddim, seed=self.seed * 7919 + e)
                 save_image(x, os.path.join(image_dir, f"{e + 1}.png"), nrow=nrow)
             if (last or not (e + 1) % self.ckpt_intv) and self.max_ckpts_kept and self.ckpt_manager:
-                self.save_checkpoint(epoch=e + 1, extra=dict(stats))
+                self.save_checkpoint(epoch=e + 1, extra=dict(results or stats))
         t = self.timing
         return {"steps": self.host_step - first_step, "loss": stats.get("loss"),
                 "img_per_s": t["images"] / t["seconds"] if t["images"] else None,
-                "sampler": self.sampler_stats}
+                "sampler": self.sampler_stats, "eval": last_eval}
 
     def save_checkpoint(self, epoch: int, extra=None) -> str:
         assert self.ckpt_manager is not None
@@ -425,3 +464,50 @@ class Trainer:
             self.ckpt_manager = CheckpointManager(ckpt_dir, self.max_ckpts_kept)
         self.start_epoch, self.host_step = self.ckpt_manager.restore(
             self.model, self.optimizer, self.ema_model, ckpt_path)
+
+
+class Evaluator:
+    """In-training FID: ``eval(sample_fn)`` streams ``max_eval_count`` (plus
+    one batch) samples of ``sample_fn(eval_batch_size, diffusion)`` through the
+    FID Inception's statistics on ``device`` and returns {"fid": ...} against
+    the dataset's precomputed statistics (or ``target_stats``). Missing
+    statistics or Inception weights skip the evaluation with a logged reason
+    instead of stopping the training, as the eval CLI skips a metric."""
+
+    def __init__(self, dataset: str, diffusion=None, eval_batch_size: int = 256,
+                 max_eval_count: int = 10000, precomputed_dir: str = "precomputed",
+                 feature_fn=None, target_stats=None, device="cuda"):
+        from .metrics.fid import InceptionStatistics, calc_fd, get_precomputed
+
+        self.diffusion = diffusion
+        dim = len(target_stats[0]) if target_stats is not None else 2048
+        self.istats = InceptionStatistics(feature_fn=feature_fn, activation_dim=dim,
+                                          device=device)
+        self.eval_batch_size = eval_batch_size
+        self.max_eval_count = max_eval_count
+        self._skip_reason = None
+        if target_stats is not None:
+            self.target_mean, self.target_var = target_stats
+        else:
+            try:
+                self.target_mean, self.target_var = get_precomputed(
+                    dataset, download_dir=precomputed_dir)
+            except FileNotFoundError as e:
+                self.target_mean = self.target_var = None
+                self._skip_reason = str(e)
+        self._calc_fd = calc_fd
+
+    def eval(self, sample_fn, logger: Callable[[str], None] = print) -> dict:
+        if self._skip_reason is not None:
+            logger(f"FID skipped: {self._skip_reason}")
+            return {}
+        self.istats.reset()
+        try:
+            for _ in range(0, self.max_eval_count + self.eval_batch_size, self.eval_batch_size):
+                self.istats.update(np.asarray(sample_fn(self.eval_batch_size, self.diffusion)))
+        except FileNotFoundError as e:  # the Inception weights are absent
+            self._skip_reason = str(e)
+            logger(f"FID skipped: {self._skip_reason}")
+            return {}
+        gen_mean, gen_var = self.istats.get_statistics()
+        return {"fid": self._calc_fd(gen_mean, gen_var, self.target_mean, self.target_var)}
