@@ -14,7 +14,9 @@ Phases, one output line each (any failure raises and exits non-zero):
      (celeba N=12 and 9), B2 at T=1024 and celeba's N=9 levels), each timed
      beside the f32-FMA kernel it replaced on the same inputs;
   3. unet: the full-width cifar10_cond UNet (random weights, zero-init layers
-     perturbed) in f32 on the GPU against the same UNet on the CPU;
+     perturbed) in f32 on the GPU against the same UNet on the CPU, then the
+     same with resample_with_res=False (strided-conv resampling: 15 attention
+     calls a forward, all at T <= 512);
   3a. graph: the sampler with its CUDA graph (step 0 eager, one capture,
      the other steps replayed) against its eager loop from the same x_T, on
      the full-width bf16 cifar10_cond model: 8 DDIM steps at w=0 B=64 with
@@ -88,6 +90,11 @@ Phases, one output line each (any failure raises and exits non-zero):
      epoch-end sample grid, ckpt_last), then generate samples from ckpt_last;
      a bf16 step launches attn_fwd_tc and attn_bwd_tc once each, attn_bwd 17
      times and neither backward pass;
+  7a. train-cli-remat: the same CLI run with --remat-policy conv and neither
+     sample grid nor checkpoint (4 steps of 128); a step launches the forward
+     kernels once for each attention call and again for each of the 17 in a
+     checkpointed block (attn_fwd_train 33 times, attn_fwd_tc twice), the
+     backward's as without remat;
   8. celeba-kernels: the head-dim 64 kernels (attn_fwd_pack1, attn_fwd_pack1_lse,
      attn_bwd_pack1, attn_bwd_pack1_kv) run at the shapes the celeba paths give
      them (CELEBA_KERNEL_SHAPES: the sampler's B=32, the train step's B=48)
@@ -115,11 +122,22 @@ Phases, one output line each (any failure raises and exits non-zero):
  12. celeba-train: 3 steps of the bf16 train step at B=48 on seeded images and
      multi-hot tags, each with CELEBA_STEP_LAUNCHES_BF16, a finite loss and
      the peak device memory;
+ 12a. remat: one celeba bf16 train step at B=48 (dropout 0.1) in each of the
+     UNet's checkpointing modes (none, remat, remat_policy="conv"), from the
+     same weights, draws and step generator, with cuDNN's deterministic
+     algorithms, and a second no-remat step as the control: losses equal bit
+     for bit, gradients bit for bit where the control's are, else within
+     REMAT_GRAD_SPREAD times the control's spread (the line says which held);
+     then a warm-up step and 3 timed steps of each with the default
+     algorithms (CUDA events) and their peak device memory, which must order
+     full < conv < none; the launches of each mode's first step
+     (CELEBA_STEP_LAUNCHES_BF16, and with remat the forward of every
+     attention call but the middle block's once more);
  13. bench: python -m vdiff_tpu_torch.bench at full width with its sampling
      cut to 16 steps (--sample-steps), in this process: its JSON lines (the
      root bench's five, the canary and three arms, the headline last).
 Every kernel's launches in the JSON record are counted on the main paths
-(phases 4, 4e, 4c, 7, 11, 12), each run with the counts set to 0 just before it and
+(phases 4, 4e, 4c, 7, 7a, 11, 12), each run with the counts set to 0 just before it and
 read just after: "launches" is their sum over the paths, and
 "launches_by_path" each path's own count. A sampling path replays CUDA
 graphs, whose replays the wrappers do not count and whose captures launch
@@ -224,6 +242,20 @@ CELEBA_STEP_LAUNCHES = _launches(attn_fwd_pack1=9, attn_fwd_pack1_lse=1, attn_bw
 CELEBA_STEP_LAUNCHES_BF16 = _launches(attn_fwd_pack1=9, attn_fwd_pack1_lse=1, attn_bwd_pack1=9,
                                       attn_bwd_pack1_kv=1, attn_fwd_train=16, attn_fwd_tc=1,
                                       attn_bwd=16, attn_bwd_tc=1)
+# with remat (either mode) every down and up block is checkpointed and a
+# checkpointed attention block runs its forward again in the backward (an
+# autograd.Function saves after its forward, so a recompute re-runs it, as JAX
+# re-runs its kernel): every attention call but the middle block's (8x8,
+# attn_fwd_train) twice. CIFAR: 17 of 18 calls
+# (16 attn_fwd_train, the T=1024 one attn_fwd_tc); celeba: 26 of 27.
+TRAIN_STEP_LAUNCHES_BF16_REMAT = _launches(attn_fwd_train=33, attn_fwd_tc=2, attn_bwd=17,
+                                           attn_bwd_tc=1)
+CELEBA_STEP_LAUNCHES_BF16_REMAT = _launches(attn_fwd_pack1=18, attn_fwd_pack1_lse=2,
+                                            attn_bwd_pack1=9, attn_bwd_pack1_kv=1,
+                                            attn_fwd_train=31, attn_fwd_tc=2, attn_bwd=16,
+                                            attn_bwd_tc=1)
+REMAT_MODES = {"none": {}, "full": {"remat": True}, "conv": {"remat_policy": "conv"}}
+REMAT_TIMED_STEPS = 3
 # (B, T, N, kernels) at head dim 64: every shape the celeba paths give the
 # head-dim 64 kernels, the sampler's B6 at T=4096 and the train step's at B=48
 # (the sampler's B6 at T <= 1024 runs the same code at a smaller batch)
@@ -283,6 +315,14 @@ FUSED_UNET_RTOL = 2.0 ** -4
 # 2·lr (plus the decay's share), all others to 1e-2·lr.
 STEP_LOSS_RTOL, STEP_GRAD_RTOL, STEP_PARAM_RTOL, STEP_SIGN_BOUND = 1e-4, 1e-3, 1e-2, 2.01
 STEP_LR = 2e-4
+# a bf16 train step's gradients with remat vs without must be equal bit for
+# bit under cuDNN's deterministic algorithms: the recompute runs the forward's
+# kernels on the same inputs. Should two steps without remat not agree bit
+# for bit themselves (an algorithm that sums in no fixed order), remat may
+# differ from no remat by at most this many times their own largest
+# difference, in units of the largest gradient; a recompute that drew other
+# dropout bits moves the gradients by the size of a step (PERF.md §5).
+REMAT_GRAD_SPREAD = 4.0
 # lse of the head-dim 64 forward vs its twin, f32 on both sides: |lse| is
 # at most ~20 here and the kernel's running max moves f32 roundings only
 LSE_ATOL = 1e-4
@@ -698,6 +738,11 @@ def phase_unet(cfg):
     y = torch.tensor([3.0, 0.0])  # a class and the CFG null label
     _unet_parity("unet: cifar10_cond", model, x, t, y,
                  _launches(attn_fwd_online=ONLINE_PER_FWD, attn_fwd_qblk=QBLK_PER_FWD))
+    # strided-conv resampling: the resample blocks and their attention go,
+    # leaving 7 calls at T=256 and 8 at T=64
+    strided = _perturbed_unet(dict(cfg, model=dict(cfg["model"], resample_with_res=False)))
+    _unet_parity("unet: cifar10_cond resample_with_res=False", strided, x, t, y,
+                 _launches(attn_fwd_online=15))
     return model
 
 
@@ -813,6 +858,28 @@ def phase_train_cli(tmp):
           f"finite={out['finite']}", flush=True)
     if out["images"] != 16 or not out["finite"]:
         fail(f"train-cli: generate from ckpt_last gave {out}")
+    return launched
+
+
+def phase_train_cli_remat(tmp):
+    """The train CLI with --remat-policy conv, without the sample grid and
+    the checkpoint; returns the kernels' launch counts of the run."""
+    from vdiff_tpu_torch import train
+
+    _reset_counts()
+    summary = train.main(["--config-path", TRAIN_CONFIG, "--allow-bf16", "--epochs", "1",
+                          "--remat-policy", "conv", "--num-save-images", "0",
+                          "--max-ckpts-kept", "0", "--exp-dir", os.path.join(tmp, "exps_remat")])
+    launched = _counts()
+    print(f"train-cli-remat: synthetic_flagship bf16 B=128 remat_policy=conv, "
+          f"{summary['steps']} steps, loss {summary['loss']}, {summary['img_per_s']} img/s over "
+          f"the steps after the first, device launches {_nonzero(launched)}", flush=True)
+    steps = summary["steps"]
+    if steps != 4 or summary["loss"] is None or not math.isfinite(summary["loss"]):
+        fail(f"train-cli-remat: {steps} steps, loss {summary['loss']}")
+    want = {k: v * steps for k, v in TRAIN_STEP_LAUNCHES_BF16_REMAT.items()}
+    if launched != want:
+        fail(f"train-cli-remat: launches {launched}, expected {want}")
     return launched
 
 
@@ -1473,6 +1540,100 @@ def phase_celeba_train(cfg):
 
 
 
+def phase_remat(cfg, card):
+    """One celeba bf16 train step at B=48 in each checkpointing mode, same
+    weights, draws and step generator (dropout as configured), under cuDNN's
+    deterministic algorithms, and a second step without remat as the control:
+    the losses equal bit for bit, the gradients bit for bit where the
+    control's are (else within REMAT_GRAD_SPREAD of the control's spread);
+    then, with the default algorithms, a warm-up step and REMAT_TIMED_STEPS
+    timed steps of each, with their peak memory."""
+    from vdiff_tpu_torch.factory import build_diffusion, build_unet
+    from vdiff_tpu_torch.train_lib import Optimizer, make_train_step
+
+    torch.cuda.empty_cache()
+    tr, cond = cfg["train"], cfg["conditional"]
+    diffusion, timesteps = build_diffusion(cfg["diffusion"], w_guide=cond["w_guide"],
+                                           p_uncond=cond["p_uncond"])
+    kw = dict(in_channels=3, model_out_type=cfg["diffusion"]["model_out_type"], num_classes=40,
+              multitags=True, dtype=torch.bfloat16)
+    weights = build_unet(cfg["model"], generator=torch.Generator().manual_seed(0),
+                         **kw).state_dict()
+    B = CELEBA_TRAIN_B
+    gen = torch.Generator().manual_seed(15)
+    x, y = (a.cuda() for a in _celeba_inputs(B, gen))
+    draws = [{"t": torch.rand(B, generator=gen).cuda(),
+              "noise": torch.randn(x.shape, generator=gen).cuda(),
+              "keep": (torch.rand(B, generator=gen) > cond["p_uncond"]).cuda()}]
+
+    def first_step(flags):
+        """A new model and optimizer from ``weights`` and their first step
+        under the deterministic algorithms: (step, loss, grads, launches)."""
+        model = build_unet(cfg["model"], **kw, **flags)
+        model.load_state_dict(weights)
+        model.cuda()
+        opt = Optimizer(model.parameters(), lr=tr["lr"], weight_decay=tr["weight_decay"],
+                        warmup=tr["warmup"], grad_norm=tr["grad_norm"])
+        step = make_train_step(model, diffusion, opt, timesteps, use_cfg=True)
+        torch.backends.cudnn.deterministic = True
+        try:
+            _reset_counts()
+            loss = step(x, y, 0, 0, draws=draws).item()
+            launched = _counts()
+        finally:
+            torch.backends.cudnn.deterministic = False
+        grads = torch.cat([p.grad.flatten().cpu() for p in model.parameters()])
+        return step, loss, grads, launched
+
+    _, loss, grads, _ = first_step({})
+    scale = grads.abs().max().item()
+    torch.cuda.empty_cache()
+    runs = {}
+    for mode, flags in REMAT_MODES.items():
+        step, got_loss, got, launched = first_step(flags)
+        # the default algorithms' first use (cuDNN's heuristics, lazy
+        # loads) falls in an untimed step
+        step(x, y, 0, 1, draws=draws)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for i in range(REMAT_TIMED_STEPS):
+            step(x, y, 0, 2 + i, draws=draws)
+        end.record()
+        end.synchronize()
+        ms = start.elapsed_time(end) / REMAT_TIMED_STEPS
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        runs[mode] = (got_loss, got, peak)
+        print(f"remat: {card}: celeba bf16 B={B} {mode}: loss {got_loss}, step {ms:.2f} ms (CUDA "
+              f"events, mean of {REMAT_TIMED_STEPS} steps after a warm-up), peak device memory "
+              f"{peak:.3f} GiB, launches {_nonzero(launched)}", flush=True)
+        want = CELEBA_STEP_LAUNCHES_BF16 if mode == "none" else CELEBA_STEP_LAUNCHES_BF16_REMAT
+        if not math.isfinite(got_loss) or launched != want:
+            fail(f"remat: {mode}: loss {got_loss}, launches {launched}, expected {want}")
+        del step
+        torch.cuda.empty_cache()
+    # the control: the no-remat step against the one before it
+    spread = (runs["none"][1] - grads).abs().max().item() / scale
+    exact = spread == 0.0 and runs["none"][0] == loss
+    print(f"remat: {card}: control, none vs none: loss "
+          f"{'equal' if runs['none'][0] == loss else 'DIFFERS'} bit for bit, gradients "
+          f"{'equal bit for bit' if exact else f'max err {spread} of the largest'}", flush=True)
+    for mode in ("full", "conv"):
+        got_loss, got, _ = runs[mode]
+        err = (got - grads).abs().max().item() / scale
+        bound = 0.0 if exact else REMAT_GRAD_SPREAD * spread
+        print(f"remat: {card}: {mode} vs none: loss {'equal' if got_loss == loss else 'DIFFERS'} "
+              f"bit for bit, gradients {'equal bit for bit' if err == 0.0 else 'not bit for bit'} "
+              f"(max err {err} of the largest, bound {bound}: "
+              f"{'bit for bit, as the control' if exact else 'the control spread'})", flush=True)
+        if got_loss != loss or err > bound:
+            fail(f"remat: {mode}: loss {got_loss} vs {loss}, gradient err {err} > {bound}")
+    peaks = {mode: run[2] for mode, run in runs.items()}
+    if not peaks["full"] < peaks["conv"] < peaks["none"]:
+        fail(f"remat: peak memory {peaks} (GiB) does not order full < conv < none")
+
+
 # ---------------------------------------------------------------------------
 # the eval path: nll, the metric nets, the dress rehearsal, the Evaluator
 # ---------------------------------------------------------------------------
@@ -1726,7 +1887,7 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
-    phase_card()
+    card = phase_card()
     record = phase_kernels()
     cfg, _ = load_experiment_config(CONFIG)
     model = phase_unet(cfg)
@@ -1751,6 +1912,7 @@ def main():
             record.setdefault(name, r)
         phase_train_unet(cfg)
         by_path["cifar_train_cli"] = phase_train_cli(tmp)
+        by_path["cifar_train_cli_remat"] = phase_train_cli_remat(tmp)
         # the train CLI turns cuDNN's autotuner on (defaults.json); the later
         # phases run as the generate CLI and the profile scripts do, without it
         torch.backends.cudnn.benchmark = False
@@ -1763,6 +1925,7 @@ def main():
         by_path["celeba_sample"] = phase_celeba_sample(model, tmp)
         del model
         by_path["celeba_train"] = phase_celeba_train(celeba_cfg)
+        phase_remat(celeba_cfg, card)
     phase_bench()
 
     meta = {

@@ -1,7 +1,8 @@
 """Where the port's train step spends its time on the GPU.
 
     python scripts/profile_torch_train.py [--config synthetic_flagship|celeba] [--batch B]
-        [--steps 8] [--cudnn-benchmark] [--out profile_train.txt]
+        [--steps 8] [--cudnn-benchmark] [--remat | --remat-policy conv]
+        [--out profile_train.txt]
 
 Builds the full-width UNet of ``vdiff_tpu_torch`` for ``--config`` (random
 weights, bf16 activations, dropout as configured): synthetic_flagship, the
@@ -16,7 +17,9 @@ time, which the profiler's own host cost lengthens, and over the unprofiled
 step), peak device memory and the kernels by total device time; the full
 table goes to ``--out``. TF32 is off and cuDNN's autotuner is off unless
 ``--cudnn-benchmark`` is given, as the train CLI leaves them without its
-``--allow-tf32`` and ``--cudnn-benchmark``. Needs a CUDA device.
+``--allow-tf32`` and ``--cudnn-benchmark``. ``--remat`` and ``--remat-policy``
+checkpoint the UNet's down and up blocks as the train CLI's flags do. Needs a
+CUDA device.
 """
 
 import argparse
@@ -55,6 +58,8 @@ def main():
     p.add_argument("--batch", type=int, help="default: the config's (128; celeba 48)")
     p.add_argument("--steps", type=int, default=8)
     p.add_argument("--cudnn-benchmark", action="store_true", help="cuDNN autotuner, as the CLI flag")
+    p.add_argument("--remat", action="store_true", help="checkpoint the down and up blocks")
+    p.add_argument("--remat-policy", choices=["conv"], help="keep their conv outputs")
     p.add_argument("--out", default="profile_train.txt")
     args = p.parse_args()
     if not torch.cuda.is_available():
@@ -70,7 +75,8 @@ def main():
     tr, cond = cfg["train"], cfg["conditional"]
     model = build_unet(cfg["model"], in_channels=3, model_out_type=cfg["diffusion"]["model_out_type"],
                        num_classes=num_classes, multitags=multitags, dtype=torch.bfloat16,
-                       generator=torch.Generator().manual_seed(0)).cuda()
+                       generator=torch.Generator().manual_seed(0), remat=args.remat,
+                       remat_policy=args.remat_policy).cuda()
     ema = copy.deepcopy(model).requires_grad_(False)
     diffusion, timesteps = build_diffusion(cfg["diffusion"], w_guide=cond["w_guide"],
                                            p_uncond=cond["p_uncond"])
@@ -110,7 +116,9 @@ def main():
         wall = time.perf_counter() - t0
     events = prof.key_averages()
     busy_us = sum(_device_us(e) for e in events)
-    head = (f"{args.config} train step bf16 B={args.batch} cudnn.benchmark={args.cudnn_benchmark}: "
+    remat = f"remat_policy={args.remat_policy}" if model.remat_policy else f"remat={model.remat}"
+    head = (f"{args.config} train step bf16 B={args.batch} {remat} "
+            f"cudnn.benchmark={args.cudnn_benchmark}: "
             f"{step_ms:.3f} ms/step "
             f"({args.batch * 1e3 / step_ms:.1f} img/s, loss {loss.item():.4f}), device busy "
             f"{busy_us / (wall * 1e6):.3f} of the profiled wall time and "

@@ -2,7 +2,8 @@
 loader (crop 148×148 at (40, 15) → 64×64 PIL-BILINEAR, flip, normalise) bit
 for bit against the JAX package's, the multi-tag label stream of the generate
 CLI against the JAX CLI's, and both CLIs end to end on a tiny CelebA tree
-that the tests write with PIL."""
+that the tests write with PIL; and the twins of tests/test_native.py's resize
+and normalize cases and of the JAX package's 2-D toy-data helpers."""
 
 import json
 import os
@@ -143,3 +144,52 @@ def test_celeba_train_then_generate_cli_on_cpu(celeba_root, tmp_path):
         assert out["images"] == len(pngs) == 3 and out["finite"]
         with Image.open(os.path.join(out["save_dir"], pngs[0])) as im:
             assert im.size == (64, 64)
+
+
+@pytest.mark.parametrize("shape,out", [
+    ((2, 28, 28, 3), (32, 32)),     # mnist upscale
+    ((2, 148, 148, 3), (64, 64)),   # celeba downscale (antialias matters)
+    ((1, 512, 333, 3), (100, 77)),  # non-square, large ratio
+    ((2, 28, 28, 1), (32, 32)),     # grayscale
+])
+def test_resize_bilinear_bit_equal_to_native(shape, out):
+    """The port's whole-image resize against the JAX package's
+    ``native.resize_bilinear`` at tests/test_native.py's shapes, bit for bit."""
+    from vdiff_tpu import native
+    from vdiff_tpu_torch.data import _resize_batch_bilinear
+
+    x = np.random.RandomState(2).randint(0, 256, shape, np.uint8)
+    np.testing.assert_array_equal(_resize_batch_bilinear(x, *out), native.resize_bilinear(x, *out))
+
+
+@pytest.mark.parametrize("flips", [None, np.array([1, 0, 1, 0, 1], bool)])
+def test_normalize_flip_bit_equal_to_native(flips):
+    from vdiff_tpu import native
+    from vdiff_tpu_torch.data import normalize_flip
+
+    x = np.random.RandomState(1).randint(0, 256, (5, 4, 6, 3), np.uint8)
+    got = normalize_flip(x, flips)
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(got, native.normalize_flip(x, flips))
+
+
+def test_toy_data_helpers_match_jax(tmp_path):
+    """split_squeeze and infer_range equal the JAX package's; both
+    save_scatterplot forms write a PNG."""
+    from vdiff_tpu.utils import misc as jmisc
+    from vdiff_tpu_torch.utils import misc
+
+    pts = np.random.RandomState(4).randn(64, 2) * 3
+    for a, b in zip(misc.split_squeeze(pts), jmisc.split_squeeze(pts)):
+        np.testing.assert_array_equal(a, b)
+    batches = [pts[:32], pts[32:] + 1.3]
+    for precision in (1, 2, 5):
+        got, ref = misc.infer_range(batches, precision), jmisc.infer_range(batches, precision)
+        for a, b in zip(got, ref):
+            np.testing.assert_array_equal(a, b)
+    pytest.importorskip("matplotlib")
+    misc.save_scatterplot(tmp_path / "a.png", pts, xlim=(-9, 9), ylim=(-9, 9))
+    misc.save_scatterplot(tmp_path / "b.png", pts[:, 0])
+    for name in ("a.png", "b.png"):
+        with Image.open(tmp_path / name) as im:
+            assert im.size == (600, 600)

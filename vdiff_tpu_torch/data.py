@@ -128,15 +128,11 @@ def load_cifar10(root: str, train: bool = True):
     return np.ascontiguousarray(x), np.asarray(ys, np.int64)
 
 
-def _resize_batch_bilinear(x: np.ndarray, size: int) -> np.ndarray:
-    """Resize (N, H, W, 1) uint8 with PIL's BILINEAR filter (the JAX package's
-    fallback when its native library is not built)."""
-    from PIL import Image
-
-    out = np.empty((len(x), size, size, 1), np.uint8)
-    for i, img in enumerate(x):
-        out[i, ..., 0] = np.asarray(Image.fromarray(img[..., 0]).resize((size, size), Image.BILINEAR))
-    return out
+def _resize_batch_bilinear(x: np.ndarray, oh: int, ow: int) -> np.ndarray:
+    """Resize (N, H, W, C) uint8 to (N, oh, ow, C) with PIL's fixed-point
+    BILINEAR filter (:func:`crop_resize_bilinear` on the whole image), bit
+    for bit as the JAX package's ``native.resize_bilinear``."""
+    return crop_resize_bilinear(x, 0, 0, x.shape[1], x.shape[2], oh, ow)
 
 
 def load_celeba_index(root: str, split: str = "all"):
@@ -296,7 +292,7 @@ def _build_dataset(dataset: str, root: str, split: str, num_workers: int = 0):
     train = split in {"train", "all"}
     if dataset == "mnist":
         images, labels = load_mnist(root, train=train)
-        return ArrayDataset(_resize_batch_bilinear(images, 32), labels + 1, random_flip=False)
+        return ArrayDataset(_resize_batch_bilinear(images, 32, 32), labels + 1, random_flip=False)
     if dataset == "cifar10":
         images, labels = load_cifar10(root, train=train)
         return ArrayDataset(images, labels + 1, random_flip=True)

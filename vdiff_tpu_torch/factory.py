@@ -119,11 +119,14 @@ def build_diffusion(diff_section: dict, *, w_guide: float, p_uncond: float = 0.0
 
 def build_unet(model_section: dict, *, in_channels: int, model_out_type: str,
                num_classes: int, multitags: bool, dtype: torch.dtype = torch.float32,
-               generator: torch.Generator | None = None, model_var_type: str = "fixed_large"):
+               generator: torch.Generator | None = None, model_var_type: str = "fixed_large",
+               remat: bool = False, remat_policy: str | None = None):
     """(resolved) ``config["model"]`` → UNet; out_channels follows the
     prediction head ("both" doubles it) and the variance ("learned" doubles
     it again: the variance logits follow the prediction on the channel axis,
-    where ``GaussianDiffusion.p_mean_var`` splits them off)."""
+    where ``GaussianDiffusion.p_mean_var`` splits them off). ``remat`` and
+    ``remat_policy`` are the UNet's activation checkpointing (JAX's
+    ``build_unet`` arguments)."""
     from .models.unet import UNet
 
     cfg = {k: v for k, v in model_section.items() if k != "use_xformers"}
@@ -133,7 +136,7 @@ def build_unet(model_section: dict, *, in_channels: int, model_out_type: str,
     head_mult *= 2 if model_var_type == "learned" else 1
     cfg.setdefault("out_channels", head_mult * in_channels)
     return UNet(num_classes=num_classes, multitags=multitags, dtype=dtype,
-                generator=generator, **cfg)
+                generator=generator, remat=remat, remat_policy=remat_policy, **cfg)
 
 
 def load_checkpoint_params(ckpt_path: str, use_ema: bool = False):
@@ -145,7 +148,8 @@ def load_checkpoint_params(ckpt_path: str, use_ema: bool = False):
     if os.path.isdir(ckpt_path):
         raise NotImplementedError(
             f"'{ckpt_path}' is an Orbax checkpoint directory; the port loads torch .pt "
-            "files only (an Orbax→.pt export is a later item of ROADMAP.md queue A)"
+            "files only: write one with `python scripts/export_orbax_to_pt.py "
+            f"--ckpt-dir {ckpt_path} --config-path <experiment json> --out <file.pt>`"
         )
     ckpt = torch.load(ckpt_path, map_location="cpu", weights_only=True)
     state_dict = ckpt["ema"]["shadow"] if use_ema else ckpt["model"]

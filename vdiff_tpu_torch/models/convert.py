@@ -53,9 +53,13 @@ def _block(sd, prefix, p):
 
 def flax_params_to_state_dict(params: Mapping, model_cfg: Mapping) -> Dict[str, np.ndarray]:
     """``model_cfg`` holds the UNet's ``ch_multipliers`` and ``num_res_blocks``,
-    and ``multitags`` (default false) for a multi-tag class embedding."""
+    ``multitags`` (default false) for a multi-tag class embedding and
+    ``resample_with_res`` (default true): without it the resamplers are bare
+    convs, keyed as the reference keys them (``downsamples.level_i.{nres}``,
+    ``upsamples.level_i.{nres+1}.1``)."""
     levels = len(model_cfg["ch_multipliers"])
     nres = model_cfg["num_res_blocks"]
+    with_res = model_cfg.get("resample_with_res", True)
     sd: Dict[str, np.ndarray] = {}
     _linear(sd, "time_embed.0", params["time_embed_1"])
     _linear(sd, "time_embed.2", params["time_embed_2"])
@@ -69,8 +73,10 @@ def flax_params_to_state_dict(params: Mapping, model_cfg: Mapping) -> Dict[str, 
         base = f"downsamples.level_{i}"
         for j in range(nres):
             _block(sd, f"{base}.{j}", params[f"down_{i}_{j}"])
-        if i != levels - 1:
+        if i != levels - 1 and with_res:
             _block(sd, f"{base}.{nres}", params[f"down_{i}_ds"])
+        elif i != levels - 1:
+            _conv(sd, f"{base}.{nres}", params[f"down_{i}_ds"])
     _resblock(sd, "middle.0", params["mid_res1"])
     _attn(sd, "middle.1", params["mid_attn"])
     _resblock(sd, "middle.2", params["mid_res2"])
@@ -78,8 +84,10 @@ def flax_params_to_state_dict(params: Mapping, model_cfg: Mapping) -> Dict[str, 
         base = f"upsamples.level_{i}"
         for j in range(nres + 1):
             _block(sd, f"{base}.{j}", params[f"up_{i}_{j}"])
-        if i != 0:
+        if i != 0 and with_res:
             _block(sd, f"{base}.{nres + 1}", params[f"up_{i}_us"])
+        elif i != 0:
+            _conv(sd, f"{base}.{nres + 1}.1", params[f"up_{i}_us"])
     _norm(sd, "out_conv.0", params["out_norm"])
     _conv(sd, "out_conv.2", params["out_conv"])
     return sd

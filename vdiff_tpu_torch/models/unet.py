@@ -25,6 +25,19 @@ GN→SiLU→conv3x3 kernel wherever ``ops.conv3x3.fusable`` holds
 (``VDIFF_FUSED_CONV=1``), and every GroupNorm that stays alone leaves the choice
 of the one-kernel form to ``ops.groupnorm.gn_film_silu`` (``VDIFF_FUSED_GN=1``).
 Both switches are off by default, as in the JAX package.
+
+``remat``/``remat_policy`` are JAX's activation checkpointing of the blocks
+that ``UNet._block`` builds (the ``downsamples``/``upsamples`` entries that are
+residual blocks, with or without attention; not ``middle``, ``in_conv``, the
+output head or the strided/upsampling convs of ``resample_with_res=False``).
+It applies in training with grad enabled only, runs the blocks through
+:func:`.remat.checkpoint_block` without wrapping a module, so the state_dict
+keys stay the same in every mode, and is described in :mod:`.remat`.
+
+``resample_with_res=False`` resamples between levels with a stride-2 3x3 conv
+(padding 1 on each side, JAX's fix of the reference's pad 0, which breaks the
+H/2 shape) and a nearest upsample followed by a 3x3 conv, keyed as the
+reference's ``downsamples.level_i.{nres}`` and ``upsamples.level_i.{nres+1}.1``.
 """
 
 from __future__ import annotations
@@ -48,6 +61,11 @@ from .layers import (
     nearest_upsample,
     one_hot_exclude_zero,
 )
+from .remat import check_policy, checkpoint_block, checkpoint_region
+
+
+def _cat(x, skip_in):
+    return x if skip_in is None else torch.cat([x, skip_in], dim=1)
 
 
 def _zero_init(m: nn.Module) -> nn.Module:
@@ -116,20 +134,42 @@ class ResidualBlock(nn.Module):
     def forward(self, x, t_emb, train=False, generator=None):
         fuse = not train  # the inference kernels: no autograd through them, no dropout
         c_out = self.conv1.out_channels
-        skip = self.resample(x)
-        if self.skip is not None:
-            skip = conv2d(skip, self.skip, self.dtype)
+        skip = self._skip_path(x)
         if (fuse and self.resampling == "none" and not self.concat_free_in_jax
                 and fusable(x.permute(0, 2, 3, 1), c_out)):
             h = _fused_conv(x, self.conv1, self.norm1)
         else:
-            h = conv2d(self.resample(self.norm1(x, silu=True, fuse=fuse)), self.conv1, self.dtype)
-        shift, scale = linear(F.silu(t_emb), self.fc, self.dtype).chunk(2, dim=-1)
+            h = self._conv1(x, fuse=fuse)
         if fuse and fusable(h.permute(0, 2, 3, 1), c_out):
+            shift, scale = self._film(t_emb)
             return _fused_conv(h, self.conv2, self.norm2, shift, scale, skip.to(h.dtype))
-        h = self.norm2(h, shift, scale, silu=True, fuse=fuse)
-        h = self.dropout(h, train, generator)
-        return conv2d(h, self.conv2, self.dtype) + skip
+        # conv2 last: a checkpoint's recompute stops before the last op that saves
+        return self._conv2(h, t_emb, train, generator) + skip
+
+    def forward_saving_convs(self, x, skip_in, t_emb, generator):
+        """The training forward of ``cat(x, skip_in)`` as one checkpoint
+        region per conv (``remat_policy="conv"``, :mod:`.remat`)."""
+        skip = checkpoint_region(self._skip_path, x, skip_in)
+        h = checkpoint_region(self._conv1, x, skip_in)
+        return checkpoint_region(self._conv2, h, t_emb, True, generator=generator) + skip
+
+    def _skip_path(self, x, skip_in=None):
+        skip = self.resample(_cat(x, skip_in))
+        return skip if self.skip is None else conv2d(skip, self.skip, self.dtype)
+
+    def _conv1(self, x, skip_in=None, fuse=False):
+        """GN→SiLU→resample→conv1, the GroupNorm alone (not the fused conv)."""
+        h = self.norm1(_cat(x, skip_in), silu=True, fuse=fuse)
+        return conv2d(self.resample(h), self.conv1, self.dtype)
+
+    def _film(self, t_emb):
+        return linear(F.silu(t_emb), self.fc, self.dtype).chunk(2, dim=-1)
+
+    def _conv2(self, h, t_emb, train, generator=None):
+        """FiLM Dense, GN→FiLM→SiLU→dropout→conv2, GroupNorm alone."""
+        shift, scale = self._film(t_emb)
+        h = self.norm2(h, shift, scale, silu=True, fuse=not train)
+        return conv2d(self.dropout(h, train, generator), self.conv2, self.dtype)
 
 
 class AttentionBlock(nn.Module):
@@ -153,11 +193,25 @@ class AttentionBlock(nn.Module):
         self.proj_out = _zero_init(nn.Conv2d(hid, channels, 1))
 
     def forward(self, x, train=False):
+        out = spatial_attention_qkv(self._qkv(x, train), self.num_heads, train=train)
+        return self._project_out(out, x)
+
+    def forward_saving_convs(self, x):
+        """The training forward with the qkv projection and the attention
+        each one checkpoint region (``remat_policy="conv"``, :mod:`.remat`)."""
+        qkv = checkpoint_region(self._qkv, x, True)
+        out = checkpoint_region(spatial_attention_qkv, qkv, self.num_heads, True)
+        return self._project_out(out, x)
+
+    def _qkv(self, x, train):
         B, C, H, W = x.shape
         tokens = self.norm(x, silu=False, fuse=not train).permute(0, 2, 3, 1).reshape(B, H * W, C)
         dt = tokens.dtype
-        qkv = F.linear(tokens, self.proj_in.weight.flatten(1).to(dt), self.proj_in.bias.to(dt))
-        out = spatial_attention_qkv(qkv, self.num_heads, train=train)
+        return F.linear(tokens, self.proj_in.weight.flatten(1).to(dt), self.proj_in.bias.to(dt))
+
+    def _project_out(self, out, x):
+        B, C, H, W = x.shape
+        dt = out.dtype
         out = F.linear(out, self.proj_out.weight.flatten(1).to(dt), self.proj_out.bias.to(dt))
         return out.reshape(B, H, W, C).permute(0, 3, 1, 2) + x
 
@@ -169,6 +223,34 @@ class _ResAttn(nn.Sequential):
     def forward(self, x, t_emb, train=False, generator=None):
         return self[1](self[0](x, t_emb, train, generator), train)
 
+    def forward_saving_convs(self, x, skip_in, t_emb, generator):
+        return self[1].forward_saving_convs(self[0].forward_saving_convs(x, skip_in, t_emb, generator))
+
+
+class _ConvDownsample(nn.Conv2d):
+    """``resample_with_res=False``'s downsampling: a 3x3 conv with stride 2
+    and padding (1, 1)."""
+
+    def __init__(self, channels: int, dtype: torch.dtype):
+        super().__init__(channels, channels, 3, stride=2, padding=1)
+        self.dtype = dtype
+
+    def forward(self, x, t_emb=None, train=False, generator=None):
+        return conv2d(x, self, self.dtype)
+
+
+class _ConvUpsample(nn.Sequential):
+    """``resample_with_res=False``'s upsampling: nearest ×2, then a 3x3 SAME
+    conv (the reference's ``Sequential(Upsample, Conv2d)``, keys ``.1``)."""
+
+    def __init__(self, channels: int, dtype: torch.dtype):
+        super().__init__(nn.Upsample(scale_factor=2, mode="nearest"),
+                         nn.Conv2d(channels, channels, 3, padding=1))
+        self.dtype = dtype
+
+    def forward(self, x, t_emb=None, train=False, generator=None):
+        return conv2d(self[0](x), self[1], self.dtype)
+
 
 class UNet(nn.Module):
     """Improved-DDPM UNet; constructor arguments mirror the JAX ``UNet``.
@@ -177,7 +259,10 @@ class UNet(nn.Module):
     NHWC, t (B,), y (B,) class labels (0 = null class), (B, K) tags with
     ``multitags`` (all zeros = the null label), or None →
     (B, H, W, C_out) f32. With ``train`` and a nonzero ``drop_rate`` the
-    dropout bits come from ``generator``.
+    dropout bits come from ``generator``. ``remat`` checkpoints every down and
+    up block in training; ``remat_policy="conv"`` does so by itself, keeping
+    the outputs JAX names ``unet_mm`` (:mod:`.remat`); another policy is a
+    ``ValueError``.
     """
 
     def __init__(
@@ -195,12 +280,15 @@ class UNet(nn.Module):
         num_classes: int = 0,
         multitags: bool = False,
         resample_with_res: bool = True,
+        remat: bool = False,
+        remat_policy: Optional[str] = None,
         dtype: torch.dtype = torch.float32,
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
-        if not resample_with_res:
-            raise NotImplementedError("resample_with_res=False (strided-conv resampling) is not ported")
+        check_policy(remat_policy)
+        self.remat = remat or remat_policy is not None
+        self.remat_policy = remat_policy
         self.hid_channels = hid_channels
         self.num_res_blocks = num_res_blocks
         self.num_classes = num_classes
@@ -233,8 +321,10 @@ class UNet(nn.Module):
             prev = chs[i - 1] if i else hid_channels
             mods = [block(i, prev, chs[i])]
             mods += [block(i, chs[i], chs[i]) for _ in range(1, num_res_blocks)]
-            if i != levels - 1:
+            if i != levels - 1 and resample_with_res:
                 mods.append(block(i, chs[i], chs[i], "downsample"))
+            elif i != levels - 1:
+                mods.append(_ConvDownsample(chs[i], dtype))
             self.downsamples[f"level_{i}"] = nn.ModuleList(mods)
 
         mid = chs[-1]
@@ -252,8 +342,10 @@ class UNet(nn.Module):
             mods += [block(i, 2 * chs[i], chs[i], skip_in=chs[i])
                      for _ in range(1, num_res_blocks)]
             mods.append(block(i, nxt + chs[i], chs[i], skip_in=nxt))
-            if i != 0:
+            if i != 0 and resample_with_res:
                 mods.append(block(i, chs[i], chs[i], "upsample"))
+            elif i != 0:
+                mods.append(_ConvUpsample(chs[i], dtype))
             self.upsamples[f"level_{i}"] = nn.ModuleList(mods)
 
         self.out_conv = nn.Sequential(
@@ -287,10 +379,17 @@ class UNet(nn.Module):
             onehot = one_hot_exclude_zero(y, self.num_classes)
             t_emb = t_emb + linear(onehot, self.class_embed[1], dt)
 
+        remat = self.remat and train and torch.is_grad_enabled()
+
+        def run(blk, h, skip_in=None):
+            if remat and isinstance(blk, (ResidualBlock, _ResAttn)):
+                return checkpoint_block(blk, h, skip_in, t_emb, generator, self.remat_policy)
+            return blk(_cat(h, skip_in), t_emb, train, generator)
+
         hs = [conv2d(x.permute(0, 3, 1, 2), self.in_conv, dt)]
         for level in self.downsamples.values():
             for blk in level:
-                hs.append(blk(hs[-1], t_emb, train, generator))
+                hs.append(run(blk, hs[-1]))
 
         h = self.middle[0](hs[-1], t_emb, train, generator)
         h = self.middle[1](h, train)
@@ -298,9 +397,8 @@ class UNet(nn.Module):
 
         for i in reversed(range(len(self.upsamples))):
             for j, blk in enumerate(self.upsamples[f"level_{i}"]):
-                if j <= self.num_res_blocks:  # all but the trailing upsample block
-                    h = torch.cat([h, hs.pop()], dim=1)
-                h = blk(h, t_emb, train, generator)
+                # all but the trailing upsample take a skip
+                h = run(blk, h, hs.pop() if j <= self.num_res_blocks else None)
         assert not hs
 
         h = self.out_conv[0](h, silu=True, fuse=not train)

@@ -20,9 +20,11 @@ JAX CLI's; ``--device`` places both here). ``--eval`` computes the FID of
 10,000 samples against the dataset's precomputed statistics every
 ``--eval-intv`` epochs (``train_lib.Evaluator``; a conditional model samples
 conditionally at w=0, as the root CLI does), and skips it with a message
-where the statistics or the Inception weights are missing. Refused until
-their slice: ``--distributed``, ``--fsdp``, ``--fsdp-size`` (multi-GPU,
-ROADMAP A10), ``--remat`` and ``--remat-policy`` (activation checkpointing, A7).
+where the statistics or the Inception weights are missing. ``--remat``
+checkpoints the UNet's down and up blocks (their activations recompute in the
+backward); ``--remat-policy conv`` does so by itself and keeps the conv, qkv and
+attention outputs (``models/remat.py``). Refused until their slice:
+``--distributed``, ``--fsdp``, ``--fsdp-size`` (multi-GPU, ROADMAP A10).
 """
 
 from __future__ import annotations
@@ -67,8 +69,7 @@ SCHEMA = {
 }
 
 _NOT_PORTED = "is not ported yet (ROADMAP.md queue A: {})"
-_REFUSED = {"distributed": "A10", "fsdp": "A10", "fsdp_size": "A10", "remat": "A7",
-            "remat_policy": "A7"}
+_REFUSED = {"distributed": "A10", "fsdp": "A10", "fsdp_size": "A10"}
 
 
 def make_experiment_dirs(exp_dir: str, exp_name: str):
@@ -117,7 +118,11 @@ def main(argv=None) -> dict:
                        model_out_type=config["diffusion"]["model_out_type"],
                        num_classes=num_classes, multitags=info.get("multitags", False),
                        dtype=dtype, generator=torch.Generator().manual_seed(train.seed),
-                       model_var_type=config["diffusion"]["model_var_type"])
+                       model_var_type=config["diffusion"]["model_var_type"],
+                       remat=args.remat, remat_policy=args.remat_policy)
+    if model.remat:
+        print(f"remat: the down and up blocks recompute in the backward (policy "
+              f"{model.remat_policy or 'none: nothing saved inside a block'})")
     if heads_note(config["model"]):
         print(heads_note(config["model"]))
     trainloader, _ = get_dataloader(dataset, batch_size=train.batch_size,
@@ -222,9 +227,13 @@ def build_parser() -> argparse.ArgumentParser:
                    help="(parity) the port always runs its attention kernels")
     p.add_argument("--fsdp", action="store_true", help=_NOT_PORTED.format("A10"))
     p.add_argument("--fsdp-size", type=int, default=0, help=_NOT_PORTED.format("A10"))
-    p.add_argument("--remat", action="store_true", help=_NOT_PORTED.format("A7"))
+    p.add_argument("--remat", action="store_true",
+                   help="activation checkpointing of the UNet's down and up blocks: their "
+                        "activations recompute in the backward")
     p.add_argument("--remat-policy", type=str, default=None, choices=["conv"],
-                   help=_NOT_PORTED.format("A7"))
+                   help="selective remat: keep the conv, qkv and attention outputs, recompute "
+                        "the elementwise chains between them and the attention forward; enables "
+                        "checkpointing by itself")
     p.add_argument("--prng-impl", type=str, default="rbg", choices=["rbg", "threefry2x32"],
                    help="(parity) accepted and ignored: the port draws from torch.Generator")
     p.add_argument("--max-ckpts-kept", type=int,

@@ -1,6 +1,7 @@
-"""Misc utilities: seeding, sample-grid images, running statistics
-(counterpart of ``vdiff_tpu/utils/misc.py``). The grid is assembled in numpy
-and written with the port's stdlib PNG encoder."""
+"""Misc utilities: seeding, sample-grid images, 2-D toy-data helpers,
+running statistics (counterpart of ``vdiff_tpu/utils/misc.py``). The grid is
+assembled in numpy and written with the port's stdlib PNG encoder; the
+scatterplot imports matplotlib when it is called."""
 
 from __future__ import annotations
 
@@ -45,6 +46,50 @@ def save_image(x, path: str, nrow: int = 8, value_range=(-1.0, 1.0)) -> None:
     grid = make_grid(np.asarray(x), nrow=nrow, value_range=value_range)
     with open(path, "wb") as f:
         f.write(encode_png((grid * 255.0 + 0.5).astype(np.uint8)))
+
+
+def split_squeeze(data):
+    """(N, 2) → (x, y) vectors."""
+    x, y = np.split(np.asarray(data), 2, axis=1)
+    return x.squeeze(1), y.squeeze(1)
+
+
+def infer_range(dataset, precision: int = 2):
+    """x/y axis limits over batches of 2-D points, rounded outwards to
+    1/precision."""
+    p = precision
+    xlim = np.array([-np.inf, np.inf])
+    ylim = np.array([-np.inf, np.inf])
+    clip = lambda lo, hi, lim: np.clip([math.floor(p * lo), math.ceil(p * hi)], *lim)
+    for bch in dataset:
+        bch = np.asarray(bch)
+        xlim = clip(bch[:, 0].min(), bch[:, 0].max(), xlim)
+        ylim = clip(bch[:, 1].min(), bch[:, 1].max(), ylim)
+    return xlim / p, ylim / p
+
+
+def save_scatterplot(fpath, x, y=None, xlim=None, ylim=None):
+    """Toy-data scatterplot: (N, 2) points, or y against x (against its
+    index when y is None)."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    x = np.asarray(x)
+    if x.ndim == 2:
+        x, y = split_squeeze(x)
+    elif y is None:
+        x, y = np.arange(len(x)), x
+    plt.figure(figsize=(6, 6))
+    plt.scatter(x, y, s=0.5, alpha=0.7)
+    if xlim is not None:
+        plt.xlim(*xlim)
+    if ylim is not None:
+        plt.ylim(*ylim)
+    plt.tight_layout()
+    plt.savefig(fpath)
+    plt.close()
 
 
 class RunningStatistics:
