@@ -133,13 +133,30 @@ Phases, one output line each (any failure raises and exits non-zero):
      full < conv < none; the launches of each mode's first step
      (CELEBA_STEP_LAUNCHES_BF16, and with remat the forward of every
      attention call but the middle block's once more);
+ 12b. dist: the multi-GPU paths under python -m torch.distributed.run
+     --standalone. One rank on NCCL runs (a) train --distributed (DDP) and (b)
+     train --fsdp on synthetic_flagship.json with dropout off and cuDNN's
+     autotuner off (bf16, B=128, 4 steps, no grid), each held to the plain
+     train CLI run first in that process from the same seed: DDP's losses,
+     params and EMA bit for bit, FSDP's within FSDP_LOSS_RTOL /
+     FSDP_PARAM_RTOL (FSDP2's autograd nodes on each block's inputs make the
+     backward sum some gradients in another order), TRAIN_STEP_LAUNCHES_BF16
+     a step in each, their img/s and peak memory; then (c) generate --dp (32
+     DDIM steps at w=0, two batches of 64), whose PNGs must be those of the
+     plain generate CLI run before it there, 17 + 1 launches a forward; (d)
+     two ranks sharing the card over
+     gloo with CUDA tensors take one f32 DDP step of the full-width model
+     (B=4 in all), held to the one-rank step on the global batch within the
+     f32 step bounds, TRAIN_STEP_LAUNCHES a rank;
  13. bench: python -m vdiff_tpu_torch.bench at full width with its sampling
      cut to 16 steps (--sample-steps), in this process: its JSON lines (the
      root bench's five, the canary and three arms, the headline last).
 Every kernel's launches in the JSON record are counted on the main paths
-(phases 4, 4e, 4c, 7, 7a, 11, 12), each run with the counts set to 0 just before it and
-read just after: "launches" is their sum over the paths, and
-"launches_by_path" each path's own count. A sampling path replays CUDA
+(phases 4, 4e, 4c, 7, 7a, 11, 12, and 12b's ddp_train_cli, fsdp_train_cli
+and dp_generate, read back from the torchrun rank's summary.json files),
+each run with the counts set to 0 just before it and read just after:
+"launches" is their sum over the paths, and "launches_by_path" each path's
+own count. A sampling path replays CUDA
 graphs, whose replays the wrappers do not count and whose captures launch
 nothing: its device launches are the counts less the captures' plus the
 replays', which the sampler reports (diffusion.py::_reverse). The line before last is the
@@ -1635,6 +1652,270 @@ def phase_remat(cfg, card):
 
 
 # ---------------------------------------------------------------------------
+# the multi-GPU paths under torchrun
+# ---------------------------------------------------------------------------
+
+# the dist phase: the port's CLIs on this card under torchrun. The train runs
+# take synthetic_flagship's 512 images in DIST_TRAIN_STEPS steps of 128,
+# dropout off, no sample grid, cuDNN's autotuner off (defaults.json turns it
+# on), so that the plain, DDP and FSDP runs pick the same algorithms; the
+# generate runs DIST_SAMPLE_STEPS DDIM steps at w=0 in two batches of 64. A
+# process takes ~9 s to import torch and reach the card (an NVIDIA H100 80GB
+# HBM3 at 700 W), torchrun's agent about as much again, so one torchrun
+# launch runs every CLI call that parts (a)-(c) compare and a second the two
+# gloo ranks of part (d). In the first (dist_clis_worker) the plain runs go
+# first, in a fresh process whose cuDNN has tuned nothing: run in this
+# process after phase 7's autotuned train CLI, the plain run was not the DDP
+# run bit for bit.
+DIST_TRAIN_STEPS, DIST_SAMPLE_STEPS = 4, 32
+DIST_TIMEOUT = 300
+REPO_ROOT = os.path.dirname(os.path.abspath(__file__))
+# the 2-rank DDP step over gloo with CUDA tensors (part d): f32, B=4 global,
+# against the one-rank step on the global batch, within the f32 step bounds
+GLOO_B = 4
+# FSDP at one rank against the plain run (DDP must be bit for bit): the
+# losses within FSDP_LOSS_RTOL of themselves, the params and EMA within
+# FSDP_PARAM_RTOL of their largest. FSDP2 routes each block's inputs through
+# one autograd node (its post-backward hook), and the backward then sums the
+# gradient of a tensor that several ops read (the embedding every res block
+# reads, a down block's input that its branches and the skip list read) in
+# another order. scripts/probe_torch_fsdp_parity.py isolates it (an NVIDIA
+# H100 80GB HBM3 at 700 W): the plain run with those identity nodes alone
+# equals FSDP bit for bit; the conv and linear calls see the same layouts;
+# the clip is not it (its norm is equal where the gradients first differ,
+# and with the clip off they differ alike). Steps 0-1 are bit for bit, step
+# 2's down-path and embedding gradients 3.8e-8 of the largest apart; after
+# 4 steps the losses are equal and the params 2.98e-8 of the largest apart.
+# The order comes from the graph, not from the weights' layout or the rank
+# count; more ranks add the reduce-scatter's own sums (tests/test_torch_parallel*.py).
+FSDP_LOSS_RTOL, FSDP_PARAM_RTOL = 1e-5, 1e-6
+
+
+def _torchrun(nproc, *args):
+    return [sys.executable, "-m", "torch.distributed.run", "--standalone",
+            f"--nproc_per_node={nproc}", *args]
+
+
+def _run(name, cmd):
+    """Run ``cmd`` from the checkout's root and print its "dist:" lines; fail
+    with its output's tail unless it exits 0."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=REPO_ROOT, capture_output=True, text=True,
+                          timeout=DIST_TIMEOUT)
+    if proc.returncode != 0:
+        fail(f"{name}: exit {proc.returncode}\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    for line in proc.stdout.splitlines():
+        if line.startswith("dist:"):
+            print(line, flush=True)
+    print(f"{name}: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def _summary(root):
+    found = glob.glob(os.path.join(root, "**", "summary.json"), recursive=True)
+    if len(found) != 1:
+        fail(f"{root}: {len(found)} summary.json files, expected 1")
+    with open(found[0]) as f:
+        return json.load(f)
+
+
+def _train_args(tmp, name, cfg_path, *flags):
+    return ["--config-path", cfg_path, "--allow-bf16", "--epochs", "1", "--num-save-images", "0",
+            "--exp-dir", os.path.join(tmp, f"dist_{name}"), *flags]
+
+
+def _gen_args(tmp, name, ckpt, *flags):
+    return ["--config-path", CONFIG, "--ckpt-path", ckpt, "--use-ema", "--use-ddim",
+            "--allow-bf16", "--sample-timesteps", str(DIST_SAMPLE_STEPS), "--w-guide", "0",
+            "--batch-size", "64", "--total-size", "128", "--seed", "0",
+            "--save-dir", os.path.join(tmp, f"dist_gen_{name}"), *flags]
+
+
+def _in_process(fn, args, tmp, name):
+    """``fn(args)`` (a CLI's main); records the device memory this process
+    held before it, which the run's peak then leaves out."""
+    held = torch.cuda.memory_allocated()
+    fn(args)
+    with open(os.path.join(tmp, f"dist_{name}_held.json"), "w") as f:
+        json.dump(held, f)
+
+
+def _train_result(tmp, name):
+    """A train run's summary (its peak less what its process held before)
+    and its final params and EMA."""
+    summary = _summary(os.path.join(tmp, f"dist_{name}"))
+    with open(os.path.join(tmp, f"dist_{name}_held.json")) as f:
+        summary["peak_bytes"] -= json.load(f)
+    ckpt = torch.load(os.path.join(summary["ckpt_dir"], "ckpt_last.pt"), map_location="cpu",
+                      weights_only=True)
+    return summary, {"model": ckpt["model"], "ema": ckpt["ema"]["shadow"]}
+
+
+def _max_rel(a, b):
+    """The largest |a - b| over the state dicts, relative to the largest |b|."""
+    err = max((a[k].float() - b[k].float()).abs().max().item() for k in b)
+    return err / max(v.float().abs().max().item() for v in b.values())
+
+
+def _png_hashes(root):
+    import hashlib
+
+    out = []
+    for path in glob.glob(os.path.join(root, "**", "*.png"), recursive=True):
+        with open(path, "rb") as f:
+            out.append(hashlib.sha256(f.read()).hexdigest())
+    return sorted(out)
+
+
+def dist_clis_worker(tmp, cfg_path, ckpt):
+    """The one torchrun rank of parts (a)-(c): the plain train CLI, train
+    --distributed, train --fsdp, the plain generate CLI and generate --dp, one
+    after another in this process (the distributed ones join the process
+    group the first of them made)."""
+    import gc
+
+    from vdiff_tpu_torch import generate, train
+
+    for name, flags in (("plain", ()), ("ddp", ("--distributed",)), ("fsdp", ("--fsdp",))):
+        _in_process(train.main, _train_args(tmp, name, cfg_path, *flags), tmp, name)
+        gc.collect()
+    for name, flags in (("plain", ()), ("dp", ("--dp",))):
+        generate.main(_gen_args(tmp, name, ckpt, *flags))
+
+
+def phase_dist(tmp, ckpt, card):
+    """The multi-GPU paths at world size 1 on NCCL, launched under torchrun:
+    (a) train --distributed (DDP) and (b) train --fsdp against the plain
+    train CLI (run first in the same process) from the same seed: DDP's losses, final
+    params and EMA bit for bit, FSDP's within FSDP_LOSS_RTOL and
+    FSDP_PARAM_RTOL, and TRAIN_STEP_LAUNCHES_BF16 a step; (c) generate --dp
+    against the plain generate CLI: the same PNGs and 17 + 1 launches a
+    forward; (d) two ranks on this one card over gloo with CUDA tensors: a
+    DDP step against the one-rank step on the global batch. Returns each
+    path's launches."""
+    with open(TRAIN_CONFIG) as f:
+        cfg = json.load(f)
+    cfg["model"]["drop_rate"] = 0.0
+    cfg["speedup"] = {"cudnn_benchmark": False}
+    cfg_path = os.path.join(tmp, "flagship_nodrop.json")
+    with open(cfg_path, "w") as f:
+        json.dump(cfg, f)
+    t0 = time.perf_counter()
+    _run("dist: torchrun, one rank on NCCL (train plain, --distributed, --fsdp; generate plain, "
+         "--dp)", _torchrun(1, os.path.abspath(__file__), "--dist-clis", tmp, cfg_path, ckpt))
+
+    runs = {name: _train_result(tmp, name) for name in ("plain", "ddp", "fsdp")}
+    want = {k: v * DIST_TRAIN_STEPS for k, v in TRAIN_STEP_LAUNCHES_BF16.items()}
+    plain_summary, plain_ckpt = runs["plain"]
+    launched = {}
+    for name, (summary, ckpt_) in runs.items():
+        same = (summary["losses"] == plain_summary["losses"]
+                and all(torch.equal(ckpt_[part][k], plain_ckpt[part][k])
+                        for part in ("model", "ema") for k in plain_ckpt[part]))
+        loss_err = max(abs(a - b) / abs(b) for a, b in zip(summary["losses"],
+                                                           plain_summary["losses"]))
+        param_err = max(_max_rel(ckpt_[part], plain_ckpt[part]) for part in ("model", "ema"))
+        print(f"dist: train {name} world {summary.get('world_size')}: {summary['steps']} steps "
+              f"of 128, losses {summary['losses']}, {summary['img_per_s']} img/s after the "
+              f"first step, peak {summary['peak_bytes'] / 2**30:.3f} GiB, bit for bit with the "
+              f"plain run: {same} (losses max rel err {loss_err}, params and EMA max rel err "
+              f"{param_err}), launches {_nonzero(summary['launches'])} ({card})", flush=True)
+        held = same if name != "fsdp" else (loss_err <= FSDP_LOSS_RTOL
+                                            and param_err <= FSDP_PARAM_RTOL)
+        if summary["steps"] != DIST_TRAIN_STEPS or not held:
+            fail(f"dist: train {name} is not the plain run's")
+        if {k: summary["launches"].get(k, 0) for k in KERNELS} != want:
+            fail(f"dist: train {name} launched {summary['launches']}, expected {want}")
+        if name != "plain":
+            launched[f"{name}_train_cli"] = {k: summary["launches"].get(k, 0) for k in KERNELS}
+
+    dp, plain_gen = (_summary(os.path.join(tmp, f"dist_gen_{name}")) for name in ("dp", "plain"))
+    device = {k: dp["stats"]["launches"].get(k, 0) for k in KERNELS}
+    counted = {k: device[k] + dp["stats"]["captured_launches"].get(k, 0)
+               - dp["stats"]["replayed_launches"].get(k, 0) for k in KERNELS}
+    launched["dp_generate"] = _device_launches("dist: generate --dp", counted,
+                                               {**dp["stats"], "launches": device},
+                                               SAMPLE_FWD_LAUNCHES_BF16, DIST_SAMPLE_STEPS * 2)
+    same = (_png_hashes(os.path.join(tmp, "dist_gen_dp"))
+            == _png_hashes(os.path.join(tmp, "dist_gen_plain")))
+    print(f"dist: generate --dp world 1: {dp['images']} PNGs, the plain CLI's: {same}; "
+          f"{dp['samples_per_s']} samples/s vs {plain_gen['samples_per_s']} plain, second batch "
+          f"({card})", flush=True)
+    if not same or dp["images"] != 128:
+        fail("dist: generate --dp wrote other PNGs than the plain CLI")
+
+    _run("dist: torchrun, two gloo ranks on one card (DDP step)",
+         _torchrun(2, os.path.abspath(__file__), "--gloo-ddp"))
+    print(f"dist: {time.perf_counter() - t0:.1f} s ({card})", flush=True)
+    return launched
+
+
+def gloo_ddp_worker():
+    """Part (d), one of two torchrun ranks on one card: the process group
+    over gloo with CUDA tensors, the full-width f32 cifar10_cond UNet wrapped
+    in DDP, this rank's half of a global batch of GLOO_B with the global
+    draws; rank 0 then takes the one-rank step on the global batch from the
+    same weights and holds the DDP step to it (loss, gradients, params)."""
+    import torch.distributed as dist
+    from torch.nn.parallel import DistributedDataParallel
+
+    from vdiff_tpu_torch.factory import build_diffusion, load_experiment_config
+    from vdiff_tpu_torch.train_lib import Optimizer, make_train_step
+
+    dist.init_process_group("gloo")
+    rank, world = dist.get_rank(), dist.get_world_size()
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg, _ = load_experiment_config(CONFIG)
+    cond = cfg["conditional"]
+    diffusion, timesteps = build_diffusion(cfg["diffusion"], w_guide=cond["w_guide"],
+                                           p_uncond=cond["p_uncond"])
+    model = _perturbed_unet(dict(cfg, model=dict(cfg["model"], drop_rate=0.0)))
+    gen = torch.Generator().manual_seed(12)
+    x = torch.rand(GLOO_B, 32, 32, 3, generator=gen) * 2 - 1
+    y = torch.tensor([3, 7, 0, 5])
+    draws = [{"t": torch.rand(GLOO_B, generator=gen),
+              "noise": torch.randn(x.shape, generator=gen),
+              "keep": torch.tensor([True, False, True, True])}]
+
+    def step(m, xs, ys, r, w):
+        m_cuda = copy.deepcopy(m).cuda()
+        net = DistributedDataParallel(m_cuda, device_ids=[0]) if w > 1 else m_cuda
+        opt = Optimizer(m_cuda.parameters(), lr=STEP_LR, weight_decay=1e-3, grad_norm=1e9)
+        fn = make_train_step(net, diffusion, opt, timesteps, use_cfg=True, rank=r, world=w)
+        before = _counts()
+        loss = fn(xs.cuda(), ys.cuda(), 0, 0,
+                  draws=[{k: v.cuda() for k, v in draws[0].items()}]).item()
+        launched = {k: v - before[k] for k, v in _counts().items()}
+        grads = torch.cat([p.grad.flatten().cpu() for p in m_cuda.parameters()])
+        params = torch.cat([p.detach().flatten().cpu() for p in m_cuda.parameters()])
+        return loss, grads, params, launched
+
+    per = GLOO_B // world
+    rows = slice(rank * per, (rank + 1) * per)
+    loss, g, p, launched = step(model, x[rows], y[rows], rank, world)
+    if launched != TRAIN_STEP_LAUNCHES:
+        fail(f"gloo DDP rank {rank}: one step launched {launched}")
+    if rank == 0:
+        ref_loss, ref_g, ref_p, _ = step(model, x, y, 0, 1)
+        loss_err = abs(loss - ref_loss) / abs(ref_loss)
+        scale = ref_g.abs().max().item()
+        grad_err = (g - ref_g).abs().max().item() / scale
+        moved = (p - ref_p).abs() / STEP_LR
+        signed = ref_g.abs() > STEP_GRAD_RTOL * scale
+        param_err, near_zero_err = moved[signed].max().item(), moved.max().item()
+        print(f"dist: gloo DDP, 2 ranks on one card, f32 B={GLOO_B}: loss {loss} vs the one-rank "
+              f"step's {ref_loss} (rel {loss_err}), grads max err {grad_err} of the largest, "
+              f"params {param_err} of lr ({near_zero_err} near zero), launches a rank "
+              f"{_nonzero(launched)}", flush=True)
+        if not (loss_err <= STEP_LOSS_RTOL and grad_err <= STEP_GRAD_RTOL
+                and param_err <= STEP_PARAM_RTOL and near_zero_err <= STEP_SIGN_BOUND):
+            fail("gloo DDP: the 2-rank step disagrees with the one-rank step")
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
 # the eval path: nll, the metric nets, the dress rehearsal, the Evaluator
 # ---------------------------------------------------------------------------
 
@@ -1926,6 +2207,8 @@ def main():
         del model
         by_path["celeba_train"] = phase_celeba_train(celeba_cfg)
         phase_remat(celeba_cfg, card)
+        torch.cuda.empty_cache()
+        by_path.update(phase_dist(tmp, ckpt, card))
     phase_bench()
 
     meta = {
@@ -1989,5 +2272,10 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:] == ["--gloo-ddp"]:  # a rank of the dist phase's part (d)
+        gloo_ddp_worker()
+    elif sys.argv[1:2] == ["--dist-clis"]:  # the rank of parts (a)-(c)
+        dist_clis_worker(*sys.argv[2:5])
+    else:
+        main()
     sys.stdout.flush()

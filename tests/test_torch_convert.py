@@ -26,6 +26,8 @@ PORT_MODULES = [
     "vdiff_tpu_torch.metrics.inception", "vdiff_tpu_torch.metrics.vgg",
     "vdiff_tpu_torch.metrics.inception_score", "vdiff_tpu_torch.metrics.precision_recall",
     "vdiff_tpu_torch.metrics.device_apply", "vdiff_tpu_torch.metrics.manifests",
+    "vdiff_tpu_torch.parallel", "vdiff_tpu_torch.parallel.mesh", "vdiff_tpu_torch.parallel.fsdp",
+    "vdiff_tpu_torch.parallel.dryrun",
 ]
 
 
@@ -175,7 +177,7 @@ def test_generate_cli_on_cpu(tmp_path, w_guide):
     assert summary["images"] == len(pngs) == 3 and summary["finite"]
 
 
-@pytest.mark.parametrize("flags", [["--dp"], ["--tp"], ["--spatial-shard"],
+@pytest.mark.parametrize("flags", [["--dp", "--progressive"], ["--tp"], ["--spatial-shard"],
                                    ["--progressive", "--pred-freq", "0"],
                                    ["--use-ddim", "--eta", "1.5"], ["--eta", "0.5"]])
 def test_generate_cli_refuses_what_is_not_ported(tmp_path, flags):

@@ -131,7 +131,7 @@ def test_messages_and_refusals(tmp_path, capsys, monkeypatch):
     assert "NLL: nll requires --config-path and --ckpt-path" in text
     assert "Unsupported metric 'bogus'! Ignore." in text
     assert f"FID skipped: no images found under '{tmp_path / 'imgs'}'" in text
-    with pytest.raises(SystemExit, match="A10"):
+    with pytest.raises(SystemExit, match="--dp runs one process per device under torchrun"):
         main(["--device", "cpu", "--dp"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="CUDA"):
@@ -209,7 +209,7 @@ def test_missing_weights_skip_each_metric(tmp_path, capsys, monkeypatch):
     assert "PR skipped: VGG16 weights not found" in text
     with pytest.raises(SystemExit, match="FID skipped: FID InceptionV3 weights"):
         fid.main([str(tmp_path / "imgs"), "s.npz", "--save-stats", "--device", "cpu"])
-    with pytest.raises(SystemExit, match="A10"):
+    with pytest.raises(SystemExit, match="--dp runs one process per device under torchrun"):
         fid.main(["a", "b", "--dp", "--device", "cpu"])
 
 

@@ -218,6 +218,7 @@ def test_apply_batched_and_the_dp_refusal():
     assert apply_batched(lambda b: b.sum(dim=(1, 2))[:, None], x[:0], 2, "cpu").shape == (0, 1)
     with pytest.raises(ValueError, match="item shape"):
         apply_batched(lambda b: b, np.zeros((0,)), 2, "cpu")
-    assert resolve_eval_mesh(False) is None
-    with pytest.raises(SystemExit, match="A10"):
-        resolve_eval_mesh(True)
+    assert resolve_eval_mesh(False, "cpu") == (None, torch.device("cpu"))
+    # --dp runs under torchrun (tests/test_torch_parallel.py runs it there)
+    with pytest.raises(SystemExit, match="--dp runs one process per device under torchrun"):
+        resolve_eval_mesh(True, "cpu")

@@ -188,12 +188,19 @@ def test_train_cli_on_cpu_writes_a_checkpoint_generate_samples_from(tmp_path, mo
     assert out["images"] == 2 and out["finite"]
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--distributed"], "A10"), (["--fsdp"], "A10"), (["--fsdp-size", "2"], "A10")])
-def test_train_cli_refuses_what_is_not_ported(flags, item):
+@pytest.mark.parametrize("flags,flag", [
+    pytest.param(["--distributed"], "--distributed", id="flags0-A10"),
+    pytest.param(["--fsdp"], "--fsdp", id="flags1-A10"),
+    pytest.param(["--fsdp-size", "2"], "--fsdp-size", id="flags2-A10")])
+def test_train_cli_refuses_what_is_not_ported(flags, flag, monkeypatch):
+    """The multi-GPU flags (ROADMAP A10, ported) run under torchrun; a
+    process started without its RANK and WORLD_SIZE stops, naming the flag
+    and the launcher, before anything is built."""
     from vdiff_tpu_torch.train import main
 
-    with pytest.raises(SystemExit, match=item):
+    monkeypatch.delenv("RANK", raising=False)
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    with pytest.raises(SystemExit, match=f"{flag} runs one process per device under torchrun"):
         main(["--config-path", SMOKE, "--device", "cpu", *flags])
 
 

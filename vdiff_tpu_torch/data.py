@@ -8,7 +8,9 @@ with the same seed yields the same batches. The JAX package's native
 ``normalize_flip`` becomes its numpy form here (a 256-entry lookup table with
 the same f32 division), and its native ``crop_resize_bilinear`` a numpy
 copy of the same fixed-point PIL resampler, equal to it bit for bit.
-Per-process sharding is the multi-GPU slice's (ROADMAP A10).
+Under torchrun (``distributed=True``) each rank loads a contiguous shard of
+the one seeded permutation, at the global batch divided by the world size,
+as each JAX process does.
 """
 
 from __future__ import annotations
@@ -66,8 +68,6 @@ DATA_INFO = {
 }
 
 DEFAULT_ROOT = os.path.expanduser("~/datasets")
-
-_NOT_PORTED = "is not ported yet (ROADMAP.md queue A: {})"
 
 # x / 127.5 - 1 in f32 for every byte value; 255 maps to exactly 1.0
 _NORMALIZE_LUT = np.arange(256, dtype=np.float32) / np.float32(127.5) - np.float32(1.0)
@@ -312,17 +312,23 @@ class DataLoader:
     or float32 (B, K) tags.
 
     The per-epoch permutation is ``RandomState(seed + epoch)`` and the flips
-    ``RandomState(seed * 9176 + epoch)``, as in the JAX package; ``drop_last``
-    keeps every batch the same shape. A producer thread keeps ``prefetch``
-    batches ready."""
+    ``RandomState(seed * 9176 + epoch + 7 * process_index)``, as in the JAX
+    package; ``drop_last`` keeps every batch the same shape. Process
+    ``process_index`` of ``process_count`` takes the contiguous
+    ``process_index``-th shard of the permutation (``len(dataset) //
+    process_count`` items), and its length counts its own batches. A
+    producer thread keeps ``prefetch`` batches ready."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True,
-                 seed: Optional[int] = 1234, drop_last: bool = True, prefetch: int = 2):
+                 seed: Optional[int] = 1234, drop_last: bool = True,
+                 process_index: int = 0, process_count: int = 1, prefetch: int = 2):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.seed = seed if seed is not None else 0
         self.drop_last = drop_last
+        self.process_index = process_index
+        self.process_count = process_count
         self.prefetch = prefetch
         self.epoch = 0
 
@@ -330,14 +336,17 @@ class DataLoader:
         self.epoch = epoch
 
     def __len__(self):
-        n = len(self.dataset)
+        n = len(self.dataset) // self.process_count
         return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
     def _epoch_indices(self) -> np.ndarray:
         n = len(self.dataset)
         if self.shuffle:
-            return np.random.RandomState((self.seed + self.epoch) % (2**31)).permutation(n)
-        return np.arange(n)
+            order = np.random.RandomState((self.seed + self.epoch) % (2**31)).permutation(n)
+        else:
+            order = np.arange(n)
+        shard = n // self.process_count
+        return order[self.process_index * shard:(self.process_index + 1) * shard]
 
     def _materialize(self, idx: np.ndarray, flips: np.ndarray):
         ds = self.dataset
@@ -348,7 +357,8 @@ class DataLoader:
         indices = self._epoch_indices()
         B = self.batch_size
         nb = len(self)
-        flip_rng = np.random.RandomState((self.seed * 9176 + self.epoch) % (2**31))
+        flip_rng = np.random.RandomState(
+            (self.seed * 9176 + self.epoch + 7 * self.process_index) % (2**31))
 
         def producer(q):
             # a failure must reach the consumer, or it waits on q.get() forever
@@ -387,20 +397,43 @@ def get_dataloader(dataset: str, batch_size: int, split: str, val_size: float = 
                    random_seed: Optional[int] = None, root: str = DEFAULT_ROOT,
                    drop_last: bool = True, distributed: bool = False, num_workers: int = 0,
                    **_ignored):
-    """The JAX package's loader factory on one process; returns (loader,
-    loader), the loader doubling as its own sampler (``set_epoch``)."""
+    """The JAX package's loader factory; returns (loader, loader), the
+    loader doubling as its own sampler (``set_epoch``). ``batch_size`` is the
+    global batch: with ``distributed`` (a process group joined, as torchrun's
+    ranks have) it is divided by the world size and each rank loads its
+    shard. Every rank then builds the dataset, meets the others at a barrier
+    and only then raises if its build failed, so a dataset missing on some or
+    all ranks stops each of them with ``FileNotFoundError`` and leaves none
+    waiting at a later barrier."""
+    from .parallel.mesh import rank, sync_global_devices, world_size
+
+    process_index = rank() if distributed else 0
+    process_count = world_size() if distributed else 1
     if distributed:
-        raise NotImplementedError("per-process data sharding " + _NOT_PORTED.format("A10"))
+        batch_size = batch_size // process_count
     assert isinstance(val_size, float) and 0 <= val_size < 1
-    if dataset != "celeba" and split in {"train", "valid"} and val_size > 0:
-        base = _build_dataset(dataset, root, "train")
-        train_inds, val_inds = train_val_split(dataset, val_size, random_seed)
-        ind = {"train": train_inds, "valid": val_inds}[split]
-        ds = ArrayDataset(base.images[ind], base.targets[ind], base.random_flip)
-    elif val_size == 0 and split == "valid":
-        raise ValueError("valid split requires val_size > 0")
+
+    def build():
+        if dataset != "celeba" and split in {"train", "valid"} and val_size > 0:
+            base = _build_dataset(dataset, root, "train")
+            train_inds, val_inds = train_val_split(dataset, val_size, random_seed)
+            ind = {"train": train_inds, "valid": val_inds}[split]
+            return ArrayDataset(base.images[ind], base.targets[ind], base.random_flip)
+        if val_size == 0 and split == "valid":
+            raise ValueError("valid split requires val_size > 0")
+        return _build_dataset(dataset, root, split, num_workers=num_workers)
+
+    if distributed:
+        try:
+            ds = build()
+        except FileNotFoundError:
+            ds = None
+        sync_global_devices("dataset_download")
+        if ds is None:
+            ds = build()
     else:
-        ds = _build_dataset(dataset, root, split, num_workers=num_workers)
+        ds = build()
     loader = DataLoader(ds, batch_size=batch_size, shuffle=split in {"train", "all"},
-                        seed=random_seed, drop_last=drop_last)
+                        seed=random_seed, drop_last=drop_last, process_index=process_index,
+                        process_count=process_count)
     return loader, loader

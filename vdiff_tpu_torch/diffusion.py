@@ -10,7 +10,10 @@ package's jitted ``lax.scan``); on the CPU, or with ``graph=False``, a
 Python loop. Classifier-free guidance doubles the batch as concatenated
 halves [cond; uncond]. Randomness is explicit: the caller passes
 ``x_T`` and, for ancestral or η>0 DDIM sampling, a ``torch.Generator``;
-deterministic DDIM (η=0) draws no noise.
+deterministic DDIM (η=0) draws no noise. A rank that samples its rows of a
+batch split over ranks (``batch_rows``) draws each step's noise for the
+whole batch and keeps its rows, so the split run draws what one process
+drawing the whole batch does.
 
 The training loss (:meth:`GaussianDiffusion.train_loss`, ``mse`` or ``kl``)
 evaluates the schedule on the device for the per-example t, in f32, as the JAX
@@ -24,7 +27,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass, field
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -204,7 +207,8 @@ class GaussianDiffusion:
 
     @torch.inference_mode()
     def calc_all_bpd(self, denoise_fn, x_0, y=None, generator: Optional[torch.Generator] = None,
-                     noise: Optional[torch.Tensor] = None, clip_denoised: bool = True):
+                     noise: Optional[torch.Tensor] = None, clip_denoised: bool = True,
+                     batch_rows: Optional[Tuple[int, int]] = None):
         """The variational bound in bits/dim over all T steps: (total (B,),
         loss (B, T), prior (B,), mse (B, T)), column i of loss and mse the
         step s = i/T ← t = (i+1)/T, as JAX's ``calc_all_bpd`` returns them.
@@ -213,7 +217,9 @@ class GaussianDiffusion:
         x_t = q_sample(x_0, λ_t, eps) with eps drawn from ``generator`` in
         that order, or taken from ``noise`` (T, B, ...), row k for i = T−1−k
         (JAX's scan order: its keys[k] drive step T−1−k). Step 0 counts the
-        decoder's NLL, the others the KL of their posterior."""
+        decoder's NLL, the others the KL of their posterior. ``batch_rows``
+        (start, total): x_0 holds rows from ``start`` of a batch of ``total``,
+        whose noise is drawn whole and these rows kept (:func:`draw_rows`)."""
         B, T = x_0.shape[0], self.sample_timesteps
         if noise is None and generator is None:
             raise ValueError("calc_all_bpd needs an explicit torch.Generator or the noise")
@@ -223,8 +229,8 @@ class GaussianDiffusion:
             t = torch.full((B,), (i + 1.0) / T, dtype=torch.float32, device=x_0.device)
             logsnr_s, _ = self.t2logsnr(s, x_0.ndim)
             logsnr_t, t_adj = self.t2logsnr(t, x_0.ndim)
-            eps = noise[k] if noise is not None else torch.randn(
-                x_0.shape, generator=generator, device=x_0.device, dtype=x_0.dtype)
+            eps = noise[k] if noise is not None else draw_rows(
+                x_0.shape, generator, x_0.device, x_0.dtype, batch_rows)
             x_t = N.q_sample(x_0, logsnr_t, eps)
             model_out = denoise_fn(x_t, t_adj, y)
             kl, nll, pred_x_0 = self._loss_term_bpd(model_out, x_0, x_t=x_t, logsnr_s=logsnr_s,
@@ -329,16 +335,21 @@ class GaussianDiffusion:
     def p_sample(self, denoise_fn, x_T: torch.Tensor, label=None, use_ddim: bool = False,
                  clip_denoised: bool = True, eta: float = 0.0,
                  generator: Optional[torch.Generator] = None, graph: bool = True,
-                 stats: Optional[dict] = None) -> torch.Tensor:
+                 stats: Optional[dict] = None,
+                 batch_rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
         """All T reverse steps from ``x_T`` (B, H, W, C). ``generator`` draws
         the per-step noise; it is required unless DDIM with η=0.
+        ``batch_rows`` (start, total) says that ``x_T`` is rows from
+        ``start`` of a batch of ``total`` split over ranks: each step's noise
+        is drawn for the whole batch and these rows kept (rows past
+        ``total``, a padding, get none).
 
         On a CUDA ``x_T`` the steps after the first replay one CUDA graph of
         the step, captured in this call (:meth:`_graph_steps`); ``graph=False``,
         or a CPU ``x_T``, runs the eager loop. ``stats``, where given, is
         updated with what ran (:meth:`_reverse`)."""
         x, _ = self._reverse(denoise_fn, x_T, label, use_ddim, clip_denoised, eta, generator,
-                             graph, stats, snapshot_rows=())
+                             graph, stats, snapshot_rows=(), batch_rows=batch_rows)
         return x
 
     def p_sample_progressive(self, denoise_fn, x_T: torch.Tensor, label=None,
@@ -360,7 +371,7 @@ class GaussianDiffusion:
         return x, torch.stack(snaps[::-1])
 
     def _reverse(self, denoise_fn, x_T, label, use_ddim, clip_denoised, eta, generator, graph,
-                 stats, snapshot_rows):
+                 stats, snapshot_rows, batch_rows=None):
         """The reverse process under ``torch.inference_mode``; returns (x_0,
         the x̂_0 of the table rows in ``snapshot_rows``). ``stats`` gets, added
         to what it holds: ``eager_steps``, ``captures`` and ``replays``;
@@ -375,14 +386,15 @@ class GaussianDiffusion:
             raise ValueError("ancestral / eta>0 sampling needs an explicit torch.Generator")
         tables = self.sample_tables(use_ddim=use_ddim, eta=eta)
         step_args = dict(clip_denoised=clip_denoised, use_ddim=use_ddim)
+        rows = None if deterministic else batch_rows
         before = launch_counts()
         with torch.inference_mode():
             if graph and x_T.is_cuda:
                 x, snaps, run = self._graph_steps(denoise_fn, x_T, label, tables, deterministic,
-                                                  generator, step_args, snapshot_rows)
+                                                  generator, step_args, snapshot_rows, rows)
             else:
                 x, snaps = self._eager_steps(denoise_fn, x_T, label, tables, deterministic,
-                                             generator, step_args, snapshot_rows)
+                                             generator, step_args, snapshot_rows, rows)
                 run = {"eager_steps": self.sample_timesteps, "captures": 0, "replays": 0,
                        "launches": _delta(launch_counts(), before), "captured_launches": {},
                        "replayed_launches": {}}
@@ -397,21 +409,21 @@ class GaussianDiffusion:
         return x, snaps
 
     def _eager_steps(self, denoise_fn, x_T, label, tables, deterministic, generator, step_args,
-                     snapshot_rows):
+                     snapshot_rows, batch_rows=None):
         """The plain loop: one step after another from the table rows."""
         tables = {k: torch.as_tensor(v, device=x_T.device) for k, v in tables.items()}
         x, snaps = x_T, []
         for i in range(self.sample_timesteps):
             row = {k: v[i] for k, v in tables.items()}
-            noise = None if deterministic else torch.randn(
-                x.shape, generator=generator, device=x.device, dtype=x.dtype)
+            noise = None if deterministic else draw_rows(
+                x.shape, generator, x.device, x.dtype, batch_rows)
             x, pred = self._p_sample_step(denoise_fn, x, row, label, noise, **step_args)
             if i in snapshot_rows:
                 snaps.append(pred)
         return x, snaps
 
     def _graph_steps(self, denoise_fn, x_T, label, tables, deterministic, generator, step_args,
-                     snapshot_rows):
+                     snapshot_rows, batch_rows=None):
         """Step 0 eagerly, then the step captured once as a CUDA graph and
         replayed for the other T-1 steps; the graph is freed on return.
 
@@ -422,7 +434,8 @@ class GaussianDiffusion:
         ``generator`` into the static buffer before it, outside the graph, so
         the draws are the eager loop's. A capture or replay error raises;
         nothing falls back to the eager loop."""
-        step = StaticStep(self, denoise_fn, x_T, label, tables, deterministic, step_args)
+        step = StaticStep(self, denoise_fn, x_T, label, tables, deterministic, step_args,
+                          batch_rows)
         T = self.sample_timesteps
         side = torch.cuda.Stream(device=x_T.device)
         side.wait_stream(torch.cuda.current_stream(x_T.device))
@@ -457,6 +470,29 @@ def _delta(after: dict, before: dict) -> dict:
     return {k: after[k] - before[k] for k in after}
 
 
+def draw_rows(shape, generator, device, dtype, batch_rows: Optional[Tuple[int, int]] = None,
+              out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """N(0, I) noise of ``shape`` from ``generator`` (into ``out`` where
+    given). With ``batch_rows`` (start, total) the draw is for the whole
+    batch of ``total`` rows, and rows ``start`` to ``start + shape[0]`` are
+    kept, zeros past ``total``: the noise a rank's slice of a split batch
+    receives when one process draws the whole batch."""
+    if batch_rows is None:
+        if out is not None:
+            return torch.randn(shape, generator=generator, out=out)
+        return torch.randn(shape, generator=generator, device=device, dtype=dtype)
+    start, total = batch_rows
+    whole = torch.randn((total,) + tuple(shape[1:]), generator=generator, device=device,
+                        dtype=dtype)
+    rows = whole[start:start + shape[0]]
+    if out is None:
+        out = torch.zeros(shape, device=device, dtype=dtype)
+    else:
+        out.zero_()
+    out[:rows.shape[0]].copy_(rows)
+    return out
+
+
 class StaticStep:
     """One reverse step over buffers whose addresses stay fixed, the form a
     CUDA graph captures: a call reads ``x``, the table row at ``index``, the
@@ -467,8 +503,10 @@ class StaticStep:
     step computes, operation for operation."""
 
     def __init__(self, diffusion: GaussianDiffusion, denoise_fn, x_T: torch.Tensor, label,
-                 tables: Dict[str, np.ndarray], deterministic: bool, step_args: dict):
+                 tables: Dict[str, np.ndarray], deterministic: bool, step_args: dict,
+                 batch_rows: Optional[Tuple[int, int]] = None):
         self.diffusion, self.denoise_fn, self.step_args = diffusion, denoise_fn, step_args
+        self.batch_rows = batch_rows
         self.keys = list(tables)
         self.table = torch.as_tensor(np.stack([tables[k] for k in self.keys], axis=1),
                                      device=x_T.device)
@@ -479,7 +517,8 @@ class StaticStep:
 
     def draw(self, generator: Optional[torch.Generator]):
         if self.noise is not None:
-            torch.randn(self.noise.shape, generator=generator, out=self.noise)
+            draw_rows(self.noise.shape, generator, self.noise.device, self.noise.dtype,
+                      self.batch_rows, out=self.noise)
 
     def __call__(self) -> torch.Tensor:
         row = dict(zip(self.keys, self.table.index_select(0, self.index)[0].unbind()))

@@ -17,8 +17,15 @@ checkpoint, its UNet in float32. Every network runs on ``--device`` (default
 ``cuda``; there is no fallback to the CPU, ``--device cpu`` asks for it),
 in float32 with TF32 off. A metric whose weights or statistics are missing
 is skipped with a message, as the root CLI skips it. ``--model-device``,
-``--eval-device`` and ``--num-workers`` are accepted for parity and ignored;
-``--dp`` (several devices) is refused until ROADMAP A10.
+``--eval-device`` and ``--num-workers`` are accepted for parity and ignored.
+
+``--dp`` runs under torchrun, one rank per GPU
+(``python -m torch.distributed.run --standalone --nproc_per_node=N -m
+vdiff_tpu_torch.eval --dp ...``): every rank reads every batch, runs its
+slice of each Inception, VGG16, distance or nll batch, and the slices are
+all-gathered; FID, IS and P&R are computed on rank 0 and broadcast, and rank
+0 prints. The nll batch must divide by the world size, as the root CLI's
+``--dp`` requires.
 """
 
 from __future__ import annotations
@@ -30,7 +37,8 @@ import os
 import numpy as np
 import torch
 
-from .metrics.device_apply import NOT_PORTED, resolve_eval_mesh
+from .metrics.device_apply import resolve_eval_mesh
+from .parallel.mesh import all_gather_rows, is_leader, leader_value, row_range
 
 
 def iter_image_batches(folder, total_size, batch_size, rng):
@@ -46,25 +54,26 @@ def _to_unit(im):
     return (im.astype(np.float32) - 127.5) / 127.5
 
 
-def compute_fid(batches, dataset, precomputed_dir, device="cuda"):
+def compute_fid(batches, dataset, precomputed_dir, device="cuda", mesh=None):
     from .metrics import InceptionStatistics, calc_fd, get_precomputed
 
-    istats = InceptionStatistics(input_transform=_to_unit, device=device)
+    istats = InceptionStatistics(input_transform=_to_unit, device=device, mesh=mesh)
     true_mean, true_var = get_precomputed(dataset, download_dir=precomputed_dir)
     for x in batches:
         istats(x)
     gen_mean, gen_var = istats.get_statistics()
-    return calc_fd(gen_mean, gen_var, true_mean, true_var)
+    return leader_value(lambda: calc_fd(gen_mean, gen_var, true_mean, true_var), mesh)
 
 
-def compute_is(batches, splits, device="cuda"):
+def compute_is(batches, splits, device="cuda", mesh=None):
     """The Inception Score of the generated images, "mean +/- std"."""
     from .metrics.inception_score import InceptionScoreStatistics
 
-    stats = InceptionScoreStatistics(input_transform=_to_unit, splits=splits, device=device)
+    stats = InceptionScoreStatistics(input_transform=_to_unit, splits=splits, device=device,
+                                     mesh=mesh)
     for x in batches:
         stats(x)
-    mean, std = stats.get_statistics()
+    mean, std = leader_value(stats.get_statistics, mesh)
     return f"{mean:.4f} +/- {std:.4f}"
 
 
@@ -81,12 +90,13 @@ def load_true_manifold(builder, dataset, root, precomputed_dir):
         d = np.load(path)
         return Manifold(d["features"], d["kth"])
     manifold = builder(data=_build_dataset(dataset, root, split)).manifold
-    os.makedirs(precomputed_dir, exist_ok=True)
-    np.savez(path, features=manifold.features, kth=manifold.kth)
+    if is_leader():
+        os.makedirs(precomputed_dir, exist_ok=True)
+        np.savez(path, features=manifold.features, kth=manifold.kth)
     return manifold
 
 
-def compute_pr(folder, args, dataset, root, device="cuda"):
+def compute_pr(folder, args, dataset, root, device="cuda", mesh=None):
     from functools import partial
 
     from .metrics.precision_recall import ManifoldBuilder, calc_pr
@@ -94,11 +104,11 @@ def compute_pr(folder, args, dataset, root, device="cuda"):
     builder = partial(ManifoldBuilder, extr_batch_size=args.eval_batch_size,
                       max_sample_size=args.eval_total_size, row_batch_size=args.row_batch_size,
                       col_batch_size=args.col_batch_size, nhood_size=args.nhood_size,
-                      device=device)
+                      device=device, mesh=mesh)
     true_manifold = load_true_manifold(builder, dataset, root, args.precomputed_dir)
     gen_manifold = builder(data=folder).manifold
     precision, recall = calc_pr(gen_manifold, true_manifold, row_batch_size=args.row_batch_size,
-                                col_batch_size=args.col_batch_size, device=device)
+                                col_batch_size=args.col_batch_size, device=device, mesh=mesh)
     decimal_places = math.ceil(math.log(args.eval_total_size, 10))
     return f"{precision:.{decimal_places}f}/{recall:.{decimal_places}f}"
 
@@ -110,10 +120,13 @@ def nll_generator(seed: int, start: int, device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(int(state))
 
 
-def compute_nll(args, dataset, root, device="cuda"):
+def compute_nll(args, dataset, root, device="cuda", mesh=None):
     """The test split's bits/dim (celeba: all of it), ``--eval-batch-size``
     images a batch, the tail shorter than a batch dropped (said so). A
-    conditional checkpoint (one with ``class_embed``) gets the labels."""
+    conditional checkpoint (one with ``class_embed``) gets the labels. With a
+    data ``mesh`` each rank computes the bits/dim of its contiguous rows of
+    every batch, from the whole batch's noise, and the rows are gathered, so
+    the number is the one-rank run's."""
     from .data import DATA_INFO, _build_dataset, normalize_flip
     from .factory import (build_diffusion, build_unet, load_checkpoint_params,
                           load_experiment_config, load_weights)
@@ -140,38 +153,48 @@ def compute_nll(args, dataset, root, device="cuda"):
     if n <= 0:
         return "no samples to evaluate (empty split or --eval-total-size 0)"
     B = min(args.eval_batch_size, n)  # small datasets: one full-sized batch at most
+    start, stop, rows = 0, B, None
+    if mesh is not None:
+        if B % mesh.size():
+            raise SystemExit(f"--dp needs the effective nll batch ({B}) divisible by "
+                             f"{mesh.size()} ranks")
+        start, stop = row_range(B)
+        rows = (start, B)
     totals = []
     for s in range(0, n - B + 1, B):
-        idx = np.arange(s, s + B)
+        idx = np.arange(s + start, s + stop)
         raw = ds.load_batch(idx) if hasattr(ds, "load_batch") else ds.images[idx]
         x = torch.from_numpy(normalize_flip(np.ascontiguousarray(raw))).to(device)
         y = torch.as_tensor(np.asarray(ds.targets)[idx], dtype=torch.float32,
                             device=device) if use_cfg else None
         total_bpd, _, _, _ = diffusion.calc_all_bpd(model, x, y,
-                                                    generator=nll_generator(args.seed, s, device))
+                                                    generator=nll_generator(args.seed, s, device),
+                                                    batch_rows=rows)
+        if mesh is not None:
+            total_bpd = all_gather_rows(total_bpd)
         totals.append(total_bpd.cpu().numpy())
     used = len(totals) * B
-    if used < n:
+    if used < n and (mesh is None or is_leader()):
         print(f"nll computed over {used}/{n} samples (tail < batch size dropped)")
     return float(np.concatenate(totals).mean())
 
 
-def _compute_metric(metric, args, dataset, root, img_dir, device):
+def _compute_metric(metric, args, dataset, root, img_dir, device, mesh=None):
     from .data import ImageFolder
 
     if metric == "nll":
-        return compute_nll(args, dataset, root, device)
+        return compute_nll(args, dataset, root, device, mesh)
     if metric not in ("fid", "is", "pr"):
         return None
     folder = ImageFolder(img_dir)
     if len(folder) == 0:
         raise FileNotFoundError(f"no images found under '{img_dir}'")
     if metric == "pr":
-        return compute_pr(folder, args, dataset, root, device)
+        return compute_pr(folder, args, dataset, root, device, mesh)
     batches = iter_image_batches(folder, args.eval_total_size, args.eval_batch_size, np.random)
     if metric == "fid":
-        return compute_fid(batches, dataset, args.precomputed_dir, device)
-    return compute_is(batches, args.is_splits, device)
+        return compute_fid(batches, dataset, args.precomputed_dir, device, mesh)
+    return compute_is(batches, args.is_splits, device, mesh)
 
 
 def main(argv=None) -> dict:
@@ -180,10 +203,8 @@ def main(argv=None) -> dict:
     from .utils.misc import seed_all
 
     args = build_parser().parse_args(argv)
-    resolve_eval_mesh(args.dp)
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("--device cuda: no CUDA device is available")
+    mesh, device = resolve_eval_mesh(args.dp, args.device)
+    log = print if mesh is None or is_leader() else (lambda *a, **k: None)  # rank 0 prints
     # f32 means f32: no TF32 in the metric nets' convs and matmuls
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -191,22 +212,22 @@ def main(argv=None) -> dict:
     seed_all(args.seed)
     root = os.path.expanduser(args.root)
     dataset = args.dataset
-    print(f"Dataset: {dataset}")
+    log(f"Dataset: {dataset}")
     img_dir = os.path.join(args.eval_dir, args.folder_name) if args.folder_name else args.eval_dir
 
     results = {}
     for metric in sorted(set(args.metrics)):
         try:
-            result = _compute_metric(metric, args, dataset, root, img_dir, device)
+            result = _compute_metric(metric, args, dataset, root, img_dir, device, mesh)
         except FileNotFoundError as e:
             # metric weights and statistics are local files: a missing one
             # skips its metric instead of ending the run
-            print(f"{metric.upper()} skipped: {e}")
+            log(f"{metric.upper()} skipped: {e}")
             continue
         if result is None:
-            print(f"Unsupported metric {metric!r}! Ignore.")
+            log(f"Unsupported metric {metric!r}! Ignore.")
             continue
-        print(f"{metric.upper()}: {result}", flush=True)
+        log(f"{metric.upper()}: {result}", flush=True)
         results[metric] = result
     return results
 
@@ -239,7 +260,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--config-path", default="", type=str, help="experiment config (nll only)")
     p.add_argument("--ckpt-path", default="", type=str, help="checkpoint (nll only)")
     p.add_argument("--use-ema", action="store_true", help="EMA weights for nll")
-    p.add_argument("--dp", action="store_true", help="--dp " + NOT_PORTED.format("A10"))
+    p.add_argument("--dp", action="store_true",
+                   help="under torchrun: split every metric batch over the ranks")
     return p
 
 

@@ -11,6 +11,15 @@ one CUDA graph of the step), and writes one PNG per sample; with
 ``--pred-freq`` steps, the most denoised first. The label stream is the JAX CLI's (numpy ``RandomState(seed)``); the initial
 noise comes from a ``torch.Generator`` seeded with ``--seed`` and so differs
 from the JAX CLI's ``jax.random`` draws.
+
+``--dp`` splits every batch over torchrun's ranks, one per GPU
+(``python -m torch.distributed.run --standalone --nproc_per_node=N -m
+vdiff_tpu_torch.generate --dp ...``): each rank draws the whole batch's x_T,
+labels and per-step noise, samples its contiguous rows, and rank 0 gathers
+the rows and writes the PNGs, the images a one-rank run writes. As in the
+root CLI, ``--dp`` needs a batch size the world size divides and refuses
+``--progressive``. The model-parallel modes ``--tp`` and ``--spatial-shard``
+are ROADMAP A10b and refused.
 """
 
 from __future__ import annotations
@@ -31,6 +40,7 @@ import torch
 from .data import DATA_INFO, load_celeba_index
 from .factory import (DEFAULT_CONFIG_PATH, build_diffusion, build_unet, heads_note,
                       load_checkpoint_params, load_experiment_config, load_weights)
+from .parallel.mesh import all_gather_rows, broadcast_object, init_distributed, is_leader, row_range
 
 _NOT_PORTED = "is not ported yet (ROADMAP.md queue A: {})"
 
@@ -120,9 +130,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--uncond", action="store_true")
     p.add_argument("--w-guide", type=float, default=0.1)
     p.add_argument("--seed", type=int, default=1234)
-    p.add_argument("--dp", action="store_true", help=_NOT_PORTED.format("A10"))
-    p.add_argument("--tp", action="store_true", help=_NOT_PORTED.format("A10"))
-    p.add_argument("--spatial-shard", action="store_true", help=_NOT_PORTED.format("A10"))
+    p.add_argument("--dp", action="store_true",
+                   help="under torchrun: split each batch over the ranks (one per GPU)")
+    p.add_argument("--tp", action="store_true", help=_NOT_PORTED.format("A10b"))
+    p.add_argument("--spatial-shard", action="store_true", help=_NOT_PORTED.format("A10b"))
     p.add_argument("--allow-bf16", action="store_true", help="bfloat16 UNet activations")
     p.add_argument("--progressive", action="store_true",
                    help="write each sample's x̂_0 snapshots every --pred-freq steps as one strip")
@@ -136,9 +147,15 @@ def main(argv=None) -> dict:
     sampler's ``stats`` summed over the batches: steps run eagerly, graph
     captures and replays, and each kernel's launches on the device)."""
     args = build_parser().parse_args(argv)
-    for flag in ("dp", "tp", "spatial_shard"):
+    if args.dp and (args.tp or args.spatial_shard):
+        raise SystemExit("--dp shards the batch; it cannot combine with the "
+                         "model-parallel modes --tp/--spatial-shard")
+    for flag in ("tp", "spatial_shard"):
         if getattr(args, flag):
-            raise SystemExit(f"--{flag.replace('_', '-')} " + _NOT_PORTED.format("A10"))
+            raise SystemExit(f"--{flag.replace('_', '-')} " + _NOT_PORTED.format("A10b"))
+    if args.dp and args.progressive:
+        raise SystemExit("--dp does not support --progressive (snapshot axis leads the "
+                         "output); drop one of the flags")
     if args.progressive and args.pred_freq < 1:
         raise SystemExit(f"--pred-freq must be at least 1, got {args.pred_freq}")
     if not 0.0 <= args.eta <= 1.0:
@@ -148,6 +165,13 @@ def main(argv=None) -> dict:
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA device is available")
+    start, stop, rows = 0, args.batch_size, None
+    if args.dp:
+        device = init_distributed(device, flag="--dp")
+        start, stop = _dp_rows(args.batch_size)
+        rows = (start, args.batch_size)
+    leader = not args.dp or is_leader()  # rank 0 logs and writes
+    log = print if leader else (lambda *a, **k: None)
     # f32 means f32: no TF32 in matmuls or convs (bf16 runs are unaffected)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -169,16 +193,19 @@ def main(argv=None) -> dict:
         model_var_type=config["diffusion"]["model_var_type"],
     )
     if heads_note(config["model"]):
-        print(heads_note(config["model"]))
-    print(fused_note())
+        log(heads_note(config["model"]))
+    log(fused_note())
     load_weights(model, state_dict)
     model = model.to(device).eval()
 
     timestamp = datetime.now().strftime("%Y-%m-%dT%H%M%S%f")
+    if args.dp:
+        timestamp = broadcast_object(timestamp)
     save_dir = os.path.join(args.save_dir, exp_name, timestamp)
-    os.makedirs(save_dir, exist_ok=True)
-    with open(os.path.join(save_dir, "args.txt"), "w") as f:
-        json.dump(vars(args), f)
+    if leader:
+        os.makedirs(save_dir, exist_ok=True)
+        with open(os.path.join(save_dir, "args.txt"), "w") as f:
+            json.dump(vars(args), f)
 
     res = info["resolution"][0]
     shape = (args.batch_size, res, res, info["channels"])
@@ -191,31 +218,49 @@ def main(argv=None) -> dict:
         for i in range(num_batches):
             n = min(args.batch_size, args.total_size - i * args.batch_size)
             labels = next_labels(args.batch_size)
-            y = None if labels is None else torch.as_tensor(labels, device=device)
-            x_T = torch.randn(shape, generator=gen, device=device)
+            y = None if labels is None else torch.as_tensor(labels[start:stop], device=device)
+            x_T = torch.randn(shape, generator=gen, device=device)[start:stop]
             t0 = time.perf_counter()
             kw = dict(label=y, use_ddim=args.use_ddim, eta=args.eta, generator=gen, stats=stats)
             if args.progressive:
                 _, x = diffusion.p_sample_progressive(model, x_T, pred_freq=args.pred_freq, **kw)
                 x = torch.cat(list(x), dim=2)  # (B, H, L·W, C): one strip per sample
             else:
-                x = diffusion.p_sample(model, x_T, **kw)
+                x = diffusion.p_sample(model, x_T, batch_rows=rows, **kw)
+                if args.dp:
+                    x = all_gather_rows(x)
             x = x[:n].float().cpu().numpy()  # waits for the device
             dt = time.perf_counter() - t0
             seconds += dt
             finite &= bool(np.isfinite(x).all())
-            write_pngs(save_dir, x)
+            if leader:
+                write_pngs(save_dir, x)
             written += n
             if i == 0:  # it pays for the kernels' build and cuDNN's choices
                 first_n, first_s = n, dt
-                print(f"batch 1/{num_batches}: {n} images in {dt:.3f} s, the warm-up included",
-                      flush=True)
+                log(f"batch 1/{num_batches}: {n} images in {dt:.3f} s, the warm-up included",
+                    flush=True)
             else:
-                print(f"batch {i + 1}/{num_batches}: {n} images, "
-                      f"{(written - first_n) / (seconds - first_s):.3f} samples/s over the "
-                      "batches after the first", flush=True)
-    return {"save_dir": save_dir, "images": written, "finite": finite, "seconds": seconds,
-            "stats": stats}
+                log(f"batch {i + 1}/{num_batches}: {n} images, "
+                    f"{(written - first_n) / (seconds - first_s):.3f} samples/s over the "
+                    "batches after the first", flush=True)
+    summary = {"save_dir": save_dir, "images": written, "finite": finite, "seconds": seconds,
+               "stats": stats}
+    if num_batches > 1:
+        summary["samples_per_s"] = (written - first_n) / (seconds - first_s)
+    if leader:  # what a launcher reads back of a torchrun run
+        with open(os.path.join(save_dir, "summary.json"), "w") as f:
+            json.dump(summary, f)
+    return summary
+
+
+def _dp_rows(batch_size: int):
+    """This rank's rows of every ``--dp`` batch; the world size must divide it."""
+    try:
+        return row_range(batch_size)
+    except ValueError:
+        raise SystemExit(f"--dp needs batch-size divisible by "
+                         f"{torch.distributed.get_world_size()} ranks") from None
 
 
 if __name__ == "__main__":

@@ -53,8 +53,8 @@ class InceptionStatistics:
 
     ``feature_fn`` maps a uint8/float image batch (N, H, W, C) to (N, D)
     activations; defaults to the FID InceptionV3's pool3 features on
-    ``device``, loaded at the first update. ``input_transform`` is applied to
-    each batch first.
+    ``device`` (each rank its slice of a batch, with a data ``mesh``), loaded
+    at the first update. ``input_transform`` is applied to each batch first.
     """
 
     def __init__(
@@ -63,11 +63,13 @@ class InceptionStatistics:
         input_transform: Callable = lambda x: x,
         activation_dim: int = 2048,
         device="cuda",
+        mesh=None,
     ):
         self.input_transform = input_transform
         self.activation_dim = activation_dim
         self._feature_fn = feature_fn
         self._device = device
+        self._mesh = mesh
         self.reset()
 
     @property
@@ -75,7 +77,7 @@ class InceptionStatistics:
         if self._feature_fn is None:
             from .inception import load_fid_inception
 
-            self._feature_fn = load_fid_inception(device=self._device)
+            self._feature_fn = load_fid_inception(device=self._device, mesh=self._mesh)
         return self._feature_fn
 
     def update(self, x: np.ndarray):
@@ -134,7 +136,7 @@ def calc_fd(mean1, var1, mean2, var2, eps=1e-6):
 
 
 def compute_statistics_of_path(path, feature_fn=None, batch_size=50, device="cuda",
-                               dims=2048):
+                               dims=2048, mesh=None):
     """(mu, sigma) for a path: an ``.npz`` stats file (keys mu/sigma) loads
     directly; an image directory streams through the Inception features on
     ``device``. ``dims`` is the feature width (a custom ``feature_fn``'s
@@ -147,21 +149,26 @@ def compute_statistics_of_path(path, feature_fn=None, batch_size=50, device="cud
     folder = ImageFolder(path)
     if len(folder) == 0:
         raise FileNotFoundError(f"no images found under '{path}'")
-    istats = InceptionStatistics(feature_fn=feature_fn, device=device, activation_dim=dims)
+    istats = InceptionStatistics(feature_fn=feature_fn, device=device, activation_dim=dims,
+                                 mesh=mesh)
     for s in range(0, len(folder), batch_size):
         istats(folder.load_batch(np.arange(s, min(s + batch_size, len(folder)))))
     return istats.get_statistics()
 
 
 def calculate_fid_given_paths(paths, batch_size=50, feature_fn=None, device="cuda",
-                              dims=2048):
-    """FID between two paths, each an image directory or a stats npz."""
+                              dims=2048, mesh=None):
+    """FID between two paths, each an image directory or a stats npz. With a
+    data ``mesh`` every rank calls it; the distance is computed on rank 0 and
+    broadcast."""
+    from ..parallel.mesh import leader_value
+
     for p in paths:
         if not os.path.exists(p):
             raise RuntimeError(f"Invalid path: {p}")
-    m1, s1 = compute_statistics_of_path(paths[0], feature_fn, batch_size, device, dims)
-    m2, s2 = compute_statistics_of_path(paths[1], feature_fn, batch_size, device, dims)
-    return calculate_frechet_distance(m1, s1, m2, s2)
+    m1, s1 = compute_statistics_of_path(paths[0], feature_fn, batch_size, device, dims, mesh)
+    m2, s2 = compute_statistics_of_path(paths[1], feature_fn, batch_size, device, dims, mesh)
+    return leader_value(lambda: calculate_frechet_distance(m1, s1, m2, s2), mesh)
 
 
 def main(argv=None):
@@ -169,11 +176,13 @@ def main(argv=None):
     two image directories or stats npz files; with ``--save-stats``, path1's
     statistics written to the path2 npz (a user's own reference statistics).
     Runs on ``--device`` (default cuda; no fallback to the CPU, ``--device
-    cpu`` asks for it)."""
+    cpu`` asks for it); with ``--dp`` under torchrun each rank runs its slice
+    of every Inception batch, rank 0 computes the distance and writes."""
     from argparse import ArgumentParser
 
     import torch
 
+    from ..parallel.mesh import is_leader
     from .device_apply import resolve_eval_mesh
 
     parser = ArgumentParser(description=main.__doc__)
@@ -182,26 +191,25 @@ def main(argv=None):
     parser.add_argument("--batch-size", type=int, default=50)
     parser.add_argument("--device", type=str, default="cuda")
     parser.add_argument("--dp", action="store_true",
-                        help="shard Inception batches over all devices (ROADMAP A10)")
+                        help="split each Inception batch over torchrun's ranks")
     parser.add_argument("--save-stats", action="store_true",
                         help="compute stats of path[0] and write them to the "
                              "path[1] npz instead of computing a FID")
     args = parser.parse_args(argv)
-    resolve_eval_mesh(args.dp)
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("--device cuda: no CUDA device is available")
+    mesh, device = resolve_eval_mesh(args.dp, args.device)
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 means f32
     torch.backends.cudnn.allow_tf32 = False
     try:
         if args.save_stats:
             mu, sigma = compute_statistics_of_path(args.path[0], batch_size=args.batch_size,
-                                                   device=device)
-            np.savez(args.path[1], mu=mu, sigma=sigma)
-            print(f"saved statistics for '{args.path[0]}' to '{args.path[1]}'")
+                                                   device=device, mesh=mesh)
+            if is_leader():
+                np.savez(args.path[1], mu=mu, sigma=sigma)
+                print(f"saved statistics for '{args.path[0]}' to '{args.path[1]}'")
             return None
-        fid = calculate_fid_given_paths(args.path, args.batch_size, device=device)
-        print("FID: ", fid)
+        fid = calculate_fid_given_paths(args.path, args.batch_size, device=device, mesh=mesh)
+        if is_leader():
+            print("FID: ", fid)
         return fid
     except FileNotFoundError as e:  # weights and images are local files
         raise SystemExit(f"FID skipped: {e}")

@@ -294,23 +294,24 @@ def _images(x) -> np.ndarray:
 
 
 def load_fid_inception(weights_path: Optional[str] = None, batch_size: int = 128,
-                       device="cuda"):
+                       device="cuda", mesh=None):
     """Returns feature_fn: uint8/float (N, H, W, C) images → (N, 2048) f32
-    numpy, computed on ``device``. Float input is taken as already in [-1, 1]
-    (the callers' input_transform maps it there); grayscale is tiled to 3
-    channels."""
+    numpy, computed on ``device`` (each rank its slice of a batch, with a
+    data ``mesh``). Float input is taken as already in [-1, 1] (the callers'
+    input_transform maps it there); grayscale is tiled to 3 channels."""
     from .device_apply import apply_batched
 
     model = _load_inception(weights_path, False, device)
 
     def feature_fn(x):
-        return apply_batched(lambda b: model(b)[0][:, 0, 0, :], _images(x), batch_size, device)
+        return apply_batched(lambda b: model(b)[0][:, 0, 0, :], _images(x), batch_size, device,
+                             mesh)
 
     return feature_fn
 
 
 def load_is_inception(weights_path: Optional[str] = None, batch_size: int = 128,
-                      device="cuda"):
+                      device="cuda", mesh=None):
     """Returns prob_fn: uint8/float (N, H, W, C) images → (N, 1008) softmax
     probabilities of the release net's fc head, the marginal the Inception
     Score is computed over."""
@@ -320,6 +321,6 @@ def load_is_inception(weights_path: Optional[str] = None, batch_size: int = 128,
 
     def prob_fn(x):
         return apply_batched(lambda b: torch.softmax(model(b)[-1].float(), dim=-1), _images(x),
-                             batch_size, device)
+                             batch_size, device, mesh)
 
     return prob_fn

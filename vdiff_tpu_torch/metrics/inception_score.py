@@ -25,7 +25,8 @@ import numpy as np
 class InceptionScoreStatistics:
     """Streaming IS accumulator. ``prob_fn`` maps an image batch (N, H, W, C)
     to (N, K) class probabilities; defaults to the FID InceptionV3 with its
-    1008-class head on ``device``, loaded at the first update."""
+    1008-class head on ``device`` (each rank its slice of a batch, with a
+    data ``mesh``), loaded at the first update."""
 
     def __init__(
         self,
@@ -34,11 +35,13 @@ class InceptionScoreStatistics:
         splits: int = 10,
         num_classes: int = 1008,
         device="cuda",
+        mesh=None,
     ):
         self.input_transform = input_transform
         self.splits = splits
         self._prob_fn = prob_fn
         self._device = device
+        self._mesh = mesh
         self.sum_probs = np.zeros((splits, num_classes), np.float64)
         self.sum_plogp = np.zeros((splits,), np.float64)
         self.count = np.zeros((splits,), np.int64)
@@ -49,7 +52,7 @@ class InceptionScoreStatistics:
         if self._prob_fn is None:
             from .inception import load_is_inception
 
-            self._prob_fn = load_is_inception(device=self._device)
+            self._prob_fn = load_is_inception(device=self._device, mesh=self._mesh)
         return self._prob_fn
 
     def update(self, x: np.ndarray):

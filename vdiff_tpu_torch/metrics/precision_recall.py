@@ -9,6 +9,11 @@
   matrix never exists. The product is ``torch.matmul`` (the JAX package
   computes it in XLA, outside any Pallas kernel); TF32 is left to the
   caller's switch, which the eval CLI turns off.
+* With a data ``mesh`` (every rank calling with the same inputs) each rank
+  extracts its slice of every feature batch and computes its rows of every
+  distance tile, and the rows are all-gathered (``device_apply.py``); the
+  k-NN and membership reductions stay host numpy, and :func:`calc_pr`
+  returns rank 0's numbers on every rank.
 """
 
 from __future__ import annotations
@@ -31,16 +36,21 @@ def _sq_dists(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.clamp(a2 + b2.T - 2.0 * torch.matmul(a, b.T), min=0.0)
 
 
-def _sq_dists_np(ri, cj, device="cuda") -> np.ndarray:
-    """One distance tile on ``device``, returned as numpy."""
+def _sq_dists_np(ri, cj, device="cuda", mesh=None) -> np.ndarray:
+    """One distance tile on ``device``, returned as numpy; with ``mesh``, each
+    rank computes its rows of the tile."""
     with torch.inference_mode():
-        a = torch.from_numpy(np.ascontiguousarray(ri)).to(device)
         b = torch.from_numpy(np.ascontiguousarray(cj)).to(device)
+        if mesh is not None:
+            from .device_apply import apply_batched
+
+            return apply_batched(lambda a: _sq_dists(a, b), ri, len(ri), device, mesh)
+        a = torch.from_numpy(np.ascontiguousarray(ri)).to(device)
         return _sq_dists(a, b).cpu().numpy()
 
 
 def compute_distance(row_features, col_features, row_batch_size=10000, col_batch_size=10000,
-                     device="cuda"):
+                     device="cuda", mesh=None):
     """Blocked full distance matrix (device tiles, assembled on the host)."""
     m, n = len(row_features), len(col_features)
     out = np.empty((m, n), np.float32)
@@ -49,12 +59,12 @@ def compute_distance(row_features, col_features, row_batch_size=10000, col_batch
         for j in range(0, n, col_batch_size):
             cj = np.asarray(col_features[j:j + col_batch_size])
             out[i:i + row_batch_size, j:j + col_batch_size] = np.sqrt(
-                _sq_dists_np(ri, cj, device))
+                _sq_dists_np(ri, cj, device, mesh))
     return out
 
 
 def _kth_radii(features: np.ndarray, k: int, row_batch_size: int, col_batch_size: int,
-               device="cuda"):
+               device="cuda", mesh=None):
     """k-th nearest-neighbour distance per point (the point itself excluded
     by taking the (k+1)-th): a running top-(k+1) across column blocks."""
     n = len(features)
@@ -63,7 +73,7 @@ def _kth_radii(features: np.ndarray, k: int, row_batch_size: int, col_batch_size
         ri = features[i:i + row_batch_size]
         best = np.full((len(ri), k + 1), np.inf, np.float32)
         for j in range(0, n, col_batch_size):
-            d2 = _sq_dists_np(ri, features[j:j + col_batch_size], device)
+            d2 = _sq_dists_np(ri, features[j:j + col_batch_size], device, mesh)
             merged = np.concatenate([best, d2], axis=1)
             best = np.partition(merged, k, axis=1)[:, :k + 1]
         kth[i:i + row_batch_size] = np.sqrt(np.sort(best, axis=1)[:, k])
@@ -87,13 +97,14 @@ class ManifoldBuilder:
         col_batch_size: int = 10000,
         random_state: int = 1234,
         device="cuda",
+        mesh=None,
         **_ignored,
     ):
         if features is None:
             if feature_fn is None:
                 from .vgg import load_vgg_features
 
-                feature_fn = load_vgg_features(device=device)
+                feature_fn = load_vgg_features(device=device, mesh=mesh)
             n = len(data)
             idx = np.arange(n)
             if n > max_sample_size:
@@ -107,7 +118,7 @@ class ManifoldBuilder:
             features = np.concatenate(feats)
         self.features = features
         self.kth = _kth_radii(features.astype(np.float32), nhood_size, row_batch_size,
-                              col_batch_size, device)
+                              col_batch_size, device, mesh)
 
     @staticmethod
     def _load(data, indices):
@@ -126,7 +137,7 @@ class ManifoldBuilder:
 
 
 def calc_pr(manifold_1: Manifold, manifold_2: Manifold, row_batch_size=10000,
-            col_batch_size=10000, device="cuda", **_ignored):
+            col_batch_size=10000, device="cuda", mesh=None, **_ignored):
     """(precision, recall): precision is the share of manifold_1's features
     inside some k-NN ball of manifold_2, recall the converse. The reference's
     order: manifold_1 generated, manifold_2 real."""
@@ -139,9 +150,14 @@ def calc_pr(manifold_1: Manifold, manifold_2: Manifold, row_batch_size=10000,
             ri = pf[i:i + row_batch_size]
             inside = np.zeros((len(ri),), bool)
             for j in range(0, len(rf), col_batch_size):
-                d2 = _sq_dists_np(ri, rf[j:j + col_batch_size], device)
+                d2 = _sq_dists_np(ri, rf[j:j + col_batch_size], device, mesh)
                 inside |= (d2 <= (ref.kth[j:j + col_batch_size] ** 2)[None, :]).any(axis=1)
             hits[i:i + row_batch_size] = inside
         return hits.mean()
 
-    return float(membership(manifold_1, manifold_2)), float(membership(manifold_2, manifold_1))
+    pr = float(membership(manifold_1, manifold_2)), float(membership(manifold_2, manifold_1))
+    if mesh is not None:
+        from ..parallel.mesh import broadcast_object
+
+        pr = broadcast_object(pr)
+    return pr

@@ -103,9 +103,11 @@ def find_vgg_weights() -> Optional[str]:
     return None
 
 
-def load_vgg_features(weights_path: Optional[str] = None, batch_size: int = 64, device="cuda"):
+def load_vgg_features(weights_path: Optional[str] = None, batch_size: int = 64, device="cuda",
+                      mesh=None):
     """Returns feature_fn: (N, H, W, C) uint8/float images → (N, 4096) f32
-    numpy, computed on ``device``."""
+    numpy, computed on ``device`` (each rank its slice of a batch, with a
+    data ``mesh``)."""
     from .device_apply import apply_batched
 
     weights_path = weights_path or find_vgg_weights()
@@ -127,6 +129,6 @@ def load_vgg_features(weights_path: Optional[str] = None, batch_size: int = 64, 
         x = np.asarray(x, np.float32)
         if x.shape[-1] == 1:
             x = np.repeat(x, 3, axis=-1)
-        return apply_batched(model, x, batch_size, device)
+        return apply_batched(model, x, batch_size, device, mesh)
 
     return feature_fn

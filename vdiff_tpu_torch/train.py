@@ -23,8 +23,22 @@ conditionally at w=0, as the root CLI does), and skips it with a message
 where the statistics or the Inception weights are missing. ``--remat``
 checkpoints the UNet's down and up blocks (their activations recompute in the
 backward); ``--remat-policy conv`` does so by itself and keeps the conv, qkv and
-attention outputs (``models/remat.py``). Refused until their slice:
-``--distributed``, ``--fsdp``, ``--fsdp-size`` (multi-GPU, ROADMAP A10).
+attention outputs (``models/remat.py``).
+
+Several GPUs: run under torchrun, one process per GPU,
+
+    python -m torch.distributed.run --standalone --nproc_per_node=N \
+        -m vdiff_tpu_torch.train --distributed --config-path ...
+
+``--distributed`` trains with DDP, ``--fsdp`` shards the parameters, Adam
+moments and EMA with FSDP2 over every rank, and ``--fsdp-size k`` over groups
+of k ranks (HSDP on the 2-D (data, fsdp) mesh); either implies
+``--distributed``. The batch size is the global batch, split over the ranks;
+each rank loads its shard of the data, rank 0 alone logs and writes the run
+directory (named by its clock), sample grids and checkpoints, which keep
+the single-card layout. The run's summary (steps, losses, images/s, peak
+device memory, the kernels' launches) is written to ``summary.json`` in the
+run directory.
 """
 
 from __future__ import annotations
@@ -40,6 +54,8 @@ import torch
 from .data import DATA_INFO, get_dataloader
 from .factory import (DEFAULT_CONFIG_PATH, build_diffusion, build_unet, heads_note,
                       load_experiment_config, resolve_section)
+from .ops import launch_counts
+from .parallel.mesh import broadcast_object, init_distributed, is_leader, sync_global_devices
 from .train_lib import Evaluator, Trainer
 from .utils.misc import seed_all
 
@@ -68,17 +84,21 @@ SCHEMA = {
     "speedup": {"cudnn_benchmark": OR, "allow_tf32": OR, "allow_fp16": OR, "allow_bf16": OR},
 }
 
-_NOT_PORTED = "is not ported yet (ROADMAP.md queue A: {})"
-_REFUSED = {"distributed": "A10", "fsdp": "A10", "fsdp_size": "A10"}
-
-
-def make_experiment_dirs(exp_dir: str, exp_name: str):
+def make_experiment_dirs(exp_dir: str, exp_name: str, distributed: bool = False):
+    """The run's directory, named by the clock; with ``distributed``, by rank
+    0's on every rank, rank 0 creating it and the others waiting at a
+    barrier until it exists."""
     timestamp = datetime.now(tz=timezone.utc).strftime("%Y-%m-%dT%H%M%S%f")
+    if distributed:
+        timestamp = broadcast_object(timestamp)
     exp_dir = os.path.join(exp_dir, f"dpm_{exp_name}", timestamp)
     ckpt_dir = os.path.join(exp_dir, "ckpts")
     image_dir = os.path.join(exp_dir, "images")
-    os.makedirs(image_dir, exist_ok=True)
-    os.makedirs(ckpt_dir, exist_ok=True)
+    if not distributed or is_leader():
+        os.makedirs(image_dir, exist_ok=True)
+        os.makedirs(ckpt_dir, exist_ok=True)
+    if distributed:
+        sync_global_devices("experiment_dirs")
     return exp_dir, ckpt_dir, image_dir
 
 
@@ -86,12 +106,18 @@ def main(argv=None) -> dict:
     """Run the CLI on ``argv``; returns the run's directories and the
     trainer's summary (steps, loss, images/s after the first step)."""
     args = build_parser().parse_args(argv)
-    for flag, item in _REFUSED.items():
-        if getattr(args, flag):
-            raise SystemExit(f"--{flag.replace('_', '-')} " + _NOT_PORTED.format(item))
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA device is available")
+    fsdp = args.fsdp or args.fsdp_size > 1
+    distributed = args.distributed or fsdp
+    if distributed:
+        flag = "--fsdp-size" if args.fsdp_size > 1 else "--fsdp" if args.fsdp else "--distributed"
+        device = init_distributed(device, flag=flag)
+    leader = not distributed or is_leader()  # rank 0 logs and writes
+    log = print if leader else (lambda *a, **k: None)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
 
     config, default_name = load_experiment_config(args.config_path, args.default_config_path)
     exp_name = args.exp_name or default_name
@@ -109,8 +135,13 @@ def main(argv=None) -> dict:
     torch.backends.cudnn.allow_tf32 = bool(speedup.allow_tf32)
     torch.backends.cudnn.benchmark = bool(speedup.cudnn_benchmark)
     dtype = torch.bfloat16 if speedup.allow_bf16 else torch.float32
-    print(f"bf16 compute: {'ON' if speedup.allow_bf16 else 'OFF'}; "
-          f"TF32: {'ON' if speedup.allow_tf32 else 'OFF'}; device: {device}")
+    log(f"bf16 compute: {'ON' if speedup.allow_bf16 else 'OFF'}; "
+        f"TF32: {'ON' if speedup.allow_tf32 else 'OFF'}; device: {device}")
+    if distributed:
+        mode = (f"FSDP over groups of {args.fsdp_size} (HSDP)" if args.fsdp_size > 1
+                else "FSDP" if fsdp else "DDP")
+        log(f"parallel: {mode}, {torch.distributed.get_world_size()} ranks "
+            f"({torch.distributed.get_backend()})")
 
     diffusion, train_timesteps = build_diffusion(config["diffusion"], w_guide=cond.w_guide,
                                                  p_uncond=cond.p_uncond)
@@ -121,19 +152,19 @@ def main(argv=None) -> dict:
                        model_var_type=config["diffusion"]["model_var_type"],
                        remat=args.remat, remat_policy=args.remat_policy)
     if model.remat:
-        print(f"remat: the down and up blocks recompute in the backward (policy "
-              f"{model.remat_policy or 'none: nothing saved inside a block'})")
+        log(f"remat: the down and up blocks recompute in the backward (policy "
+            f"{model.remat_policy or 'none: nothing saved inside a block'})")
     if heads_note(config["model"]):
-        print(heads_note(config["model"]))
+        log(heads_note(config["model"]))
     trainloader, _ = get_dataloader(dataset, batch_size=train.batch_size,
                                     split="all" if dataset == "celeba" else "train",
                                     random_seed=train.seed, root=root, drop_last=True,
-                                    num_workers=args.num_workers)
+                                    distributed=distributed, num_workers=args.num_workers)
 
-    exp_dir, ckpt_dir, image_dir = make_experiment_dirs(args.exp_dir, exp_name)
-    print(f"Checkpoints → {os.path.abspath(ckpt_dir)} every {train.ckpt_intv} epoch(s)")
-    print(f"Images (x{train.num_save_images}) → {os.path.abspath(image_dir)} "
-          f"every {train.image_intv} epoch(s)")
+    exp_dir, ckpt_dir, image_dir = make_experiment_dirs(args.exp_dir, exp_name, distributed)
+    log(f"Checkpoints → {os.path.abspath(ckpt_dir)} every {train.ckpt_intv} epoch(s)")
+    log(f"Images (x{train.num_save_images}) → {os.path.abspath(image_dir)} "
+        f"every {train.image_intv} epoch(s)")
 
     trainer = Trainer(
         model=model, diffusion=diffusion, timesteps=train_timesteps, epochs=train.epochs,
@@ -144,31 +175,44 @@ def main(argv=None) -> dict:
         num_accum=args.num_accum, shape=image_shape, ckpt_intv=train.ckpt_intv,
         max_ckpts_kept=train.max_ckpts_kept, image_intv=train.image_intv,
         num_save_images=train.num_save_images, ema_decay=train.ema_decay, seed=train.seed,
-        eval_intv=args.eval_intv, device=device,
+        eval_intv=args.eval_intv, device=device, distributed=distributed, fsdp=args.fsdp,
+        fsdp_size=args.fsdp_size,
     )
     evaluator = None
     if args.eval:
         # the headline FID's condition: class-conditional sampling at w=0, so
         # a CFG model's evaluation skips the doubled batch; the trainer draws
         # the labels
+        # on several ranks each runs its slice of every Inception batch
+        on_mesh = {} if trainer.mesh is None else {"mesh": trainer.mesh}
         evaluator = Evaluator(dataset=dataset, device=device,
                               diffusion=dataclasses.replace(diffusion, w_guide=0.0)
-                              if cond.use_cfg else None)
+                              if cond.use_cfg else None, **on_mesh)
     if args.resume:
         try:
             trainer.load_checkpoint(ckpt_path=args.from_ckpt, ckpt_dir=ckpt_dir)
-            print("Successfully loaded checkpoint!")
+            log("Successfully loaded checkpoint!")
         except FileNotFoundError:
-            print("Checkpoint file does not exist!\nStarting from scratch...")
+            log("Checkpoint file does not exist!\nStarting from scratch...")
 
-    with open(os.path.join(exp_dir, "config.json"), "w") as f:
-        config["args"] = vars(args)
-        json.dump(config, f, indent=2)
+    if leader:
+        with open(os.path.join(exp_dir, "config.json"), "w") as f:
+            config["args"] = vars(args)
+            json.dump(config, f, indent=2)
 
-    print("Training starts...", flush=True)
+    log("Training starts...", flush=True)
+    before = launch_counts()
     summary = trainer.train(ckpt_dir=ckpt_dir, image_dir=image_dir, use_ddim=args.use_ddim,
                             evaluator=evaluator)
-    return {"exp_dir": exp_dir, "ckpt_dir": ckpt_dir, "image_dir": image_dir, **summary}
+    summary = {"exp_dir": exp_dir, "ckpt_dir": ckpt_dir, "image_dir": image_dir, **summary,
+               "world_size": trainer.world,
+               "peak_bytes": torch.cuda.max_memory_allocated(device)
+               if device.type == "cuda" else None,
+               "launches": {k: n - before[k] for k, n in launch_counts().items()}}
+    if leader:  # what a launcher reads back of a torchrun run
+        with open(os.path.join(exp_dir, "summary.json"), "w") as f:
+            json.dump(summary, f, indent=2)
+    return summary
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -218,15 +262,20 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--eval", action="store_true", help="whether to evaluate fid during training")
     p.add_argument("--eval-intv", type=int, default=128, help="frequency of evaluating the model")
     p.add_argument("--ema-decay", type=float, help="decay factor of ema")
-    p.add_argument("--distributed", action="store_true", help=_NOT_PORTED.format("A10"))
+    p.add_argument("--distributed", action="store_true",
+                   help="data-parallel training (DDP) over torchrun's ranks, one per GPU")
     p.add_argument("--cudnn-benchmark", action="store_true", help="cuDNN autotuner")
     p.add_argument("--allow-tf32", action="store_true", help="TF32 in f32 matmuls and convs")
     p.add_argument("--allow-fp16", action="store_true", help="(parity) see --allow-bf16")
     p.add_argument("--allow-bf16", action="store_true", help="bfloat16 compute in the UNet")
     p.add_argument("--use-xformers", action="store_true",
                    help="(parity) the port always runs its attention kernels")
-    p.add_argument("--fsdp", action="store_true", help=_NOT_PORTED.format("A10"))
-    p.add_argument("--fsdp-size", type=int, default=0, help=_NOT_PORTED.format("A10"))
+    p.add_argument("--fsdp", action="store_true",
+                   help="shard parameters, Adam moments and EMA over every rank (FSDP2); "
+                        "implies --distributed")
+    p.add_argument("--fsdp-size", type=int, default=0,
+                   help="shard the state within groups of this many ranks and replicate across "
+                        "groups (HSDP, a 2-D (data, fsdp) mesh); implies --distributed")
     p.add_argument("--remat", action="store_true",
                    help="activation checkpointing of the UNet's down and up blocks: their "
                         "activations recompute in the backward")
