@@ -148,12 +148,24 @@ Phases, one output line each (any failure raises and exits non-zero):
      gloo with CUDA tensors take one f32 DDP step of the full-width model
      (B=4 in all), held to the one-rank step on the global batch within the
      f32 step bounds, TRAIN_STEP_LAUNCHES a rank;
+ 12c. mp: the model-parallel serving modes, the plain generate CLI first at
+     (b)'s settings, then two torchrun ranks sharing the card over gloo with
+     CUDA tensors: (a) the full-width cifar10_cond f32 forward at B=2 under
+     --tp, --spatial-shard and both, each within UNET_RTOL of the one-rank
+     forward on the card, with each rank's parameter bytes, peak memory and
+     17 + 1 launches; (b) generate --tp and generate --spatial-shard on
+     phase 4's checkpoint (bf16, 16 DDIM steps at w=0, one batch of 16, the
+     sampler's eager loop): finite PNGs, 17 + 1 launches a forward on each
+     rank, samples/s beside the plain CLI's; (c) the full-width celeba bf16
+     forward at B=2 under --tp within 4·2^-8 of max|ref| of one rank, the same
+     weights in f32 within UNET_RTOL, B6 x10, B2 x8 and B1 x9 a rank;
  13. bench: python -m vdiff_tpu_torch.bench at full width with its sampling
      cut to 16 steps (--sample-steps), in this process: its JSON lines (the
      root bench's five, the canary and three arms, the headline last).
 Every kernel's launches in the JSON record are counted on the main paths
-(phases 4, 4e, 4c, 7, 7a, 11, 12, and 12b's ddp_train_cli, fsdp_train_cli
-and dp_generate, read back from the torchrun rank's summary.json files),
+(phases 4, 4e, 4c, 7, 7a, 11, 12, 12b's ddp_train_cli, fsdp_train_cli
+and dp_generate, read back from the torchrun rank's summary.json files, and
+12c's tp_generate and sp_generate, summed over the two ranks),
 each run with the counts set to 0 just before it and read just after:
 "launches" is their sum over the paths, and "launches_by_path" each path's
 own count. A sampling path replays CUDA
@@ -185,7 +197,7 @@ import time
 import numpy as np
 import torch
 
-CONFIGS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "vdiff_tpu", "configs")
+CONFIGS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "vdiff_tpu_torch", "configs")
 CONFIG = os.path.join(CONFIGS, "cifar10_cond.json")
 TRAIN_CONFIG = os.path.join(CONFIGS, "synthetic_flagship.json")
 CELEBA_CONFIG = os.path.join(CONFIGS, "celeba.json")
@@ -1915,6 +1927,208 @@ def gloo_ddp_worker():
     dist.destroy_process_group()
 
 
+# the mp phase (12c): the model-parallel serving modes on two ranks sharing
+# the card over gloo with CUDA tensors (NCCL refuses two ranks on one GPU).
+# (a) the full-width cifar10_cond f32 forward at B=2 under --tp, under
+# --spatial-shard and under both, against the one-rank forward on the card
+# within UNET_RTOL; (b) the generate CLI under --tp and under
+# --spatial-shard on phase 4's checkpoint (bf16, MP_SAMPLE_STEPS DDIM steps at
+# w=0, one batch of MP_SAMPLE_B), its eager loop on each rank; (c) the
+# full-width celeba bf16 forward at B=2 under --tp against one rank within
+# the bf16 UNet bound of tests/test_torch_unet.py, MP_BF16_RTOL of the output's
+# scale, and the same weights in f32 within UNET_RTOL (a half-width bf16 conv
+# or matmul may sum in another order and round an output the other way; in
+# f32 the modes are exact or nearly). The kernels run per rank at whole-T
+# shapes, as on one card.
+MP_SAMPLE_B, MP_SAMPLE_STEPS = 16, 16
+MP_BF16_RTOL = 4 * 2.0 ** -8
+MP_MODES = {"tp": ("--tp",), "sp": ("--spatial-shard",), "tpsp": ("--tp", "--spatial-shard")}
+
+
+def _mp_gen_args(tmp, name, ckpt, *flags):
+    return ["--config-path", CONFIG, "--ckpt-path", ckpt, "--use-ema", "--use-ddim",
+            "--allow-bf16", "--sample-timesteps", str(MP_SAMPLE_STEPS), "--w-guide", "0",
+            "--batch-size", str(MP_SAMPLE_B), "--total-size", str(MP_SAMPLE_B), "--seed", "0",
+            "--save-dir", os.path.join(tmp, f"mp_gen_{name}"), *flags]
+
+
+def phase_mp(tmp, ckpt, card):
+    """The model-parallel serving modes (see MP_MODES' comment): the plain
+    generate CLI at (b)'s settings in this process, then one torchrun launch
+    of two gloo ranks on this card that runs (a)-(c) (mp_worker). Returns
+    the launches of (b)'s two paths, summed over the ranks."""
+    from vdiff_tpu_torch import generate
+
+    t0 = time.perf_counter()
+    plain = generate.main(_mp_gen_args(tmp, "plain", ckpt))
+    _run("mp: torchrun, two gloo ranks on one card (TP, SP, TP+SP forwards; generate --tp, "
+         "--spatial-shard; celeba TP forward)",
+         _torchrun(2, os.path.abspath(__file__), "--mp", tmp, ckpt))
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(tmp, f"mp_rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    for name in MP_MODES:
+        fwd = [res["forward"][name] for res in ranks]
+        print(f"mp: cifar10_cond f32 B=2 {' '.join(MP_MODES[name])}, 2 ranks: max_abs_err "
+              f"{[f['err'] for f in fwd]} vs the one-rank forward (|ref|max {fwd[0]['scale']}), "
+              f"parameter bytes a rank {[f['param_bytes'] for f in fwd]} of "
+              f"{fwd[0]['param_bytes_total']}, peak allocated a rank "
+              f"{[f['peak_bytes'] for f in fwd]} B (one rank: {ranks[0]['forward']['one_peak']} "
+              f"B), launches a rank {_nonzero(fwd[0]['launches'])} ({card})", flush=True)
+        for r, f in enumerate(fwd):
+            if not f["finite"] or f["err"] > UNET_RTOL * f["scale"]:
+                fail(f"mp: {name} forward on rank {r}: max err {f['err']} > {UNET_RTOL} * "
+                     f"{f['scale']}")
+            if f["launches"] != _launches(attn_fwd_online=ONLINE_PER_FWD,
+                                          attn_fwd_qblk=QBLK_PER_FWD):
+                fail(f"mp: {name} forward on rank {r} launched {f['launches']}")
+    launched = {}
+    for name in ("tp", "sp"):
+        runs = [res["generate"][name] for res in ranks]
+        want = {k: v * MP_SAMPLE_STEPS for k, v in SAMPLE_FWD_LAUNCHES_BF16.items()}
+        per_rank = [{k: run["stats"]["launches"].get(k, 0) for k in KERNELS} for run in runs]
+        pngs = len(glob.glob(os.path.join(tmp, f"mp_gen_{name}", "**", "*.png"), recursive=True))
+        print(f"mp: generate {' '.join(MP_MODES[name])}, 2 ranks, bf16 B={MP_SAMPLE_B} "
+              f"{MP_SAMPLE_STEPS} DDIM steps: {pngs} PNGs, finite "
+              f"{[run['finite'] for run in runs]}, "
+              f"{[run['images'] / run['seconds'] for run in runs]} samples/s a rank vs "
+              f"{plain['images'] / plain['seconds']} plain (one batch, its warm-up included), "
+              f"eager steps {[run['stats']['eager_steps'] for run in runs]}, graph "
+              f"{[run['stats']['graph'] for run in runs]}, launches a rank "
+              f"{[_nonzero(c) for c in per_rank]} ({card})", flush=True)
+        if pngs != MP_SAMPLE_B or not all(run["finite"] for run in runs):
+            fail(f"mp: generate {name}: {pngs} PNGs, finite {[run['finite'] for run in runs]}")
+        for r, (run, counts) in enumerate(zip(runs, per_rank)):
+            if (counts != want or run["stats"]["eager_steps"] != MP_SAMPLE_STEPS
+                    or run["stats"]["graph"] or run["world_size"] != 2):
+                fail(f"mp: generate {name} on rank {r}: launches {counts} (want {want}), "
+                     f"stats {run['stats']}")
+        launched[f"{name}_generate"] = {k: sum(c[k] for c in per_rank) for k in KERNELS}
+    for r, res in enumerate(ranks):
+        c = res["celeba"]
+        print(f"mp: celeba bf16 B=2 --tp rank {r}: max_abs_err {c['err']} vs the one-rank forward "
+              f"(|ref|max {c['scale']}; {c['err'] / (MP_BF16_RTOL * c['scale'])} of the bound), "
+              f"the same weights in f32 {c['f32_err']} (|ref|max {c['f32_scale']}), parameter "
+              f"bytes {c['param_bytes']} of {c['param_bytes_total']}, launches "
+              f"{_nonzero(c['launches'])} (f32 {_nonzero(c['f32_launches'])}) ({card})", flush=True)
+        if not c["finite"] or c["err"] > MP_BF16_RTOL * c["scale"]:
+            fail(f"mp: celeba TP forward on rank {r}: max err {c['err']} > {MP_BF16_RTOL} * "
+                 f"{c['scale']}")
+        if c["f32_err"] > UNET_RTOL * c["f32_scale"]:
+            fail(f"mp: celeba f32 TP forward on rank {r}: max err {c['f32_err']} > {UNET_RTOL} * "
+                 f"{c['f32_scale']}")
+        if c["launches"] != CELEBA_FWD_LAUNCHES_BF16 or c["f32_launches"] != CELEBA_FWD_LAUNCHES:
+            fail(f"mp: celeba TP forward on rank {r} launched {c['launches']} (f32 "
+                 f"{c['f32_launches']})")
+    print(f"mp: {time.perf_counter() - t0:.1f} s ({card})", flush=True)
+    return launched
+
+
+def _mp_forwards(model, x, t, y):
+    """The one-rank forward of ``model`` (on the CPU, whole) on the card,
+    then the same under each mode; each mode's error, parameter bytes, peak
+    memory and launches on this rank."""
+    from vdiff_tpu_torch.parallel import (SpatialShardedUNet, state_bytes_per_device,
+                                          tp_shard_model_)
+
+    x, t, y = x.cuda(), t.cuda(), y.cuda()
+    out = {}
+    with torch.inference_mode():
+        torch.cuda.reset_peak_memory_stats()
+        plain = copy.deepcopy(model).cuda()
+        ref = plain(x, t, y).float()
+        out["one_peak"] = torch.cuda.max_memory_allocated()
+        total = state_bytes_per_device(plain)
+        del plain
+        for name, flags in MP_MODES.items():
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            m = copy.deepcopy(model)
+            if "--tp" in flags:  # on the host, as the generate CLI shards
+                tp_shard_model_(m)
+            m = m.cuda()
+            net = SpatialShardedUNet(m) if "--spatial-shard" in flags else m
+            _reset_counts()
+            got = net(x, t, y).float()
+            out[name] = {"err": (got - ref).abs().max().item(),
+                         "scale": max(1.0, ref.abs().max().item()),
+                         "finite": bool(torch.isfinite(got).all()), "launches": _counts(),
+                         "param_bytes": state_bytes_per_device(m), "param_bytes_total": total,
+                         "peak_bytes": torch.cuda.max_memory_allocated()}
+            del m, net
+    return out
+
+
+def _compute_dtype(model, dtype):
+    """Set the compute dtype of ``model`` and of every block that casts to
+    its own (the UNet casts its f32 weights at use, so this is the model
+    built with ``dtype``)."""
+    for m in model.modules():
+        if isinstance(getattr(m, "dtype", None), torch.dtype):
+            m.dtype = dtype
+
+
+def mp_worker(tmp, ckpt):
+    """One of the mp phase's two torchrun ranks on one card: the gloo group
+    with CUDA tensors, then (a) the cifar10_cond forwards, (b) the generate
+    CLI under --tp and --spatial-shard (in this process; it keeps the group)
+    and (c) the celeba TP forward; writes this rank's results to
+    ``tmp/mp_rank<r>.json``."""
+    import torch.distributed as dist
+
+    from vdiff_tpu_torch import generate
+    from vdiff_tpu_torch.factory import load_experiment_config
+
+    dist.init_process_group("gloo")
+    rank = dist.get_rank()
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    res = {}
+    cfg, _ = load_experiment_config(CONFIG)
+    gen = torch.Generator().manual_seed(7)  # phase 3's inputs
+    x, t = torch.randn(2, 32, 32, 3, generator=gen), torch.rand(2, generator=gen)
+    res["forward"] = _mp_forwards(_perturbed_unet(cfg), x, t, torch.tensor([3.0, 0.0]))
+    res["generate"] = {}
+    for name in ("tp", "sp"):
+        _reset_counts()
+        summary = generate.main(_mp_gen_args(tmp, name, ckpt, *MP_MODES[name]))
+        res["generate"][name] = {k: summary[k] for k in ("images", "finite", "seconds", "stats",
+                                                         "world_size")}
+    celeba_cfg, _ = load_experiment_config(CELEBA_CONFIG)
+    celeba = _perturbed_unet(dict(celeba_cfg, model=dict(celeba_cfg["model"], drop_rate=0.0)),
+                             num_classes=40, multitags=True, dtype=torch.bfloat16)
+    x, y = _celeba_inputs(2, torch.Generator().manual_seed(8))
+    t = torch.rand(2, generator=torch.Generator().manual_seed(9))
+    from vdiff_tpu_torch.parallel import state_bytes_per_device, tp_shard_model_
+
+    x, t, y = x.cuda(), t.cuda(), y.cuda()
+    with torch.inference_mode():
+        celeba_cuda = celeba.cuda()
+        ref = celeba_cuda(x, t, y).float()
+        _compute_dtype(celeba_cuda, torch.float32)  # the same weights in f32
+        ref32 = celeba_cuda(x, t, y)
+        total = state_bytes_per_device(celeba_cuda)
+        tp_shard_model_(celeba_cuda)
+        _reset_counts()
+        got32 = celeba_cuda(x, t, y)
+        launches32 = _counts()
+        _compute_dtype(celeba_cuda, torch.bfloat16)
+        _reset_counts()
+        got = celeba_cuda(x, t, y).float()
+    res["celeba"] = {"err": (got - ref).abs().max().item(), "scale": ref.abs().max().item(),
+                     "finite": bool(torch.isfinite(got).all()), "launches": _counts(),
+                     "f32_err": (got32 - ref32).abs().max().item(),
+                     "f32_scale": max(1.0, ref32.abs().max().item()), "f32_launches": launches32,
+                     "param_bytes": state_bytes_per_device(celeba_cuda),
+                     "param_bytes_total": total}
+    with open(os.path.join(tmp, f"mp_rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
 # ---------------------------------------------------------------------------
 # the eval path: nll, the metric nets, the dress rehearsal, the Evaluator
 # ---------------------------------------------------------------------------
@@ -2209,6 +2423,7 @@ def main():
         phase_remat(celeba_cfg, card)
         torch.cuda.empty_cache()
         by_path.update(phase_dist(tmp, ckpt, card))
+        by_path.update(phase_mp(tmp, ckpt, card))
     phase_bench()
 
     meta = {
@@ -2276,6 +2491,8 @@ if __name__ == "__main__":
         gloo_ddp_worker()
     elif sys.argv[1:2] == ["--dist-clis"]:  # the rank of parts (a)-(c)
         dist_clis_worker(*sys.argv[2:5])
+    elif sys.argv[1:2] == ["--mp"]:  # a rank of the mp phase
+        mp_worker(*sys.argv[2:4])
     else:
         main()
     sys.stdout.flush()

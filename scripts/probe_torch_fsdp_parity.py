@@ -37,12 +37,11 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from vdiff_tpu_torch import train_lib  # noqa: E402
 from vdiff_tpu_torch.data import DATA_INFO, get_dataloader  # noqa: E402
-from vdiff_tpu_torch.factory import (DEFAULT_CONFIG_PATH, build_diffusion,  # noqa: E402
-                                     build_unet, load_experiment_config)
+from vdiff_tpu_torch.factory import (CONFIG_DIR, DEFAULT_CONFIG_PATH,  # noqa: E402
+                                     build_diffusion, build_unet, load_experiment_config)
 from vdiff_tpu_torch.parallel import init_distributed  # noqa: E402
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FLAGSHIP = os.path.join(REPO, "vdiff_tpu", "configs", "synthetic_flagship.json")
+FLAGSHIP = os.path.join(CONFIG_DIR, "synthetic_flagship.json")
 STAGES = ("loss", "grads", "norm", "clipped", "params", "ema")
 LAYOUT_FIELDS = ((3, "weight strides"), (4, "weight offsets"), (6, "input strides"),
                  (7, "input offsets"), (8, "bias offsets"))

@@ -26,11 +26,10 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from vdiff_tpu_torch.factory import build_diffusion, build_unet, load_experiment_config  # noqa: E402
+from vdiff_tpu_torch.factory import (CONFIG_DIR, build_diffusion, build_unet,  # noqa: E402
+                                     load_experiment_config)
 from vdiff_tpu_torch.generate import fused_note  # noqa: E402
 
-CONFIG_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                          "vdiff_tpu", "configs")
 # config → (classes, multi-tag, resolution, batch)
 SETUPS = {"cifar10_cond": (10, False, 32, 64), "celeba": (40, True, 64, 32)}
 

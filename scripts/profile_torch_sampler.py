@@ -32,12 +32,11 @@ from torch.profiler import ProfilerActivity, profile
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from vdiff_tpu_torch.diffusion import StaticStep  # noqa: E402
-from vdiff_tpu_torch.factory import build_diffusion, build_unet, load_experiment_config  # noqa: E402
+from vdiff_tpu_torch.factory import (CONFIG_DIR, build_diffusion, build_unet,  # noqa: E402
+                                     load_experiment_config)
 from vdiff_tpu_torch.generate import fused_note  # noqa: E402
 from vdiff_tpu_torch.utils.profiling import device_us  # noqa: E402
 
-CONFIG_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                          "vdiff_tpu", "configs")
 # config → (classes, multi-tag, resolution, cells as (name, w, batch))
 SETUPS = {
     "cifar10_cond": (10, False, 32, (("ddim w=0 B=64", 0.0, 64), ("cfg w=0.1 B=32", 0.1, 32))),

@@ -27,7 +27,8 @@ PORT_MODULES = [
     "vdiff_tpu_torch.metrics.inception_score", "vdiff_tpu_torch.metrics.precision_recall",
     "vdiff_tpu_torch.metrics.device_apply", "vdiff_tpu_torch.metrics.manifests",
     "vdiff_tpu_torch.parallel", "vdiff_tpu_torch.parallel.mesh", "vdiff_tpu_torch.parallel.fsdp",
-    "vdiff_tpu_torch.parallel.dryrun",
+    "vdiff_tpu_torch.parallel.dryrun", "vdiff_tpu_torch.parallel.tp",
+    "vdiff_tpu_torch.parallel.spatial",
 ]
 
 
@@ -181,6 +182,8 @@ def test_generate_cli_on_cpu(tmp_path, w_guide):
                                    ["--progressive", "--pred-freq", "0"],
                                    ["--use-ddim", "--eta", "1.5"], ["--eta", "0.5"]])
 def test_generate_cli_refuses_what_is_not_ported(tmp_path, flags):
+    """Flag combinations the CLI refuses (--tp and --spatial-shard outside
+    torchrun)."""
     from vdiff_tpu_torch.generate import main
 
     with pytest.raises(SystemExit):
@@ -205,3 +208,14 @@ def test_verbatim_copies_match_the_jax_package():
             open(os.path.join(REPO, "vdiff_tpu_torch", "utils", "config.py")) as b:
         assert a.read() == b.read()
     assert DATA_INFO == JAX_INFO
+
+
+@pytest.mark.parametrize("name", sorted(os.listdir(os.path.join(REPO, "vdiff_tpu", "configs"))))
+def test_config_copies_match_the_jax_package(name):
+    """The port reads its own copies of the experiment configs; each is the
+    JAX package's file byte for byte, and the port has no other."""
+    with open(os.path.join(REPO, "vdiff_tpu", "configs", name), "rb") as a, \
+            open(os.path.join(REPO, "vdiff_tpu_torch", "configs", name), "rb") as b:
+        assert a.read() == b.read()
+    assert (sorted(os.listdir(os.path.join(REPO, "vdiff_tpu_torch", "configs")))
+            == sorted(os.listdir(os.path.join(REPO, "vdiff_tpu", "configs"))))

@@ -22,7 +22,7 @@ from tests.test_torch_cli_flags import _root_options  # noqa: E402
 from tests.torch_parity import metric_state_dict  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SMOKE = os.path.join(REPO, "vdiff_tpu", "configs", "synthetic_smoke.json")
+SMOKE = os.path.join(REPO, "vdiff_tpu_torch", "configs", "synthetic_smoke.json")
 EVAL_OPTIONS = _root_options("eval")
 
 

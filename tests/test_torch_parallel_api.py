@@ -1,8 +1,9 @@
 """vdiff_tpu_torch.parallel without a process group, and its dry run: the
 package imports no JAX; row splits, batch shards and the split sampler's
 noise draws; the per-process loader against the JAX package's for several
-process counts; the CLIs' multi-GPU refusals outside torchrun and the
-model-parallel modes' (ROADMAP A10b); ``dryrun_multichip(2)`` on the CPU."""
+process counts; the CLIs' multi-GPU refusals outside torchrun (the
+model-parallel modes' too) and the fused switches the model-parallel modes
+refuse; ``dryrun_multichip(2)`` on the CPU."""
 
 import os
 import subprocess
@@ -93,14 +94,33 @@ def test_process_shards_match_jax_dataloader(count):
 @pytest.mark.parametrize("argv", [
     ["--tp"], ["--spatial-shard"], ["--dp", "--tp"], ["--dp"]])
 def test_generate_refusals(argv, monkeypatch):
-    """--tp and --spatial-shard wait for ROADMAP A10b; --dp cannot combine
-    with them, and outside torchrun it stops naming the launcher."""
+    """--dp cannot combine with --tp or --spatial-shard; outside torchrun
+    each of the three stops naming the launcher."""
     from vdiff_tpu_torch.generate import main
 
     monkeypatch.delenv("RANK", raising=False)
-    match = {"--tp": "A10b", "--spatial-shard": "A10b"}.get(argv[-1], "torchrun")
+    match = "torchrun"
     if argv == ["--dp", "--tp"]:
         match = "cannot combine"
+    with pytest.raises(SystemExit, match=match):
+        main(["--config-path", "x.json", "--ckpt-path", "x.pt", "--device", "cpu", *argv])
+
+
+@pytest.mark.parametrize("env,argv,match", [
+    ({"VDIFF_FUSED_CONV": "1"}, ["--tp"], "--tp cannot run VDIFF_FUSED_CONV=1"),
+    ({"VDIFF_FUSED_CONV": "1"}, ["--spatial-shard"], "--spatial-shard cannot run VDIFF_FUSED_CONV"),
+    ({"VDIFF_FUSED_GN": "1"}, ["--spatial-shard"], "--spatial-shard cannot run VDIFF_FUSED_GN=1"),
+    ({"VDIFF_FUSED_GN": "1"}, ["--tp"], "torchrun"),  # allowed: B10 runs on whole activations
+], ids=["tp-conv", "sp-conv", "sp-gn", "tp-gn-allowed"])
+def test_generate_model_parallel_fused_switches(env, argv, match, monkeypatch):
+    """The fused switches a model-parallel mode cannot run stop the CLI
+    before anything runs; VDIFF_FUSED_GN=1 under --tp goes on (here to the
+    torchrun refusal)."""
+    from vdiff_tpu_torch.generate import main
+
+    monkeypatch.delenv("RANK", raising=False)
+    for name, value in env.items():
+        monkeypatch.setenv(name, value)
     with pytest.raises(SystemExit, match=match):
         main(["--config-path", "x.json", "--ckpt-path", "x.pt", "--device", "cpu", *argv])
 
@@ -109,7 +129,9 @@ def test_dryrun_multichip_two_ranks(capfd):
     from vdiff_tpu_torch.parallel.dryrun import dryrun_multichip
 
     dryrun_multichip(2, device="cpu")
-    assert "dryrun_multichip(2) on cpu: DDP loss" in capfd.readouterr().out
+    out = capfd.readouterr().out
+    assert "dryrun_multichip(2) on cpu: DDP loss" in out
+    assert "TP and SP forwards within 0.0001 of the plain forward, TP parameter bytes" in out
 
 
 def test_dryrun_multichip_on_cuda_needs_a_card_a_rank(monkeypatch):

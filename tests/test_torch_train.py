@@ -13,7 +13,7 @@ jax = pytest.importorskip("jax")
 import torch  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SMOKE = os.path.join(REPO, "vdiff_tpu", "configs", "synthetic_smoke.json")
+SMOKE = os.path.join(REPO, "vdiff_tpu_torch", "configs", "synthetic_smoke.json")
 
 
 def test_efficient_dropout_law():

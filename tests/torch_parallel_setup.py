@@ -54,11 +54,7 @@ def jax_model_and_params():
 
 def to_port(tree):
     """A JAX param-shaped tree → the port's state-dict layout (numpy)."""
-    import jax
-
-    from vdiff_tpu_torch.models.convert import flax_params_to_state_dict
-
-    return flax_params_to_state_dict(jax.tree.map(np.asarray, tree), dict(CFG))
+    return flax_params_to_state_dict_np(tree, CFG)
 
 
 def global_batch():
@@ -142,6 +138,74 @@ def write_setup(workdir):
     }
     torch.save(setup, os.path.join(workdir, "setup.pt"))
     return setup
+
+
+# the model-parallel serving tests (tests/test_torch_tp.py): tests/test_tp.py's
+# UNet (two heads), its inputs and its 4-step CFG sampler
+TP_CFG = dict(CFG, num_heads=2)
+TP_RES = 16
+TP_DIFFUSION = dict(sample_timesteps=4, model_out_type="eps", model_var_type="fixed_large",
+                    reweight_type="snr", loss_type="mse", w_guide=0.3, p_uncond=0.1)
+
+
+@functools.lru_cache(maxsize=None)
+def jax_tp_model_and_params():
+    """(JAX UNet of TP_CFG, perturbed params as numpy)."""
+    import jax
+    import jax.numpy as jnp
+
+    from tests.torch_parity import perturb
+    from vdiff_tpu.models.unet import UNet
+
+    model = UNet(use_flash=False, **TP_CFG)
+    params = jax.jit(model.init)(jax.random.key(0), jnp.zeros((1, TP_RES, TP_RES, 3)),
+                                 jnp.zeros((1,)), jnp.ones((1,)))["params"]
+    return model, perturb(params, seed=5)
+
+
+def tp_inputs():
+    """tests/test_tp.py's forward inputs (B=2), and the sampler's x_T and
+    labels (B=4)."""
+    rng = np.random.RandomState(0)
+    x = rng.randn(2, TP_RES, TP_RES, 3).astype(np.float32)
+    t = np.linspace(0.2, 0.8, 2).astype(np.float32)
+    y = rng.randint(1, 11, (2,)).astype(np.float32)
+    x_T = rng.randn(4, TP_RES, TP_RES, 3).astype(np.float32)
+    y4 = rng.randint(1, 11, (4,)).astype(np.float32)
+    return x, t, y, x_T, y4
+
+
+def write_tp_setup(workdir):
+    """What the model-parallel phases read, in ``workdir/setup.pt``: the
+    two-head UNet's weights (JAX's, converted), the inputs, the CLI files
+    (and a six-level config whose lowest level has one row); returns it."""
+    _, params = jax_tp_model_and_params()
+    cfg_path, ckpt = write_cli_files(workdir)
+    with open(cfg_path) as f:
+        deep = json.load(f)
+    deep["model"]["ch_multipliers"] = [1] * 6
+    deep["model"]["apply_attn"] = [False] * 6
+    deep_path = os.path.join(workdir, "six_levels.json")
+    with open(deep_path, "w") as f:
+        json.dump(deep, f)
+    gen, _ = cli_args(cfg_path, ckpt)
+    weights = flax_params_to_state_dict_np(params, TP_CFG)
+    setup = {
+        "cfg": TP_CFG, "diffusion": TP_DIFFUSION,
+        "weights": {k: torch.from_numpy(np.asarray(v)) for k, v in weights.items()},
+        "inputs": [torch.from_numpy(a) for a in tp_inputs()],
+        "generate_args": gen, "six_levels": deep_path,
+    }
+    torch.save(setup, os.path.join(workdir, "setup.pt"))
+    return setup
+
+
+def flax_params_to_state_dict_np(tree, cfg):
+    import jax
+
+    from vdiff_tpu_torch.models.convert import flax_params_to_state_dict
+
+    return flax_params_to_state_dict(jax.tree.map(np.asarray, tree), dict(cfg))
 
 
 class Ranks:

@@ -1,4 +1,5 @@
-"""One rank of the port's multi-rank CPU tests (tests/test_torch_parallel*.py).
+"""One rank of the port's multi-rank CPU tests (tests/test_torch_parallel*.py,
+tests/test_torch_tp.py).
 
     python tests/torch_parallel_worker.py RANK WORLD WORKDIR PHASE[,PHASE...]
 
@@ -271,9 +272,127 @@ def phase_train_cli(rank, world, workdir, setup, results):
     from vdiff_tpu_torch import train
 
     smoke = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                         "vdiff_tpu", "configs", "synthetic_smoke.json")
+                         "vdiff_tpu_torch", "configs", "synthetic_smoke.json")
     results["train_cli"] = train.main(["--config-path", smoke, "--device", "cpu", "--fsdp",
                                        "--exp-dir", os.path.join(workdir, "exps")])
+
+
+def _record_rows(fn):
+    """``fn()`` with every conv's output rows, every GroupNorm's and
+    resample's input rows recorded in call order; returns (out, record)."""
+    import torch.nn.functional as F
+
+    from vdiff_tpu_torch.ops import groupnorm
+
+    record, saved = [], {name: getattr(F, name) for name in ("conv2d", "avg_pool2d",
+                                                             "interpolate")}
+    stats = groupnorm._stats
+
+    def wrap(name):
+        def call(x, *a, **k):
+            out = saved[name](x, *a, **k)
+            record.append((name, out.shape[2] if name == "conv2d" else x.shape[2]))
+            return out
+        return call
+
+    def recorded_stats(x, *a, **k):
+        record.append(("group_norm", x.shape[1]))  # NHWC
+        return stats(x, *a, **k)
+
+    for name in saved:
+        setattr(F, name, wrap(name))
+    groupnorm._stats = recorded_stats
+    try:
+        return fn(), record
+    finally:
+        for name, f in saved.items():
+            setattr(F, name, f)
+        groupnorm._stats = stats
+
+
+def phase_tp_forward(rank, world, workdir, setup, results):
+    """The one-rank forward and the TP, SP and TP+SP forwards of the same
+    weights and inputs (rows and shapes recorded), each rank's parameter
+    bytes under TP and the sharded parameters' shapes; then the refusals of
+    the height shard (a gradient, a fused switch)."""
+    import torch
+
+    from vdiff_tpu_torch.parallel import (SpatialShardedUNet, state_bytes_per_device,
+                                          tp_shard_model_)
+
+    x, t, y = setup["inputs"][:3]
+    with torch.inference_mode():
+        out, plain_rows = _record_rows(lambda: _model(setup).eval()(x, t, y))
+        tp = tp_shard_model_(_model(setup).eval())
+        results["tp_out"] = tp(x, t, y)
+        results["sp_out"], sp_rows = _record_rows(
+            lambda: SpatialShardedUNet(_model(setup).eval())(x, t, y))
+        results["tpsp_out"], tpsp_rows = _record_rows(
+            lambda: SpatialShardedUNet(tp_shard_model_(_model(setup).eval()))(x, t, y))
+    results.update(one_out=out, plain_rows=plain_rows, sp_rows=sp_rows, tpsp_rows=tpsp_rows,
+                   tp_bytes=state_bytes_per_device(tp),
+                   tp_shapes={k: tuple(p.shape) for k, p in tp.named_parameters()})
+    refusals = {}
+    wrapped = SpatialShardedUNet(_model(setup).eval())
+    try:
+        wrapped(x, t, y)
+    except RuntimeError as e:
+        refusals["grad"] = str(e)
+    for switch in ("VDIFF_FUSED_CONV", "VDIFF_FUSED_GN"):
+        os.environ[switch] = "1"
+        try:
+            with torch.inference_mode():
+                wrapped(x, t, y)
+        except ValueError as e:
+            refusals[switch] = str(e)
+        finally:
+            del os.environ[switch]
+    results["sp_refusals"] = refusals
+
+
+def phase_tp_sample(rank, world, workdir, setup, results):
+    """Four DDIM steps with CFG from the given x_T: one rank, --tp and
+    --spatial-shard."""
+    import torch
+
+    from vdiff_tpu_torch.parallel import SpatialShardedUNet, tp_shard_model_
+
+    x_T, y4 = setup["inputs"][3:]
+    diffusion = _diffusion(setup)
+    with torch.inference_mode():
+        for name, fn in (("one", lambda m: m), ("tp", tp_shard_model_),
+                         ("sp", SpatialShardedUNet)):
+            results[f"sample_{name}"] = diffusion.p_sample(fn(_model(setup).eval()), x_T,
+                                                           label=y4, use_ddim=True)
+
+
+def phase_tp_generate(rank, world, workdir, setup, results):
+    """generate --tp, --spatial-shard and both on every rank (rank 0's float
+    samples captured before the PNG writer quantises them), and
+    --spatial-shard refusing a config whose lowest level does not split."""
+    import numpy as np
+
+    from vdiff_tpu_torch import generate
+
+    write = generate.write_pngs
+    for name, flags in (("tp", ["--tp"]), ("sp", ["--spatial-shard"]),
+                        ("tpsp", ["--tp", "--spatial-shard"])):
+        captured = []
+        generate.write_pngs = lambda save_dir, x: (captured.append(np.array(x)),
+                                                   write(save_dir, x))
+        try:
+            summary = generate.main(setup["generate_args"] + flags + [
+                "--save-dir", os.path.join(workdir, f"gen_{name}")])
+        finally:
+            generate.write_pngs = write
+        results[f"generate_{name}"] = np.concatenate(captured) if captured else None
+        results[f"generate_{name}_summary"] = summary
+    args = setup["generate_args"] + ["--spatial-shard"]
+    args[args.index("--config-path") + 1] = setup["six_levels"]
+    try:
+        generate.main(args)
+    except SystemExit as e:
+        results["six_levels_refused"] = str(e)
 
 
 PHASES = {
@@ -287,6 +406,9 @@ PHASES = {
     "eval": phase_eval,
     "evaluator": phase_evaluator,
     "train_cli": phase_train_cli,
+    "tp_forward": phase_tp_forward,
+    "tp_sample": phase_tp_sample,
+    "tp_generate": phase_tp_generate,
 }
 
 

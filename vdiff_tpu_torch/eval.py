@@ -4,7 +4,7 @@
     python -m vdiff_tpu_torch.eval --dataset cifar10 --eval-dir ./images/eval \\
         --metrics fid is pr
     python -m vdiff_tpu_torch.eval --dataset cifar10 --metrics nll \\
-        --config-path vdiff_tpu/configs/cifar10_cond.json --ckpt-path model.pt
+        --config-path vdiff_tpu_torch/configs/cifar10_cond.json --ckpt-path model.pt
 
 Metrics over a folder of generated images: ``fid`` (FID InceptionV3 features
 against the dataset's precomputed statistics), ``is`` (the Inception Score,

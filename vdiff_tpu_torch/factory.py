@@ -1,8 +1,9 @@
 """Experiment assembly for the port (counterpart of ``vdiff_tpu/factory.py``).
 
-Experiment configs are the JAX package's JSON files, read by path from
-``vdiff_tpu/configs/`` (reading JSON imports nothing of JAX). Checkpoints are
-torch ``.pt`` files in the reference format.
+Experiment configs are the port's own copies of the JAX package's JSON files,
+in ``vdiff_tpu_torch/configs/`` (tests/test_torch_convert.py holds each equal
+to its original byte for byte). Checkpoints are torch ``.pt`` files in the
+reference format.
 """
 
 from __future__ import annotations
@@ -16,8 +17,7 @@ import torch
 
 from .utils.config import fill_with_defaults, update_config
 
-CONFIG_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                          "vdiff_tpu", "configs")
+CONFIG_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs")
 DEFAULT_CONFIG_PATH = os.path.join(CONFIG_DIR, "defaults.json")
 
 

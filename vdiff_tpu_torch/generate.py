@@ -1,6 +1,6 @@
 """Bulk sampling CLI of the port: same flags as the root ``generate.py``.
 
-    python -m vdiff_tpu_torch.generate --config-path vdiff_tpu/configs/cifar10_cond.json \
+    python -m vdiff_tpu_torch.generate --config-path vdiff_tpu_torch/configs/cifar10_cond.json \
         --ckpt-path model.pt --use-ema --use-ddim --allow-bf16 --sample-timesteps 256
 
 Loads a reference-format torch ``.pt`` checkpoint, runs the DDIM or ancestral
@@ -18,8 +18,22 @@ vdiff_tpu_torch.generate --dp ...``): each rank draws the whole batch's x_T,
 labels and per-step noise, samples its contiguous rows, and rank 0 gathers
 the rows and writes the PNGs, the images a one-rank run writes. As in the
 root CLI, ``--dp`` needs a batch size the world size divides and refuses
-``--progressive``. The model-parallel modes ``--tp`` and ``--spatial-shard``
-are ROADMAP A10b and refused.
+``--progressive``.
+
+The model-parallel modes split one model over torchrun's ranks, the batch
+replicated: ``--tp`` stores every planned conv and dense weight sharded on
+its output channels (``parallel/tp.py``, about 1/N of the parameter bytes a
+rank), ``--spatial-shard`` height-shards every activation
+(``parallel/spatial.py``), and both together keep TP's storage under the
+spatial numerics. Every rank draws the same x_T and labels, the attention
+runs the same hand kernels as on one card, and rank 0 writes the PNGs. At
+one rank they are the plain path. Above one rank the sampler runs its eager
+loop (``graph=False``): no CUDA graph captures the collectives between the
+layers (gloo's are host calls; capturing NCCL's is ROADMAP work).
+``VDIFF_FUSED_CONV=1`` is refused under either mode (B11's skip and FiLM
+epilogue would need the rank's channels) and ``VDIFF_FUSED_GN=1`` under
+``--spatial-shard`` (B10 computes its statistics from its own rows);
+``--dp`` combines with neither.
 """
 
 from __future__ import annotations
@@ -40,9 +54,11 @@ import torch
 from .data import DATA_INFO, load_celeba_index
 from .factory import (DEFAULT_CONFIG_PATH, build_diffusion, build_unet, heads_note,
                       load_checkpoint_params, load_experiment_config, load_weights)
-from .parallel.mesh import all_gather_rows, broadcast_object, init_distributed, is_leader, row_range
-
-_NOT_PORTED = "is not ported yet (ROADMAP.md queue A: {})"
+from .parallel.fsdp import state_bytes_per_device
+from .parallel.mesh import (all_gather_rows, broadcast_object, init_distributed, is_leader,
+                            row_range, world_size)
+from .parallel.spatial import FUSED_SWITCHES, SpatialShardedUNet, rows_per_rank
+from .parallel.tp import create_tp_mesh, tp_shard_model_
 
 
 def encode_png(img: np.ndarray) -> bytes:
@@ -107,7 +123,7 @@ def write_pngs(save_dir: str, x: np.ndarray) -> None:
 def fused_note() -> str:
     """Which of the two fused-inference switches this process runs with
     (``ops/conv3x3.py::fusable``, ``ops/groupnorm.py::gn_film_silu``)."""
-    on = {name: os.environ.get(name, "0") == "1" for name in ("VDIFF_FUSED_CONV", "VDIFF_FUSED_GN")}
+    on = {name: os.environ.get(name, "0") == "1" for name in FUSED_SWITCHES}
     return ("fused inference kernels: "
             + ", ".join(f"{name}={'1 (on)' if v else 'off'}" for name, v in on.items()))
 
@@ -132,8 +148,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=1234)
     p.add_argument("--dp", action="store_true",
                    help="under torchrun: split each batch over the ranks (one per GPU)")
-    p.add_argument("--tp", action="store_true", help=_NOT_PORTED.format("A10b"))
-    p.add_argument("--spatial-shard", action="store_true", help=_NOT_PORTED.format("A10b"))
+    p.add_argument("--tp", action="store_true",
+                   help="under torchrun: weights sharded on output channels over the ranks, "
+                        "batch replicated")
+    p.add_argument("--spatial-shard", action="store_true",
+                   help="under torchrun: activations height-sharded over the ranks, batch "
+                        "replicated")
     p.add_argument("--allow-bf16", action="store_true", help="bfloat16 UNet activations")
     p.add_argument("--progressive", action="store_true",
                    help="write each sample's x̂_0 snapshots every --pred-freq steps as one strip")
@@ -150,9 +170,9 @@ def main(argv=None) -> dict:
     if args.dp and (args.tp or args.spatial_shard):
         raise SystemExit("--dp shards the batch; it cannot combine with the "
                          "model-parallel modes --tp/--spatial-shard")
-    for flag in ("tp", "spatial_shard"):
-        if getattr(args, flag):
-            raise SystemExit(f"--{flag.replace('_', '-')} " + _NOT_PORTED.format("A10b"))
+    modes = [flag for flag, on in (("--tp", args.tp), ("--spatial-shard", args.spatial_shard))
+             if on]
+    _refuse_fused_switches(modes)
     if args.dp and args.progressive:
         raise SystemExit("--dp does not support --progressive (snapshot axis leads the "
                          "output); drop one of the flags")
@@ -170,16 +190,25 @@ def main(argv=None) -> dict:
         device = init_distributed(device, flag="--dp")
         start, stop = _dp_rows(args.batch_size)
         rows = (start, args.batch_size)
-    leader = not args.dp or is_leader()  # rank 0 logs and writes
+    if modes:
+        device = init_distributed(device, flag=" ".join(modes))
+    sharded = bool(modes) and world_size() > 1  # one rank: the plain path
+    leader = not (args.dp or modes) or is_leader()  # rank 0 logs and writes
     log = print if leader else (lambda *a, **k: None)
     # f32 means f32: no TF32 in matmuls or convs (bf16 runs are unaffected)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    state_dict, head_keys = load_checkpoint_params(args.ckpt_path, use_ema=args.use_ema)
-    use_cfg = "class_embed" in head_keys
     config, exp_name = load_experiment_config(args.config_path, args.default_config_path)
     info = DATA_INFO[config["data"]["name"]]
+    if sharded and args.spatial_shard:
+        try:
+            rows_per_rank(info["resolution"][0], len(config["model"]["ch_multipliers"]),
+                          world_size())
+        except ValueError as e:
+            raise SystemExit(f"--spatial-shard: {e}") from None
+    state_dict, head_keys = load_checkpoint_params(args.ckpt_path, use_ema=args.use_ema)
+    use_cfg = "class_embed" in head_keys
 
     w_guide = args.w_guide if (use_cfg and not args.uncond) else 0.0
     diffusion, _ = build_diffusion(config["diffusion"], w_guide=w_guide,
@@ -196,10 +225,22 @@ def main(argv=None) -> dict:
         log(heads_note(config["model"]))
     log(fused_note())
     load_weights(model, state_dict)
+    total_bytes = state_bytes_per_device(model)
+    group = create_tp_mesh().get_group() if sharded else None
+    if sharded and args.tp:  # on the host: the device holds only this rank's blocks
+        tp_shard_model_(model, group)
     model = model.to(device).eval()
+    denoise_fn = SpatialShardedUNet(model, group) if sharded and args.spatial_shard else model
+    if sharded:
+        log(f"model parallel: {' '.join(modes)} over {world_size()} ranks, batch replicated; "
+            f"parameter bytes a rank {state_bytes_per_device(model)} of {total_bytes}; the "
+            "sampler runs its eager loop (graph=False): no CUDA graph captures the collectives "
+            "between the layers (gloo's are host calls)", flush=True)
+    elif modes:
+        log(f"model parallel: {' '.join(modes)} at one rank is the plain path")
 
     timestamp = datetime.now().strftime("%Y-%m-%dT%H%M%S%f")
-    if args.dp:
+    if args.dp or modes:
         timestamp = broadcast_object(timestamp)
     save_dir = os.path.join(args.save_dir, exp_name, timestamp)
     if leader:
@@ -221,12 +262,14 @@ def main(argv=None) -> dict:
             y = None if labels is None else torch.as_tensor(labels[start:stop], device=device)
             x_T = torch.randn(shape, generator=gen, device=device)[start:stop]
             t0 = time.perf_counter()
-            kw = dict(label=y, use_ddim=args.use_ddim, eta=args.eta, generator=gen, stats=stats)
+            kw = dict(label=y, use_ddim=args.use_ddim, eta=args.eta, generator=gen, stats=stats,
+                      graph=not sharded)
             if args.progressive:
-                _, x = diffusion.p_sample_progressive(model, x_T, pred_freq=args.pred_freq, **kw)
+                _, x = diffusion.p_sample_progressive(denoise_fn, x_T, pred_freq=args.pred_freq,
+                                                      **kw)
                 x = torch.cat(list(x), dim=2)  # (B, H, L·W, C): one strip per sample
             else:
-                x = diffusion.p_sample(model, x_T, batch_rows=rows, **kw)
+                x = diffusion.p_sample(denoise_fn, x_T, batch_rows=rows, **kw)
                 if args.dp:
                     x = all_gather_rows(x)
             x = x[:n].float().cpu().numpy()  # waits for the device
@@ -244,14 +287,27 @@ def main(argv=None) -> dict:
                 log(f"batch {i + 1}/{num_batches}: {n} images, "
                     f"{(written - first_n) / (seconds - first_s):.3f} samples/s over the "
                     "batches after the first", flush=True)
+    stats["graph"] = not sharded
     summary = {"save_dir": save_dir, "images": written, "finite": finite, "seconds": seconds,
-               "stats": stats}
+               "stats": stats, "world_size": world_size(), "modes": modes,
+               "param_bytes": state_bytes_per_device(model), "param_bytes_total": total_bytes}
     if num_batches > 1:
         summary["samples_per_s"] = (written - first_n) / (seconds - first_s)
     if leader:  # what a launcher reads back of a torchrun run
         with open(os.path.join(save_dir, "summary.json"), "w") as f:
             json.dump(summary, f)
     return summary
+
+
+def _refuse_fused_switches(modes) -> None:
+    """The fused inference switches that a model-parallel mode cannot run."""
+    on = {name for name in FUSED_SWITCHES if os.environ.get(name, "0") == "1"}
+    if "--tp" in modes and "VDIFF_FUSED_CONV" in on:
+        raise SystemExit("--tp cannot run VDIFF_FUSED_CONV=1: the fused conv's skip and FiLM "
+                         "epilogue would need this rank's channel slice")
+    if "--spatial-shard" in modes and on:
+        raise SystemExit(f"--spatial-shard cannot run {'/'.join(sorted(on))}=1: the fused kernels "
+                         "compute GroupNorm statistics from their local slab")
 
 
 def _dp_rows(batch_size: int):

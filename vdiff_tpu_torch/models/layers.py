@@ -5,6 +5,11 @@ Dense layers are ``nn.Linear`` and convolutions ``nn.Conv2d``; parameters
 stay float32 and are cast to the model's compute dtype where they are used,
 as Flax does with ``dtype=``. The resamplers work on NCHW tensors (the UNet
 keeps NCHW in ``channels_last`` memory, the same bytes as JAX's NHWC).
+
+:func:`conv2d` and :func:`linear` are also where the model-parallel serving
+modes act: a module that ``parallel/tp.py::tp_shard_model_`` sharded carries
+``tp_shard``, one that ``parallel/spatial.py::SpatialShardedUNet`` marked
+carries ``spatial``; a module with neither runs the plain call.
 """
 
 from __future__ import annotations
@@ -61,14 +66,47 @@ class EfficientDropout(nn.Module):
 
 
 def conv2d(x: torch.Tensor, conv: nn.Conv2d, dtype: torch.dtype) -> torch.Tensor:
-    """``conv`` applied in ``dtype`` (weights cast at use)."""
+    """``conv`` applied in ``dtype`` (weights cast at use). A conv that
+    ``parallel/tp.py`` sharded or ``parallel/spatial.py`` marked takes
+    :func:`_parallel_conv2d`."""
+    if "tp_shard" in conv.__dict__ or "spatial" in conv.__dict__:
+        return _parallel_conv2d(x, conv, dtype)
     bias = None if conv.bias is None else conv.bias.to(dtype)
     return F.conv2d(x.to(dtype), conv.weight.to(dtype), bias, conv.stride, conv.padding)
 
 
-def linear(x: torch.Tensor, fc: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
-    """``fc`` applied in ``dtype`` (weights cast at use)."""
-    return F.linear(x.to(dtype), fc.weight.to(dtype), fc.bias.to(dtype))
+def linear(x: torch.Tensor, fc: nn.Module, dtype: torch.dtype) -> torch.Tensor:
+    """``fc`` (a ``Linear``, or a 1x1 ``Conv2d`` as a token matmul) applied
+    in ``dtype`` over x's last dim (weights cast at use). A sharded module
+    computes its rank's output features and gathers the rest (on a height
+    shard, ``spatial`` marked: gathers its weight whole first)."""
+    tp = fc.__dict__.get("tp_shard")
+    if tp is None:
+        return F.linear(x.to(dtype), fc.weight.flatten(1).to(dtype), fc.bias.to(dtype))
+    if "spatial" in fc.__dict__:
+        return F.linear(x.to(dtype), tp.whole(fc.weight).flatten(1).to(dtype), fc.bias.to(dtype))
+    y = F.linear(x.to(dtype), fc.weight.flatten(1).to(dtype), tp.rows(fc.bias).to(dtype))
+    return tp.gather_channels(y)
+
+
+def _parallel_conv2d(x, conv, dtype):
+    """:func:`conv2d` of a TP-sharded conv (its rank's output channels,
+    gathered along channels) and/or of a conv on a height shard (a 3x3 conv
+    takes one halo row from each neighbour and pads only the width; a
+    sharded weight is gathered whole, since the ranks hold other rows)."""
+    tp, sp = conv.__dict__.get("tp_shard"), conv.__dict__.get("spatial")
+    weight, bias, padding = conv.weight, conv.bias, conv.padding
+    x = x.to(dtype)
+    if sp is not None and conv.kernel_size[0] > 1:
+        x, padding = sp.halo(x), (0, padding[1])
+    if tp is not None and sp is not None:
+        weight = tp.whole(weight)
+    elif tp is not None:
+        bias = tp.rows(bias)
+    y = F.conv2d(x, weight.to(dtype), bias.to(dtype), conv.stride, padding)
+    if tp is None or sp is not None:
+        return y
+    return tp.gather_channels(y.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
 
 
 def one_hot_exclude_zero(y: torch.Tensor, num_classes: int) -> torch.Tensor:

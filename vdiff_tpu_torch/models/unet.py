@@ -86,13 +86,18 @@ class GroupNorm32(nn.Module):
         :func:`gn_film_silu`'s switch; without it the default chain runs."""
         y = gn_film_silu(x.permute(0, 2, 3, 1), self.weight, self.bias, shift, scale,
                          num_groups=32, eps=1e-6, apply_silu=silu,
-                         use_kernel=None if fuse else False)
+                         use_kernel=None if fuse else False, shard=self.__dict__.get("spatial"))
         return y.permute(0, 3, 1, 2)
 
 
 def _fused_conv(x, conv, norm, shift=None, scale=None, skip=None):
     """GN(+FiLM)→SiLU→``conv`` (+skip) of NCHW ``channels_last`` tensors
-    through the fused kernel, which works on their NHWC views."""
+    through the fused kernel, which works on their NHWC views. A sharded
+    model cannot take it (its skip and FiLM epilogue would need the rank's
+    channels, its statistics the other ranks' rows)."""
+    if "tp_shard" in conv.__dict__ or "spatial" in conv.__dict__:
+        raise RuntimeError("VDIFF_FUSED_CONV=1: the fused GN→SiLU→conv kernel does not run "
+                           "on a model sharded by --tp or --spatial-shard")
     out = fused_gn_silu_conv3x3(
         x.permute(0, 2, 3, 1), conv.weight, conv.bias, norm.weight, norm.bias, shift, scale,
         None if skip is None else skip.permute(0, 2, 3, 1), num_groups=32, eps=1e-6)
@@ -193,7 +198,12 @@ class AttentionBlock(nn.Module):
         self.proj_out = _zero_init(nn.Conv2d(hid, channels, 1))
 
     def forward(self, x, train=False):
-        out = spatial_attention_qkv(self._qkv(x, train), self.num_heads, train=train)
+        sp = self.__dict__.get("spatial")
+        if sp is None:
+            out = spatial_attention_qkv(self._qkv(x, train), self.num_heads, train=train)
+        else:  # a height shard: the kernel runs on every rank's tokens, the rank keeps its own
+            qkv = sp.gather_tokens(self._qkv(x, train))
+            out = sp.own_tokens(spatial_attention_qkv(qkv, self.num_heads, train=train))
         return self._project_out(out, x)
 
     def forward_saving_convs(self, x):
@@ -206,13 +216,11 @@ class AttentionBlock(nn.Module):
     def _qkv(self, x, train):
         B, C, H, W = x.shape
         tokens = self.norm(x, silu=False, fuse=not train).permute(0, 2, 3, 1).reshape(B, H * W, C)
-        dt = tokens.dtype
-        return F.linear(tokens, self.proj_in.weight.flatten(1).to(dt), self.proj_in.bias.to(dt))
+        return linear(tokens, self.proj_in, tokens.dtype)
 
     def _project_out(self, out, x):
         B, C, H, W = x.shape
-        dt = out.dtype
-        out = F.linear(out, self.proj_out.weight.flatten(1).to(dt), self.proj_out.bias.to(dt))
+        out = linear(out, self.proj_out, out.dtype)
         return out.reshape(B, H, W, C).permute(0, 3, 1, 2) + x
 
 

@@ -38,13 +38,19 @@ import torch.nn.functional as F
 from .. import kernels
 
 
-def _stats(x: torch.Tensor, num_groups: int, eps: float):
-    """Per-(b, group) mean and 1/σ in f32 (single pass: Σx and Σx²)."""
+def _stats(x: torch.Tensor, num_groups: int, eps: float, shard=None):
+    """Per-(b, group) mean and 1/σ in f32 (single pass: Σx and Σx²). With a
+    ``shard`` (``parallel/spatial.py``'s ``SpatialShard``), x is one of
+    ``shard.world`` equal height shards of the image, and the per-(b, c) sums
+    are summed over them (``shard.sum_``) before the statistics."""
     B, H, W, C = x.shape
     cg = C // num_groups
     x32 = x.float()
     s1c = x32.sum(dim=(1, 2))  # (B, C)
     s2c = (x32 * x32).sum(dim=(1, 2))
+    if shard is not None:
+        s1c, s2c = shard.sum_(torch.stack((s1c, s2c)))
+        H *= shard.world
     s1 = s1c.reshape(B, num_groups, cg).sum(dim=2)  # (B, G)
     s2 = s2c.reshape(B, num_groups, cg).sum(dim=2)
     n = H * W * cg
@@ -348,9 +354,11 @@ def gn_film_silu(
     eps: float = 1e-6,
     apply_silu: bool = True,
     use_kernel: Optional[bool] = None,
+    shard=None,
 ) -> torch.Tensor:
     """x: (B, H, W, C) (any strides; contiguous for the kernel); gamma/beta:
-    (C,); film_*: (B, C) or None.
+    (C,); film_*: (B, C) or None; ``shard``: the height shard x is one part
+    of (:func:`_stats`), for the default chain at inference only.
 
     ``use_kernel=None`` takes the one-kernel form when ``VDIFF_FUSED_GN=1``
     and autograd is not recording (the counterpart of ``use_pallas=None`` in
@@ -363,6 +371,9 @@ def gn_film_silu(
     if use_kernel is None:
         use_kernel = (os.environ.get("VDIFF_FUSED_GN", "0") == "1"
                       and not torch.is_grad_enabled())
+    if shard is not None and (use_kernel or torch.is_grad_enabled()):
+        raise RuntimeError("gn_film_silu: a height shard takes the default chain at inference "
+                           "only; the one-kernel form computes its statistics from its own rows")
     if use_kernel:
         if torch.is_grad_enabled():
             raise RuntimeError("gn_film_silu: the one-kernel form is inference only; call it "
@@ -373,5 +384,5 @@ def gn_film_silu(
     if torch.is_grad_enabled():
         return GNFilmSiLU.apply(x, gamma, beta, film_shift, film_scale, num_groups, eps,
                                 apply_silu)
-    mean, inv = _stats(x, num_groups, eps)
+    mean, inv = _stats(x, num_groups, eps, shard)
     return _forward(x, gamma, beta, film_shift, film_scale, mean, inv, apply_silu)

@@ -1,8 +1,8 @@
-"""Multi-GPU training and data-parallel sampling (counterpart of
-``vdiff_tpu/parallel/``): process groups and meshes (:mod:`.mesh`), FSDP2
-state sharding (:mod:`.fsdp`) and the multi-rank dry run (:mod:`.dryrun`).
-The model-parallel serving modes (JAX's ``tp.py`` and ``spatial.py``) are
-ROADMAP A10b."""
+"""Multi-GPU training, data-parallel sampling and model-parallel serving
+(counterpart of ``vdiff_tpu/parallel/``): process groups and meshes
+(:mod:`.mesh`), FSDP2 state sharding (:mod:`.fsdp`), tensor parallelism
+(:mod:`.tp`), height sharding (:mod:`.spatial`) and the multi-rank dry run
+(:mod:`.dryrun`)."""
 
 from .fsdp import (
     full_optimizer_state,
@@ -16,6 +16,7 @@ from .fsdp import (
 from .mesh import (
     DATA_AXIS,
     FSDP_AXIS,
+    all_gather_along,
     all_gather_rows,
     broadcast_object,
     create_mesh,
@@ -26,10 +27,25 @@ from .mesh import (
     sync_global_devices,
     world_size,
 )
+from .spatial import SpatialShard, SpatialShardedUNet, rows_per_rank
+from .tp import (
+    MODEL_AXIS,
+    TP_MIN_SHARD_SIZE,
+    TPShard,
+    create_tp_mesh,
+    tp_shard_model_,
+    tp_shard_plan,
+)
 
 __all__ = [
     "DATA_AXIS",
     "FSDP_AXIS",
+    "MODEL_AXIS",
+    "SpatialShard",
+    "SpatialShardedUNet",
+    "TPShard",
+    "TP_MIN_SHARD_SIZE",
+    "all_gather_along",
     "all_gather_rows",
     "broadcast_object",
     "create_mesh",
@@ -41,9 +57,12 @@ __all__ = [
     "load_full_state_dict_",
     "rank",
     "resolve_fsdp_axis",
+    "rows_per_rank",
     "shard_batch",
     "shard_model",
     "state_bytes_per_device",
     "sync_global_devices",
+    "tp_shard_model_",
+    "tp_shard_plan",
     "world_size",
 ]

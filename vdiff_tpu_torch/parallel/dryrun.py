@@ -1,5 +1,6 @@
-"""A dry run of the multi-rank training paths (counterpart of the DP, FSDP
-and HSDP parts of ``__graft_entry__.py::dryrun_multichip``).
+"""A dry run of the multi-rank paths (counterpart of
+``__graft_entry__.py::dryrun_multichip``: its DP, FSDP, HSDP, TP and SP
+phases).
 
     python -m vdiff_tpu_torch.parallel.dryrun 2 [--device cpu]
 
@@ -14,7 +15,11 @@ widths (hid 32, ch_mult (1, 2), one res block, attention at the lower level,
 * one FSDP step from the same weights and draws, whose loss must be the DDP
   step's within 1e-4;
 * for ``n >= 4`` (even), one HSDP step on the 2-D (data, fsdp=2) mesh, held
-  to the same bound.
+  to the same bound;
+* the serving modes on the DDP step's weights, batch replicated (B=2): one
+  forward with the weights TP-sharded (:mod:`.tp`) and one height-sharded
+  forward (:mod:`.spatial`; where ``n`` divides the 8 rows of the lower
+  level), each finite and within 1e-4 of the plain forward on every rank.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ import torch
 
 RES = 16
 LOSS_RTOL = 1e-4
+FWD_ATOL = 1e-4  # the TP and SP forwards against the plain one, as JAX's dry run
 
 
 def _build(seed: int = 0):
@@ -86,12 +92,47 @@ def _worker(index: int, n: int, init_file: str, device_type: str) -> None:
             other = float(_trainer(device, **kw).step(xl, yl))
             if abs(other - loss) > LOSS_RTOL * max(1.0, abs(loss)):
                 raise RuntimeError(f"{name} loss {other} != the DDP step's {loss}")
+        served = _serving_modes(dp.module, device)
         if index == 0:
             print(f"dryrun_multichip({n}) on {device_type}: DDP loss {loss}, "
-                  f"{', '.join(modes)} within {LOSS_RTOL}; {B} samples equal on every rank",
-                  flush=True)
+                  f"{', '.join(modes)} within {LOSS_RTOL}; {B} samples equal on every rank; "
+                  f"{served}", flush=True)
     finally:
         torch.distributed.destroy_process_group()
+
+
+def _serving_modes(trained, device) -> str:
+    """The TP and SP forwards of ``trained``'s weights against the plain
+    forward (TP+SP is held in the tests); returns the line's clause."""
+    from .fsdp import state_bytes_per_device
+    from .spatial import SpatialShardedUNet, rows_per_rank
+    from .tp import tp_shard_model_
+
+    def fresh():
+        model = _build()[0].to(device).eval()
+        model.load_state_dict(trained.state_dict())
+        return model
+
+    gen = torch.Generator().manual_seed(2)
+    x = torch.randn(2, RES, RES, 3, generator=gen).to(device)
+    t, y = torch.full((2,), 0.5, device=device), torch.ones(2, device=device)
+    with torch.inference_mode():
+        plain = fresh()
+        ref = plain(x, t, y)
+        tp = tp_shard_model_(fresh())
+        outs = {"TP": tp(x, t, y)}
+        try:
+            rows_per_rank(RES, len(plain.downsamples), torch.distributed.get_world_size())
+            outs["SP"] = SpatialShardedUNet(fresh())(x, t, y)
+        except ValueError as e:
+            skipped = f"SP not run ({e})"
+    for name, out in outs.items():
+        err = (out - ref).abs().max().item()
+        if not bool(torch.isfinite(out).all()) or err > FWD_ATOL:
+            raise RuntimeError(f"{name} forward: max err {err} against the plain forward")
+    return (f"{' and '.join(outs)} forward{'s' * (len(outs) > 1)} within {FWD_ATOL} of the plain forward, TP "
+            f"parameter bytes a rank {state_bytes_per_device(tp)} of "
+            f"{state_bytes_per_device(plain)}" + ("" if "SP" in outs else f"; {skipped}"))
 
 
 def dryrun_multichip(n_devices: int, device: str = "cuda") -> None:
@@ -113,7 +154,7 @@ def dryrun_multichip(n_devices: int, device: str = "cuda") -> None:
 if __name__ == "__main__":
     import argparse
 
-    parser = argparse.ArgumentParser(description="the DP, FSDP and HSDP dry run")
+    parser = argparse.ArgumentParser(description="the DP, FSDP, HSDP, TP and SP dry run")
     parser.add_argument("n", type=int, nargs="?", default=2, help="ranks")
     parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     args = parser.parse_args()

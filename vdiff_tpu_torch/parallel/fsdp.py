@@ -83,7 +83,8 @@ def shard_group(tensors: Iterable[torch.Tensor]):
 
 def state_bytes_per_device(model, optimizer=None, ema_model=None) -> int:
     """Bytes of training state held on this rank's device: the local shards
-    of the parameters, of both Adam moments and of the EMA."""
+    of the parameters (FSDP's DTensor shards, or the row blocks that
+    :func:`.tp.tp_shard_model_` keeps), of both Adam moments and of the EMA."""
     tensors = list(model.parameters())
     if ema_model is not None:
         tensors += list(ema_model.parameters())

@@ -59,18 +59,23 @@ def init_distributed(device="cuda", init_method: Optional[str] = None,
     """Join the process group of this run and return this rank's device:
     ``cuda:LOCAL_RANK`` (made current) for a CUDA ``device``, the CPU for
     ``cpu``. The backend follows the device, NCCL on CUDA and gloo on the CPU;
-    a group that already exists is kept when its backend is that one and
-    refused otherwise. Rank and world size come from torchrun's environment
-    (``init_method`` defaults to its ``env://`` rendezvous); a process started
-    without them stops with the command that launches ``flag``'s run."""
+    a group that already exists is kept when its backend is that one, or
+    when it is gloo, which carries CUDA tensors too (a launcher's choice
+    where NCCL cannot serve, as for two ranks sharing one card: the device is
+    then the current CUDA device), and refused otherwise. Rank and world size
+    come from torchrun's environment (``init_method`` defaults to its
+    ``env://`` rendezvous); a process started without them stops with the
+    command that launches ``flag``'s run."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA device is available")
     want = _backend(device)
     if dist.is_initialized():
         have = dist.get_backend()
-        if have != want:
+        if have != want and have != "gloo":
             raise SystemExit(f"the process group runs {have}; a {device.type} run needs {want}")
+        if device.type == "cuda" and have == "gloo":
+            return torch.device("cuda", torch.cuda.current_device())
     elif "RANK" not in os.environ or "WORLD_SIZE" not in os.environ:
         raise SystemExit(f"{flag} runs one process per device under torchrun ({_LAUNCH}); "
                          "RANK and WORLD_SIZE are not set")
@@ -139,12 +144,19 @@ def shard_batch(*arrays):
 def all_gather_rows(x: torch.Tensor, group=None) -> torch.Tensor:
     """Every rank's ``x`` (equal shapes) concatenated along dim 0 in rank
     order, on every rank. One process returns ``x``."""
+    return all_gather_along(x, 0, group)
+
+
+def all_gather_along(x: torch.Tensor, dim: int, group=None) -> torch.Tensor:
+    """Every rank's ``x`` (equal shapes) concatenated along ``dim`` in rank
+    order, on every rank (one ``all_gather``, which gloo also runs on CUDA
+    tensors). One process returns ``x``."""
     n = dist.get_world_size(group) if dist.is_initialized() else 1
     if n == 1:
         return x
-    parts = [torch.empty_like(x) for _ in range(n)]
+    parts = [torch.empty_like(x, memory_format=torch.contiguous_format) for _ in range(n)]
     dist.all_gather(parts, x.contiguous(), group=group)
-    return torch.cat(parts)
+    return torch.cat(parts, dim)
 
 
 def all_reduce_mean_(x: torch.Tensor) -> torch.Tensor:

@@ -1,6 +1,6 @@
 """Training CLI of the port: the root ``train.py``'s flags, plus ``--device``.
 
-    python -m vdiff_tpu_torch.train --config-path vdiff_tpu/configs/synthetic_flagship.json \\
+    python -m vdiff_tpu_torch.train --config-path vdiff_tpu_torch/configs/synthetic_flagship.json \\
         --allow-bf16 --epochs 1
 
 Each step is loss, backward, global-norm clip, AdamW and EMA on ``--device``
