@@ -10,8 +10,9 @@ Phases, one output line each (any failure raises and exits non-zero):
      sampler's shapes, f32 and bf16, and times both with CUDA events; the
      bf16 calls of B1 (attn_fwd_online) and B2 run the tensor-core
      attn_fwd_tc.cu (held to the f32 twin within 2^-8·|ref| + 2^-8·(P·|v|) +
-     1e-4, at every CIFAR and celeba sampling shape: B1 at T=256 and T=64
-     (celeba N=12 and 9), B2 at T=1024 and celeba's N=9 levels), each timed
+     1e-4, at every CIFAR, celeba and mnist sampling shape: B1 at T=256 and
+     T=64 (celeba N=12 and 9, mnist's one head of 128 at B=128), B2 at T=1024
+     (mnist's too) and celeba's N=9 levels), each timed
      beside the f32-FMA kernel it replaced on the same inputs;
   3. unet: the full-width cifar10_cond UNet (random weights, zero-init layers
      perturbed) in f32 on the GPU against the same UNet on the CPU, then the
@@ -21,13 +22,17 @@ Phases, one output line each (any failure raises and exits non-zero):
      the other steps replayed) against its eager loop from the same x_T, on
      the full-width bf16 cifar10_cond model: 8 DDIM steps at w=0 B=64 with
      the switches off, with VDIFF_FUSED_GN=1 and with both, CFG w=0.1 at
-     B=32, and eta=1 from one generator seed; equal bit for bit, and the
-     sampler's stats showing one capture, 7 replays and the per-forward
-     launches on the device;
+     B=32, and eta=1 from one generator seed, then 8 ancestral steps (fresh
+     noise every step, from one generator seed) at w=0 B=64 and CFG w=0.1
+     B=32; equal bit for bit, and the sampler's stats showing one capture,
+     7 replays and the per-forward launches on the device;
   4. sample: the port's CLI (vdiff_tpu_torch.generate) draws 256-step DDIM
      samples at w=0 (B=64, two batches) and with CFG at w=0.1 (B=32), each
      batch replaying the step's graph, and the device must have run 17
      (attn_fwd_online) + 1 (attn_fwd_tc) launches per UNet forward;
+  4q. ancestral: the same CLI without --use-ddim (its default sampler, at its
+     default w=0.1), one batch of 64, 32 steps: 64 finite RGB PNGs, 17 + 1
+     launches a forward;
   4e. nll: the eval CLI (vdiff_tpu_torch.eval --metrics nll) on phase 4's
      checkpoint in f32, 256 steps, 2 batches of 64 synthetic test images:
      finite bits/dim, forwards/s, and per forward B1 x17 and B2 x1 on their
@@ -76,8 +81,9 @@ Phases, one output line each (any failure raises and exits non-zero):
      attn_bwd_rows + attn_bwd_cols in f32; attn_bwd_tc.cu in bf16, counted
      as B4 under attn_bwd at T <= 512 and as B5 under attn_bwd_tc at T=1024)
      against their twins at the train steps' shapes (B=128; T=64/256/1024 at
-     C=256, two heads of 128, and celeba's at B=48: nine heads of 64 at
-     T=1024, 256 and 64, twelve at T=64), f32 and bf16, timed with CUDA
+     C=256, two heads of 128 and mnist's one of 128, and celeba's at B=48:
+     nine heads of 64 at T=1024, 256 and 64, twelve at T=64), f32 and bf16,
+     timed with CUDA
      events, the tensor-core kernels beside the f32-FMA ones they replaced on
      the same bf16 inputs;
   6. train-unet: one full-width train step (loss, backward, clip, AdamW, EMA)
@@ -95,6 +101,22 @@ Phases, one output line each (any failure raises and exits non-zero):
      kernels once for each attention call and again for each of the 17 in a
      checkpointed block (attn_fwd_train 33 times, attn_fwd_tc twice), the
      backward's as without remat;
+  7b. mnist: mnist.json at full width (one input channel, hid 64, ch_mult
+     [1, 2, 2], one head of 128: B1 x13 and B2 x1 a forward, B3 x13, B2, B4
+     x13 and B5 a step): the f32 UNet on CUDA vs the CPU at B=2; the bf16
+     UNet with both fused switches (B11 x20 at 128 channels, B10 x37) vs
+     both off; B10 and B11 at every shape of that forward at B=128 vs their
+     twins; the train CLI (bf16, 4 steps of 128) on an MNIST idx tree written
+     from a seed (512 digits, resized to 32x32 by the loader), then the
+     generate CLI's defaults (ancestral, CFG w=0.1) from its ckpt_last.pt, 16
+     steps at B=64: finite greyscale 32x32 PNGs, the pinned launches;
+  7c. uncond: cifar10_uncond.json (x0 output, snr_trunc, no labels): the f32
+     UNet and one f32 train step on CUDA vs the CPU, and 8 bf16 steps, DDIM
+     and ancestral, graph vs eager bit for bit;
+  7d. learned: cifar10_cond's widths with model_var_type="learned" (6
+     outputs) and loss_type="kl": one f32 train step and calc_all_bpd (B=2,
+     T=8) on CUDA vs the CPU, and 8 bf16 ancestral steps at CFG w=0.1 B=32
+     (the interpolated log-variance replayed), graph vs eager bit for bit;
   8. celeba-kernels: the head-dim 64 kernels (attn_fwd_pack1, attn_fwd_pack1_lse,
      attn_bwd_pack1, attn_bwd_pack1_kv) run at the shapes the celeba paths give
      them (CELEBA_KERNEL_SHAPES: the sampler's B=32, the train step's B=48)
@@ -163,7 +185,8 @@ Phases, one output line each (any failure raises and exits non-zero):
      cut to 16 steps (--sample-steps), in this process: its JSON lines (the
      root bench's five, the canary and three arms, the headline last).
 Every kernel's launches in the JSON record are counted on the main paths
-(phases 4, 4e, 4c, 7, 7a, 11, 12, 12b's ddp_train_cli, fsdp_train_cli
+(phases 4, 4q, 4e, 4c, 7, 7a, 7b's train and generate runs, 7c's and 7d's
+graph runs, 7d's calc_all_bpd, 11, 12, 12b's ddp_train_cli, fsdp_train_cli
 and dp_generate, read back from the torchrun rank's summary.json files, and
 12c's tp_generate and sp_generate, summed over the two ranks),
 each run with the counts set to 0 just before it and read just after:
@@ -189,6 +212,7 @@ import glob
 import json
 import math
 import os
+import struct
 import subprocess
 import sys
 import tempfile
@@ -201,6 +225,8 @@ CONFIGS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "vdiff_tpu_to
 CONFIG = os.path.join(CONFIGS, "cifar10_cond.json")
 TRAIN_CONFIG = os.path.join(CONFIGS, "synthetic_flagship.json")
 CELEBA_CONFIG = os.path.join(CONFIGS, "celeba.json")
+MNIST_CONFIG = os.path.join(CONFIGS, "mnist.json")
+UNCOND_CONFIG = os.path.join(CONFIGS, "cifar10_uncond.json")
 STEPS = 256
 CELEBA_STEPS, CELEBA_SAMPLE_B, CELEBA_TRAIN_B, CELEBA_TRAIN_STEPS = 16, 32, 48, 3
 FUSED_KERNELS = ("gn_film_silu_kernel", "fused_gn_silu_conv3x3")
@@ -283,6 +309,37 @@ CELEBA_STEP_LAUNCHES_BF16_REMAT = _launches(attn_fwd_pack1=18, attn_fwd_pack1_ls
                                             attn_bwd_pack1=9, attn_bwd_pack1_kv=1,
                                             attn_fwd_train=31, attn_fwd_tc=2, attn_bwd=16,
                                             attn_bwd_tc=1)
+# mnist.json (one input channel, hid 64, ch_mult [1, 2, 2], one head of 128):
+# a forward runs 13 attention calls at T <= 512 (6 at T=256, 7 at T=64) and
+# one at T=1024 (up_1_us), routed as JAX routes head dim 128: B1 and B2; a
+# train step B3 and B4 at the 13, B2 and B5 at the one (tests/test_torch_mnist.py
+# pins them on the meta device)
+MNIST_FWD_LAUNCHES = _launches(attn_fwd_online=13, attn_fwd_qblk=1)
+MNIST_FWD_LAUNCHES_BF16 = _launches(attn_fwd_online=13, attn_fwd_tc=1)
+MNIST_STEP_LAUNCHES_BF16 = _launches(attn_fwd_train=13, attn_fwd_tc=1, attn_bwd=13, attn_bwd_tc=1)
+# both fused switches: the 20 convs at 128 channels through B11, 37 of the 57
+# GroupNorms through B10 (64, 128, 192 and 256 channels)
+MNIST_FUSED_FWD_LAUNCHES = _launches(attn_fwd_online=13, attn_fwd_tc=1,
+                                     fused_gn_silu_conv3x3=20, gn_film_silu_kernel=37)
+# the mnist phase: the train CLI at the config's batch on a written idx tree
+# of MNIST_DIGITS digits (4 steps), then the generate CLI's default sampler
+# (ancestral, CFG w=0.1) at MNIST_SAMPLE_B for MNIST_SAMPLE_STEPS steps
+MNIST_DIGITS, MNIST_TRAIN_B, MNIST_SAMPLE_B, MNIST_SAMPLE_STEPS = 512, 128, 64, 16
+# B10's and B11's shapes in mnist's fused forward, at the CFG-doubled batch of
+# MNIST_SAMPLE_B: B10 (H, W, C, film, silu), B11 (H, W, C_in, C_out, film,
+# skip, gn)
+MNIST_GN_SHAPES = [(32, 32, 64, False, True), (32, 32, 64, True, True), (16, 16, 64, False, True),
+                   (16, 16, 64, True, True), (32, 32, 128, False, False),
+                   (16, 16, 128, False, False), (8, 8, 128, False, False),
+                   (32, 32, 128, True, True), (16, 16, 128, True, True), (8, 8, 128, True, True),
+                   (32, 32, 192, False, True), (16, 16, 192, False, True),
+                   (16, 16, 256, False, True), (8, 8, 256, False, True)]
+MNIST_CONV_SHAPES = [(32, 32, 128, 128, True, True, True), (16, 16, 128, 128, True, True, True),
+                     (16, 16, 128, 128, False, False, True), (8, 8, 128, 128, True, True, True),
+                     (8, 8, 128, 128, False, False, True)]
+# the generate CLI's default sampler (no --use-ddim), ancestral: one batch of
+# ANCESTRAL_B for ANCESTRAL_STEPS steps at the CLI's default w=0.1
+ANCESTRAL_B, ANCESTRAL_STEPS = 64, 32
 REMAT_MODES = {"none": {}, "full": {"remat": True}, "conv": {"remat_policy": "conv"}}
 REMAT_TIMED_STEPS = 3
 # (B, T, N, kernels) at head dim 64: every shape the celeba paths give the
@@ -454,10 +511,13 @@ def phase_kernels():
         (A.attn_fwd_online, 32, 64, 12, 64),   # celeba sampling, 8x8
         (A.attn_fwd_online, 32, 64, 9, 64),    # celeba sampling, down_2_ds
         (A.attn_fwd_online, 64, 256, 2, 128),
+        (A.attn_fwd_online, 128, 256, 1, 128),  # mnist sampling (B=64 CFG-doubled), 16x16
+        (A.attn_fwd_online, 128, 64, 1, 128),   # mnist sampling, 8x8
         (A.attn_fwd_qblk, 64, 1024, 1, 256),  # CIFAR sampling, up_1_us
         (A.attn_fwd_qblk, 64, 1024, 2, 128),
         (A.attn_fwd_qblk, 32, 256, 9, 64),    # celeba sampling, the N=9 levels
         (A.attn_fwd_qblk, 32, 1024, 9, 64),   # celeba sampling, up_2_us
+        (A.attn_fwd_qblk, 128, 1024, 1, 128),  # mnist sampling, up_1_us
     ]
     # the f32-FMA kernel each wrapper's bf16 calls ran before attn_fwd_tc.cu
     before = {A.attn_fwd_online: fma_fwd_online, A.attn_fwd_qblk: fma_fwd}
@@ -661,7 +721,9 @@ def phase_train_kernels():
     cases = [(128, 256, 1, 256), (128, 64, 1, 256), (128, 1024, 1, 256),
              (128, 256, 2, 128), (128, 1024, 2, 128), (CELEBA_TRAIN_B, 1024, 9, 64),
              (CELEBA_TRAIN_B, 256, 9, 64), (CELEBA_TRAIN_B, 64, 12, 64),
-             (CELEBA_TRAIN_B, 64, 9, 64)]
+             (CELEBA_TRAIN_B, 64, 9, 64),
+             (MNIST_TRAIN_B, 256, 1, 128), (MNIST_TRAIN_B, 64, 1, 128),  # mnist's head of 128
+             (MNIST_TRAIN_B, 1024, 1, 128)]
     record = {}
     for B, T, N, C in cases:
         for dtype in (torch.float32, torch.bfloat16):
@@ -725,14 +787,17 @@ def phase_train_kernels():
     return record
 
 
-def _perturbed_unet(cfg, num_classes=10, multitags=False, dtype=torch.float32):
-    """Full-width UNet with random weights; zero-init layers get noise so the
-    output (and every check on it) is not trivially zero."""
+def _perturbed_unet(cfg, num_classes=10, multitags=False, dtype=torch.float32, in_channels=3):
+    """Full-width UNet with random weights (a learned-variance config's with
+    2·C outputs); zero-init layers get noise so the output (and every check on
+    it) is not trivially zero."""
     from vdiff_tpu_torch.factory import build_unet
 
     gen = torch.Generator().manual_seed(1234)
-    model = build_unet(cfg["model"], in_channels=3, model_out_type=cfg["diffusion"]["model_out_type"],
-                       num_classes=num_classes, multitags=multitags, dtype=dtype, generator=gen)
+    model = build_unet(cfg["model"], in_channels=in_channels,
+                       model_out_type=cfg["diffusion"]["model_out_type"], num_classes=num_classes,
+                       multitags=multitags, dtype=dtype, generator=gen,
+                       model_var_type=cfg["diffusion"]["model_var_type"])
     with torch.no_grad():
         for p in model.parameters():
             if p.ndim >= 2 and not bool(p.any()):
@@ -746,7 +811,7 @@ def _unet_parity(name, model, x, t, y, want):
         ref = model(x, t, y)
         model_gpu = copy.deepcopy(model).cuda()
         before = _counts()
-        out = model_gpu(x.cuda(), t.cuda(), y.cuda()).cpu()
+        out = model_gpu(x.cuda(), t.cuda(), None if y is None else y.cuda()).cpu()
     launched = {k: v - before[k] for k, v in _counts().items()}
     del model_gpu
     scale = max(1.0, ref.abs().max().item())
@@ -796,8 +861,9 @@ def _reset_counts():
 
 def _train_step_parity(name, cfg, model, x, y, keep, want):
     """One f32 train step (loss, backward, clip, AdamW, EMA) on CUDA vs the
-    CPU with the same weights, t, noise and CFG keep mask; the CUDA step's
-    launch counts must equal ``want``."""
+    CPU with the same weights, t, noise and CFG keep mask (an unconditional
+    config: no labels, no mask); the CUDA step's launch counts must equal
+    ``want``."""
     from vdiff_tpu_torch.factory import build_diffusion
     from vdiff_tpu_torch.train_lib import Optimizer, make_train_step
 
@@ -807,15 +873,17 @@ def _train_step_parity(name, cfg, model, x, y, keep, want):
     gen = torch.Generator().manual_seed(11)
     draws = [{"t": torch.rand(x.shape[0], generator=gen),
               "noise": torch.randn(x.shape, generator=gen), "keep": keep}]
+    to = lambda a, device: None if a is None else a.to(device)
 
     def run(device):
         m = copy.deepcopy(model).to(device)
         ema = copy.deepcopy(m).requires_grad_(False)
         opt = Optimizer(m.parameters(), lr=STEP_LR, weight_decay=1e-3, warmup=0, grad_norm=1.0)
-        step = make_train_step(m, diffusion, opt, timesteps, use_cfg=True, ema_model=ema)
-        d = [{k: v.to(device) for k, v in draws[0].items()}]
+        step = make_train_step(m, diffusion, opt, timesteps, use_cfg=cond["use_cfg"],
+                               ema_model=ema)
+        d = [{k: to(v, device) for k, v in draws[0].items()}]
         before = _counts()
-        loss = step(x.to(device), y.to(device), 0, 0, draws=d).item()
+        loss = step(x.to(device), to(y, device), 0, 0, draws=d).item()
         launched = {k: v - before[k] for k, v in _counts().items()}
         grads = torch.cat([p.grad.flatten().cpu() for p in m.parameters()])
         params = torch.cat([p.detach().flatten().cpu() for p in m.parameters()])
@@ -972,13 +1040,39 @@ def phase_sample(model, tmp):
     return {k: launched[k] for k in KERNELS}, ckpt, rates["w=0"]
 
 
-def _png_size(path):
-    """(width, height) from a PNG's IHDR chunk."""
+def phase_ancestral_sample(ckpt, tmp):
+    """The generate CLI's default sampler (no --use-ddim: ancestral, fresh
+    noise every step from the CLI's generator) at its default w=0.1 on phase
+    4's checkpoint, bf16, one batch of ANCESTRAL_B, ANCESTRAL_STEPS steps:
+    finite PNGs, one a sample, and the per-forward launches every step (the
+    CFG-doubled batch is one forward). Returns the device's launches."""
+    from vdiff_tpu_torch import generate
+
+    _reset_counts()
+    summary = generate.main([
+        "--config-path", CONFIG, "--ckpt-path", ckpt, "--save-dir", os.path.join(tmp, "ancestral"),
+        "--use-ema", "--allow-bf16", "--sample-timesteps", str(ANCESTRAL_STEPS), "--batch-size",
+        str(ANCESTRAL_B), "--total-size", str(ANCESTRAL_B), "--seed", "0"])
+    launched = _device_launches("ancestral", _counts(), summary["stats"], SAMPLE_FWD_LAUNCHES_BF16,
+                                ANCESTRAL_STEPS)
+    pngs = glob.glob(os.path.join(summary["save_dir"], "*.png"))
+    heads = {_png_header(f) for f in pngs}
+    print(f"ancestral: generate without --use-ddim, w=0.1 B={ANCESTRAL_B}, {ANCESTRAL_STEPS} "
+          f"ancestral steps bf16: {summary['images'] / summary['seconds']} samples/s (the warm-up "
+          f"included), {len(pngs)} PNGs of {heads} (width, height, colour type), "
+          f"finite={summary['finite']}", flush=True)
+    if len(pngs) != ANCESTRAL_B or heads != {(32, 32, 2)} or not summary["finite"]:
+        fail(f"ancestral: {len(pngs)} PNGs of {heads}, finite={summary['finite']}")
+    return launched
+
+
+def _png_header(path):
+    """(width, height, colour type: 0 greyscale, 2 RGB) from a PNG's IHDR chunk."""
     with open(path, "rb") as f:
-        head = f.read(24)
+        head = f.read(26)
     if head[:8] != b"\x89PNG\r\n\x1a\n" or head[12:16] != b"IHDR":
         fail(f"{path}: not a PNG")
-    return int.from_bytes(head[16:20], "big"), int.from_bytes(head[20:24], "big")
+    return int.from_bytes(head[16:20], "big"), int.from_bytes(head[20:24], "big"), head[25]
 
 
 def phase_progressive(ckpt, tmp):
@@ -995,7 +1089,7 @@ def phase_progressive(ckpt, tmp):
         "--total-size", str(B), "--seed", "0"])
     _device_launches("progressive", _counts(), summary["stats"], SAMPLE_FWD_LAUNCHES_BF16,
                      PROGRESSIVE_STEPS)
-    sizes = {_png_size(f) for f in glob.glob(os.path.join(summary["save_dir"], "*.png"))}
+    sizes = {_png_header(f)[:2] for f in glob.glob(os.path.join(summary["save_dir"], "*.png"))}
     n = len(glob.glob(os.path.join(summary["save_dir"], "*.png")))
     print(f"progressive: w=0.1 B={B}, {PROGRESSIVE_STEPS} DDIM steps, a snapshot every "
           f"{PROGRESSIVE_FREQ}: {n} strips of {sizes} (width, height), finite={summary['finite']}",
@@ -1004,30 +1098,33 @@ def phase_progressive(ckpt, tmp):
         fail(f"progressive: {n} strips of {sizes}, finite={summary['finite']}")
 
 
-def _graph_vs_eager(name, model, cfg, w_guide, x_T, y, steps, per_fwd, eta=0.0):
-    """``steps`` DDIM steps of p_sample with the CUDA graph (one eager step,
-    one capture, steps-1 replays) against the eager loop from the same x_T,
-    and for eta > 0 the same generator seed: the same kernels on the same
-    inputs, so the samples must be equal bit for bit (GRAPH_ATOL). Both
-    must launch ``per_fwd`` per step on the device, the capture once."""
+def _graph_vs_eager(name, model, cfg, w_guide, x_T, y, steps, per_fwd, eta=0.0, use_ddim=True):
+    """``steps`` DDIM steps (ancestral ones without ``use_ddim``) of p_sample
+    with the CUDA graph (one eager step, one capture, steps-1 replays)
+    against the eager loop from the same x_T, and where the steps draw noise
+    (DDIM eta > 0, ancestral) the same generator seed: the same kernels on
+    the same inputs, so the samples must be equal bit for bit (GRAPH_ATOL).
+    Both must launch ``per_fwd`` per step on the device, the capture once.
+    Returns the graph run's launches on the device."""
     from vdiff_tpu_torch.factory import build_diffusion
 
     diffusion, _ = build_diffusion(cfg["diffusion"], w_guide=w_guide, sample_timesteps=steps,
                                    continuous_gate=False)
+    sampler = "DDIM" if use_ddim else "ancestral"
     out, stats, ms = {}, {}, {}
     for graph in (True, False):
-        gen = torch.Generator(device="cuda").manual_seed(21) if eta else None
+        gen = torch.Generator(device="cuda").manual_seed(21) if eta or not use_ddim else None
         stats[graph] = {}
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out[graph] = diffusion.p_sample(model, x_T, label=y, use_ddim=True, eta=eta, generator=gen,
-                                        graph=graph, stats=stats[graph])
+        out[graph] = diffusion.p_sample(model, x_T, label=y, use_ddim=use_ddim, eta=eta,
+                                        generator=gen, graph=graph, stats=stats[graph])
         torch.cuda.synchronize()
         ms[graph] = (time.perf_counter() - t0) * 1e3
     diff = (out[True] - out[False]).abs().max().item()
     moved = (out[True] - x_T).abs().max().item()
     g = stats[True]
-    print(f"graph: {name}: {steps} DDIM steps, graph vs eager max_abs_diff={diff} (bound "
+    print(f"graph: {name}: {steps} {sampler} steps, graph vs eager max_abs_diff={diff} (bound "
           f"{GRAPH_ATOL}), moved {moved} from x_T, {ms[True]:.1f} ms against {ms[False]:.1f} ms "
           f"(host clock, one capture included), {g['eager_steps']} eager step, {g['captures']} "
           f"capture, {g['replays']} replays, captured launches {_nonzero(g['captured_launches'])}",
@@ -1039,26 +1136,31 @@ def _graph_vs_eager(name, model, cfg, w_guide, x_T, y, steps, per_fwd, eta=0.0):
             g["captured_launches"] != per_fwd or g["launches"] != want or \
             stats[False]["launches"] != want:
         fail(f"graph: {name}: stats {stats}, expected {per_fwd} a step")
+    return g["launches"]
 
 
 def phase_graph(cfg):
     """The full-width bf16 cifar10_cond model (seeded random weights, zero-init
     layers perturbed): graph against eager at w=0 B=64 with the switches off,
-    with VDIFF_FUSED_GN=1 and with both switches, CFG w=0.1 at B=32, and DDIM
-    eta=1 at B=64."""
+    with VDIFF_FUSED_GN=1 and with both switches, CFG w=0.1 at B=32, DDIM
+    eta=1 at B=64, and the ancestral sampler (the generate CLI's default,
+    fresh noise every step) at w=0 B=64 and CFG w=0.1 B=32."""
     model = _perturbed_unet(cfg, dtype=torch.bfloat16).cuda()
     gen = torch.Generator(device="cuda").manual_seed(20)
     per_fwd = {(False, False): SAMPLE_FWD_LAUNCHES_BF16, (False, True): FUSED_GN_FWD_LAUNCHES,
                (True, True): FUSED_FWD_LAUNCHES}
-    for B, w, eta, conv, gn in ((FUSED_B, 0.0, 0.0, False, False), (FUSED_B, 0.0, 0.0, False, True),
-                                (FUSED_B, 0.0, 0.0, True, True), (32, 0.1, 0.0, False, False),
-                                (FUSED_B, 0.0, 1.0, False, False)):
+    for B, w, eta, conv, gn, ddim in (
+            (FUSED_B, 0.0, 0.0, False, False, True), (FUSED_B, 0.0, 0.0, False, True, True),
+            (FUSED_B, 0.0, 0.0, True, True, True), (32, 0.1, 0.0, False, False, True),
+            (FUSED_B, 0.0, 1.0, False, False, True), (FUSED_B, 0.0, 0.0, False, False, False),
+            (32, 0.1, 0.0, False, False, False)):
         x_T = torch.randn(B, 32, 32, 3, device="cuda", generator=gen)
         y = (torch.arange(B, device="cuda") % 10 + 1).float()
+        sampler = f"eta={eta}" if ddim else "ancestral"
         with _switches(conv, gn):
-            _graph_vs_eager(f"cifar10_cond w={w} B={B} eta={eta} VDIFF_FUSED_CONV={int(conv)} "
+            _graph_vs_eager(f"cifar10_cond w={w} B={B} {sampler} VDIFF_FUSED_CONV={int(conv)} "
                             f"VDIFF_FUSED_GN={int(gn)}", model, cfg, w, x_T, y, GRAPH_STEPS,
-                            per_fwd[conv, gn], eta)
+                            per_fwd[conv, gn], eta, use_ddim=ddim)
 
 
 def phase_celeba_graph(cfg, model):
@@ -1166,21 +1268,111 @@ def _check_fused(name, out, ref, dtype, extra_atol=0.0):
     return err.max().item()
 
 
-def phase_fused_kernels():
-    """gn_film_silu_kernel (B10) and fused_gn_silu_conv3x3 (B11) vs their
-    twins, f32 and bf16, then timed in bf16: B11 (the tensor-core conv of
-    gn_silu_conv3x3_tc.cu in bf16) beside the FMA conv of gn_silu_conv3x3.cu
-    on the same inputs (``before_ms``) and cuDNN's bf16 conv alone
-    (``conv_only_ms``; ``library_ms`` of the bare conv without a skip, the one
-    form a single call computes). Returns the per-kernel records:
-    B10 at (64, 32, 32, 256) without FiLM or SiLU (the attention norm of
-    up_1_us, the one form F.group_norm computes too), B11 at (64, 32, 32)
-    256->256 with FiLM and skip (conv2 of the level-0 blocks)."""
-    from torch.nn.functional import conv2d, group_norm
+def _gn_case(phase, gen, Bc, H, W, C, groups, film, silu):
+    """gn_film_silu_kernel (B10) at one shape vs its twin in f32 and bf16; in
+    bf16 two calls must give the same bits, and the kernel is timed beside
+    its twin, the card's bound, F.group_norm on the same x and the default
+    chain. Prints a line each; returns the bf16 record."""
+    from torch.nn.functional import group_norm
+
+    from vdiff_tpu_torch.ops import groupnorm as G
+
+    for dtype in (torch.float32, torch.bfloat16):
+        x, gamma, beta, shift, scale, *_ = _fused_inputs(Bc, H, W, C, 1, dtype, gen, film, False)
+        plan = G.gn_plan(H, W, C, groups, dtype)
+        tag = (f"gn_film_silu_kernel B={Bc} {H}x{W} C={C} G={groups} film={film} silu={silu} "
+               f"{str(dtype)[6:]} (plan: {plan.groups} groups, {plan.run_bytes} B a pixel, "
+               f"cluster of {plan.ranks}, {plan.pixels} px a block, slab in "
+               f"{plan.smem_bytes} B of shared memory)")
+        ref = G.gn_film_silu_kernel_reference(
+            x.float(), gamma, beta, None if shift is None else shift.float(),
+            None if scale is None else scale.float(), num_groups=groups, apply_silu=silu)
+
+        def kernel():
+            return G.gn_film_silu_kernel(x, gamma, beta, shift, scale, num_groups=groups,
+                                         apply_silu=silu)
+
+        out = kernel()
+        err = _check_fused(tag, out, ref, dtype)
+        del ref
+        if dtype == torch.float32:
+            print(f"{phase}: {tag}: max_abs_err={err}", flush=True)
+            continue
+        if not torch.equal(out, kernel()):
+            fail(f"{tag}: two calls gave different bits")
+        del out
+        # F.group_norm on the same x: the one form a single PyTorch call
+        # computes (no FiLM, no SiLU), and the yardstick of every case
+        nchw, g16, b16 = x.permute(0, 3, 1, 2), gamma.to(dtype), beta.to(dtype)
+        group_norm_ms = cuda_ms(lambda: group_norm(nchw, groups, g16, b16, 1e-6))
+        rec = {"max_abs_err": err, "ms": cuda_ms(kernel),
+               "plain_ms": cuda_ms(lambda: G.gn_film_silu_kernel_reference(
+                   x, gamma, beta, shift, scale, num_groups=groups, apply_silu=silu)),
+               "library_ms": None if film or silu else group_norm_ms,
+               **_gn_bound(Bc, H, W, C, dtype, film)}
+        chain = cuda_ms(lambda: G.gn_film_silu(x, gamma, beta, shift, scale, num_groups=groups,
+                                               apply_silu=silu, use_kernel=False))
+        print(f"{phase}: {tag}: {_fmt(rec)} group_norm_ms={group_norm_ms} "
+              f"default_chain_ms={chain} same_bits_twice=True", flush=True)
+        return rec
+
+
+def _conv_case(phase, gen, Bc, H, W, C, CO, film, skip, gn):
+    """fused_gn_silu_conv3x3 (B11) at one shape vs its twin in f32 and bf16;
+    in bf16 (the tensor-core conv of gn_silu_conv3x3_tc.cu) timed beside the
+    FMA conv of gn_silu_conv3x3.cu on the same inputs (``before_ms``), its
+    twin, the card's bound and cuDNN's bf16 conv alone (``conv_only_ms``;
+    ``library_ms`` of the bare conv without a skip, the one form a single
+    call computes). Prints a line each; returns the bf16 record."""
+    from torch.nn.functional import conv2d
 
     from vdiff_tpu_torch.ops import conv3x3 as C3
     from vdiff_tpu_torch.ops import groupnorm as G
 
+    for dtype in (torch.float32, torch.bfloat16):
+        x, gamma, beta, shift, scale, w, bias, res = _fused_inputs(Bc, H, W, C, CO, dtype, gen,
+                                                                   film, skip)
+        if not gn:
+            gamma = beta = None
+        args = (x, w, bias, gamma, beta, shift, scale, res)
+        tag = (f"fused_gn_silu_conv3x3 B={Bc} {H}x{W} {C}->{CO} gn={gn} film={film} "
+               f"skip={skip} {str(dtype)[6:]}")
+        flip = 0.0
+        if gn and dtype == torch.bfloat16:
+            y_max = G.gn_film_silu_kernel_reference(x, gamma, beta, shift, scale).abs().max()
+            flip = FUSED_FLIP_RTOL * y_max.item() * w.abs().max().item()
+        ref = C3.fused_gn_silu_conv3x3_reference_f32(*args)
+        err = _check_fused(tag, C3.fused_gn_silu_conv3x3(*args), ref, dtype, flip)
+        del ref
+        if dtype == torch.float32:
+            print(f"{phase}: {tag}: max_abs_err={err}", flush=True)
+            continue
+        # cuDNN's bf16 conv alone on the same x (channels_last), weights
+        # and bias: the product without the prologue or the skip
+        xc = x.permute(0, 3, 1, 2)
+        wc = w.to(dtype).contiguous(memory_format=torch.channels_last)
+        conv_only = cuda_ms(lambda: conv2d(xc, wc, bias.to(dtype), padding=1), iters=5, warmup=1)
+        rec = {"max_abs_err": err,
+               "ms": cuda_ms(lambda: C3.fused_gn_silu_conv3x3(*args), iters=5, warmup=1),
+               "before_ms": cuda_ms(lambda: C3._launch_fma(*args, 32, 1e-6), iters=5, warmup=1),
+               "plain_ms": cuda_ms(lambda: C3.fused_gn_silu_conv3x3_reference(*args), iters=5,
+                                   warmup=1),
+               # one PyTorch call computes the bare conv without a skip
+               "library_ms": conv_only if not (gn or skip) else None,
+               **_conv_bound(Bc, H, W, C, CO, dtype, gn, film, skip)}
+        relayout = cuda_ms(lambda: w.permute(2, 3, 1, 0).reshape(9 * C, CO).to(dtype).contiguous())
+        print(f"{phase}: {tag}: {_fmt(rec)} conv_only_ms={conv_only} "
+              f"weight_relayout_ms={relayout} (inside ms; flip allowance {flip})", flush=True)
+        return rec
+
+
+def phase_fused_kernels():
+    """gn_film_silu_kernel (B10) and fused_gn_silu_conv3x3 (B11) vs their
+    twins, f32 and bf16, then timed in bf16 (_gn_case, _conv_case). Returns
+    the per-kernel records: B10 at (64, 32, 32, 256) without FiLM or SiLU
+    (the attention norm of up_1_us, the one form F.group_norm computes too),
+    B11 at (64, 32, 32) 256->256 with FiLM and skip (conv2 of the level-0
+    blocks)."""
     gen = torch.Generator(device="cuda").manual_seed(3)
     record = {}
     B = FUSED_B
@@ -1195,46 +1387,9 @@ def phase_fused_kernels():
                  (32, 8, 8, 1536, 32, False, True), (3, 5, 7, 192, 32, True, True),
                  (2, 8, 8, 1344, 32, False, True), (2, 4, 6, 24, 4, True, True)]
     for Bc, H, W, C, groups, film, silu in gn_cases:
-        for dtype in (torch.float32, torch.bfloat16):
-            x, gamma, beta, shift, scale, *_ = _fused_inputs(Bc, H, W, C, 1, dtype, gen, film, False)
-            plan = G.gn_plan(H, W, C, groups, dtype)
-            tag = (f"gn_film_silu_kernel B={Bc} {H}x{W} C={C} G={groups} film={film} silu={silu} "
-                   f"{str(dtype)[6:]} (plan: {plan.groups} groups, {plan.run_bytes} B a pixel, "
-                   f"cluster of {plan.ranks}, {plan.pixels} px a block, slab in "
-                   f"{plan.smem_bytes} B of shared memory)")
-            ref = G.gn_film_silu_kernel_reference(
-                x.float(), gamma, beta, None if shift is None else shift.float(),
-                None if scale is None else scale.float(), num_groups=groups, apply_silu=silu)
-
-            def kernel():
-                return G.gn_film_silu_kernel(x, gamma, beta, shift, scale, num_groups=groups,
-                                             apply_silu=silu)
-
-            out = kernel()
-            err = _check_fused(tag, out, ref, dtype)
-            del ref
-            if dtype == torch.float32:
-                print(f"fused-kernels: {tag}: max_abs_err={err}", flush=True)
-                continue
-            if not torch.equal(out, kernel()):
-                fail(f"{tag}: two calls gave different bits")
-            del out
-            # F.group_norm on the same x: the one form a single PyTorch call
-            # computes (no FiLM, no SiLU), and the yardstick of every case
-            nchw, g16, b16 = x.permute(0, 3, 1, 2), gamma.to(dtype), beta.to(dtype)
-            group_norm_ms = cuda_ms(lambda: group_norm(nchw, groups, g16, b16, 1e-6))
-            rec = {"max_abs_err": err, "ms": cuda_ms(kernel),
-                   "plain_ms": cuda_ms(lambda: G.gn_film_silu_kernel_reference(
-                       x, gamma, beta, shift, scale, num_groups=groups, apply_silu=silu)),
-                   "library_ms": None if film or silu else group_norm_ms,
-                   **_gn_bound(Bc, H, W, C, dtype, film)}
-            chain = cuda_ms(lambda: G.gn_film_silu(x, gamma, beta, shift, scale, num_groups=groups,
-                                                   apply_silu=silu, use_kernel=False))
-            print(f"fused-kernels: {tag}: {_fmt(rec)} group_norm_ms={group_norm_ms} "
-                  f"default_chain_ms={chain} same_bits_twice=True", flush=True)
-            if (Bc, H, C, film, silu) == (B, 32, 256, False, False):
-                record["gn_film_silu_kernel"] = rec
-            del x
+        rec = _gn_case("fused-kernels", gen, Bc, H, W, C, groups, film, silu)
+        if (Bc, H, C, film, silu) == (B, 32, 256, False, False):
+            record["gn_film_silu_kernel"] = rec
 
     # (B, H, W, C_in, C_out, film, skip, gn): conv1 and conv2 forms on the path
     conv_cases = [(B, H, H, 256, 256, film, film, True) for H in (32, 16, 8)
@@ -1247,44 +1402,9 @@ def phase_fused_kernels():
                    (3, 5, 7, 192, 72, True, True, True),       # ragged tiles, groups of 6
                    (2, 9, 9, 32, 33, False, False, True)]
     for Bc, H, W, C, CO, film, skip, gn in conv_cases:
-        for dtype in (torch.float32, torch.bfloat16):
-            x, gamma, beta, shift, scale, w, bias, res = _fused_inputs(Bc, H, W, C, CO, dtype, gen,
-                                                                       film, skip)
-            if not gn:
-                gamma = beta = None
-            args = (x, w, bias, gamma, beta, shift, scale, res)
-            tag = (f"fused_gn_silu_conv3x3 B={Bc} {H}x{W} {C}->{CO} gn={gn} film={film} "
-                   f"skip={skip} {str(dtype)[6:]}")
-            flip = 0.0
-            if gn and dtype == torch.bfloat16:
-                y_max = G.gn_film_silu_kernel_reference(x, gamma, beta, shift, scale).abs().max()
-                flip = FUSED_FLIP_RTOL * y_max.item() * w.abs().max().item()
-            ref = C3.fused_gn_silu_conv3x3_reference_f32(*args)
-            err = _check_fused(tag, C3.fused_gn_silu_conv3x3(*args), ref, dtype, flip)
-            del ref
-            if dtype == torch.float32:
-                print(f"fused-kernels: {tag}: max_abs_err={err}", flush=True)
-                continue
-            # cuDNN's bf16 conv alone on the same x (channels_last), weights
-            # and bias: the product without the prologue or the skip
-            xc = x.permute(0, 3, 1, 2)
-            wc = w.to(dtype).contiguous(memory_format=torch.channels_last)
-            conv_only = cuda_ms(lambda: conv2d(xc, wc, bias.to(dtype), padding=1), iters=5, warmup=1)
-            rec = {"max_abs_err": err,
-                   "ms": cuda_ms(lambda: C3.fused_gn_silu_conv3x3(*args), iters=5, warmup=1),
-                   "before_ms": cuda_ms(lambda: C3._launch_fma(*args, 32, 1e-6), iters=5,
-                                        warmup=1),
-                   "plain_ms": cuda_ms(lambda: C3.fused_gn_silu_conv3x3_reference(*args), iters=5,
-                                       warmup=1),
-                   # one PyTorch call computes the bare conv without a skip
-                   "library_ms": conv_only if not (gn or skip) else None,
-                   **_conv_bound(Bc, H, W, C, CO, dtype, gn, film, skip)}
-            relayout = cuda_ms(lambda: w.permute(2, 3, 1, 0).reshape(9 * C, CO).to(dtype).contiguous())
-            print(f"fused-kernels: {tag}: {_fmt(rec)} conv_only_ms={conv_only} "
-                  f"weight_relayout_ms={relayout} (inside ms; flip allowance {flip})", flush=True)
-            if (Bc, H, C, film) == (B, 32, 256, True):
-                record["fused_gn_silu_conv3x3"] = rec
-            del x, w, res, args, xc, wc
+        rec = _conv_case("fused-kernels", gen, Bc, H, W, C, CO, film, skip, gn)
+        if (Bc, H, C, film) == (B, 32, 256, True):
+            record["fused_gn_silu_conv3x3"] = rec
     torch.cuda.empty_cache()
     return record
 
@@ -1296,13 +1416,10 @@ def _switches(conv, gn):
     return switches(VDIFF_FUSED_CONV=int(conv), VDIFF_FUSED_GN=int(gn))
 
 
-def phase_fused_unet(cfg):
-    """The full-width bf16 UNet at B=2: both switches on against both off,
-    and the launch counts of one forward with both on and with GN alone."""
-    model = _perturbed_unet(cfg, dtype=torch.bfloat16).cuda()
-    gen = torch.Generator().manual_seed(7)
-    x, t = torch.randn(2, 32, 32, 3, generator=gen).cuda(), torch.rand(2, generator=gen).cuda()
-    y = torch.tensor([3.0, 0.0]).cuda()
+def _fused_unet(phase, model, x, t, y, want_default, arms):
+    """The bf16 ``model``'s forward with each arm's switches (name, conv,
+    gn, launches) against the same forward with both off, within
+    FUSED_UNET_RTOL of the output's scale, and each forward's launches."""
 
     def forward(conv, gn):
         with _switches(conv, gn), torch.inference_mode():
@@ -1312,20 +1429,31 @@ def phase_fused_unet(cfg):
             return out, _counts()
 
     base, launched = forward(False, False)
-    if launched != SAMPLE_FWD_LAUNCHES_BF16:
-        fail(f"fused-unet: the default forward launched {launched}")
+    if launched != want_default:
+        fail(f"{phase}: the default forward launched {launched}")
     scale = base.abs().max().item()
-    for name, conv, gn, want in (("both switches", True, True, FUSED_FWD_LAUNCHES),
-                                 ("VDIFF_FUSED_GN alone", False, True, FUSED_GN_FWD_LAUNCHES)):
+    for name, conv, gn, want in arms:
         out, launched = forward(conv, gn)
         err = (out - base).abs().max().item()
-        print(f"fused-unet: full width B=2 bf16, {name} vs both off: max_abs_err={err} "
-              f"(|out|max={scale}, limit {FUSED_UNET_RTOL * scale}), launches {launched}",
+        print(f"{phase}: full width B={x.shape[0]} bf16, {name} vs both off: max_abs_err={err} "
+              f"(|out|max={scale}, limit {FUSED_UNET_RTOL * scale}), launches {_nonzero(launched)}",
               flush=True)
         if not bool(torch.isfinite(out).all()) or err > FUSED_UNET_RTOL * scale:
-            fail(f"fused-unet: {name}: max err {err} > {FUSED_UNET_RTOL} * {scale}")
+            fail(f"{phase}: {name}: max err {err} > {FUSED_UNET_RTOL} * {scale}")
         if launched != want:
-            fail(f"fused-unet: {name}: one forward launched {launched}, expected {want}")
+            fail(f"{phase}: {name}: one forward launched {launched}, expected {want}")
+
+
+def phase_fused_unet(cfg):
+    """The full-width bf16 UNet at B=2: both switches on against both off,
+    and the launch counts of one forward with both on and with GN alone."""
+    model = _perturbed_unet(cfg, dtype=torch.bfloat16).cuda()
+    gen = torch.Generator().manual_seed(7)
+    x, t = torch.randn(2, 32, 32, 3, generator=gen).cuda(), torch.rand(2, generator=gen).cuda()
+    _fused_unet("fused-unet", model, x, t, torch.tensor([3.0, 0.0]).cuda(),
+                SAMPLE_FWD_LAUNCHES_BF16,
+                (("both switches", True, True, FUSED_FWD_LAUNCHES),
+                 ("VDIFF_FUSED_GN alone", False, True, FUSED_GN_FWD_LAUNCHES)))
 
 
 def phase_fused_sample(ckpt, tmp, default_rate):
@@ -1567,6 +1695,158 @@ def phase_celeba_train(cfg):
           flush=True)
     return total
 
+
+
+def _write_mnist(root, n, seed=6):
+    """MNIST's train idx pair in torchvision's raw layout under ``root``
+    (``MNIST/raw``, where data.py::load_mnist looks): ``n`` seeded 28x28
+    digits and their labels 0-9."""
+    base = os.path.join(root, "MNIST", "raw")
+    os.makedirs(base, exist_ok=True)
+    rng = np.random.RandomState(seed)
+    with open(os.path.join(base, "train-images-idx3-ubyte"), "wb") as f:
+        f.write(struct.pack(">IIII", 2051, n, 28, 28)
+                + rng.randint(0, 256, (n, 28, 28), dtype=np.uint8).tobytes())
+    with open(os.path.join(base, "train-labels-idx1-ubyte"), "wb") as f:
+        f.write(struct.pack(">II", 2049, n) + rng.randint(0, 10, n).astype(np.uint8).tobytes())
+
+
+def phase_mnist(tmp):
+    """mnist.json at full width (one input channel, heads of 128): (a) the f32
+    UNet on CUDA against the CPU at B=2 with MNIST_FWD_LAUNCHES; (d) the bf16
+    UNet with both fused switches against both off; (e) B10 and B11 at every
+    shape of mnist's fused forward (MNIST_GN_SHAPES, MNIST_CONV_SHAPES) at
+    the CFG-doubled sampling batch, against their twins; (b) the train CLI,
+    bf16, on a written idx tree of MNIST_DIGITS digits (4 steps of 128),
+    MNIST_STEP_LAUNCHES_BF16 a step; (c) the generate CLI's defaults from its
+    ckpt_last.pt (ancestral, CFG w=0.1), MNIST_SAMPLE_STEPS steps at B=64:
+    greyscale 32x32 PNGs. Returns each CLI run's launches and the B10/B11
+    shapes' records."""
+    from vdiff_tpu_torch import generate, train
+    from vdiff_tpu_torch.factory import load_experiment_config
+
+    cfg, _ = load_experiment_config(MNIST_CONFIG)
+    model = _perturbed_unet(dict(cfg, model=dict(cfg["model"], drop_rate=0.0)), in_channels=1)
+    print(f"mnist: {sum(p.numel() for p in model.parameters())} parameters", flush=True)
+    gen = torch.Generator().manual_seed(40)
+    x, t = torch.randn(2, 32, 32, 1, generator=gen), torch.rand(2, generator=gen)
+    y = torch.tensor([3.0, 0.0])
+    _unet_parity("mnist: unet", model, x, t, y, MNIST_FWD_LAUNCHES)
+    del model
+    bf16 = _perturbed_unet(cfg, dtype=torch.bfloat16, in_channels=1).cuda()
+    _fused_unet("mnist: fused-unet", bf16, x.cuda(), t.cuda(), y.cuda(), MNIST_FWD_LAUNCHES_BF16,
+                (("both switches", True, True, MNIST_FUSED_FWD_LAUNCHES),))
+    del bf16
+    kgen = torch.Generator(device="cuda").manual_seed(41)
+    B = 2 * MNIST_SAMPLE_B
+    shapes = {"gn_film_silu_kernel": [], "fused_gn_silu_conv3x3": []}
+    for H, W, C, film, silu in MNIST_GN_SHAPES:
+        rec = _gn_case("mnist: fused-kernels", kgen, B, H, W, C, 32, film, silu)
+        shapes["gn_film_silu_kernel"].append(dict(B=B, H=H, W=W, C=C, film=film, silu=silu, **rec))
+    for H, W, C, CO, film, skip, gn in MNIST_CONV_SHAPES:
+        rec = _conv_case("mnist: fused-kernels", kgen, B, H, W, C, CO, film, skip, gn)
+        shapes["fused_gn_silu_conv3x3"].append(dict(B=B, H=H, W=W, C=C, CO=CO, film=film,
+                                                    skip=skip, gn=gn, **rec))
+    torch.cuda.empty_cache()
+
+    data_root = os.path.join(tmp, "mnist_data")
+    _write_mnist(data_root, MNIST_DIGITS)
+    _reset_counts()
+    t0 = time.perf_counter()
+    summary = train.main(["--config-path", MNIST_CONFIG, "--allow-bf16", "--epochs", "1",
+                          "--batch-size", str(MNIST_TRAIN_B), "--num-save-images", "0",
+                          "--data_root", data_root, "--exp-dir", os.path.join(tmp, "exps_mnist")])
+    seconds = time.perf_counter() - t0
+    trained = _counts()
+    # the train CLI turns cuDNN's autotuner on (defaults.json); the sampler
+    # runs without it, as the generate CLI does
+    torch.backends.cudnn.benchmark = False
+    steps = summary["steps"]
+    ckpt = os.path.join(summary["ckpt_dir"], "ckpt_last.pt")
+    print(f"mnist: train CLI bf16 B={MNIST_TRAIN_B} on {MNIST_DIGITS} written digits, {steps} "
+          f"steps, loss {summary['loss']}, {summary['img_per_s']} img/s over the steps after the "
+          f"first, {seconds:.1f} s with the checkpoint, launches {_nonzero(trained)}", flush=True)
+    if steps != MNIST_DIGITS // MNIST_TRAIN_B or summary["loss"] is None or \
+            not math.isfinite(summary["loss"]) or not os.path.exists(ckpt):
+        fail(f"mnist: train CLI {steps} steps, loss {summary['loss']}, ckpt_last.pt "
+             f"{os.path.exists(ckpt)}")
+    want = {k: v * steps for k, v in MNIST_STEP_LAUNCHES_BF16.items()}
+    if trained != want:
+        fail(f"mnist: train CLI launches {trained}, expected {want}")
+
+    _reset_counts()
+    summary = generate.main([
+        "--config-path", MNIST_CONFIG, "--ckpt-path", ckpt, "--save-dir",
+        os.path.join(tmp, "mnist_out"), "--use-ema", "--allow-bf16", "--sample-timesteps",
+        str(MNIST_SAMPLE_STEPS), "--batch-size", str(MNIST_SAMPLE_B), "--total-size",
+        str(MNIST_SAMPLE_B), "--seed", "0"])
+    sampled = _device_launches("mnist: sample", _counts(), summary["stats"],
+                               MNIST_FWD_LAUNCHES_BF16, MNIST_SAMPLE_STEPS)
+    pngs = glob.glob(os.path.join(summary["save_dir"], "*.png"))
+    heads = {_png_header(f) for f in pngs}
+    print(f"mnist: generate (ancestral, w=0.1) B={MNIST_SAMPLE_B}, {MNIST_SAMPLE_STEPS} steps bf16 "
+          f"from ckpt_last.pt: {summary['images'] / summary['seconds']} samples/s (the warm-up "
+          f"included), {len(pngs)} PNGs of {heads} (width, height, colour type), "
+          f"finite={summary['finite']}", flush=True)
+    if len(pngs) != MNIST_SAMPLE_B or heads != {(32, 32, 0)} or not summary["finite"]:
+        fail(f"mnist: generate gave {len(pngs)} PNGs of {heads}, finite={summary['finite']}")
+    return {"mnist_train": trained, "mnist_sample": sampled}, shapes
+
+
+def phase_uncond():
+    """cifar10_uncond.json at full width (x0 output, snr_trunc, no labels):
+    (a) the f32 UNet on CUDA against the CPU at B=2; (b) one f32 train step
+    on CUDA against the CPU; (c) GRAPH_STEPS bf16 steps at B=64, graph
+    against eager, DDIM and ancestral. Returns (c)'s graph runs' launches."""
+    from vdiff_tpu_torch.factory import load_experiment_config
+
+    cfg, _ = load_experiment_config(UNCOND_CONFIG)
+    model = _perturbed_unet(dict(cfg, model=dict(cfg["model"], drop_rate=0.0)), num_classes=0)
+    gen = torch.Generator().manual_seed(42)
+    x, t = torch.randn(2, 32, 32, 3, generator=gen), torch.rand(2, generator=gen)
+    _unet_parity("uncond: unet", model, x, t, None, _launches(attn_fwd_online=ONLINE_PER_FWD,
+                                                              attn_fwd_qblk=QBLK_PER_FWD))
+    x_0 = torch.rand(2, 32, 32, 3, generator=gen) * 2 - 1
+    _train_step_parity("uncond: train-unet", cfg, model, x_0, None, None, TRAIN_STEP_LAUNCHES)
+    del model
+    bf16 = _perturbed_unet(cfg, num_classes=0, dtype=torch.bfloat16).cuda()
+    cgen = torch.Generator(device="cuda").manual_seed(43)
+    by_path = {}
+    for ddim in (True, False):
+        x_T = torch.randn(FUSED_B, 32, 32, 3, device="cuda", generator=cgen)
+        by_path["uncond_graph_" + ("ddim" if ddim else "ancestral")] = _graph_vs_eager(
+            f"cifar10_uncond B={FUSED_B}", bf16, cfg, 0.0, x_T, None, GRAPH_STEPS,
+            SAMPLE_FWD_LAUNCHES_BF16, use_ddim=ddim)
+    del bf16
+    torch.cuda.empty_cache()
+    return by_path
+
+
+def phase_learned(cfg):
+    """cifar10_cond's widths with model_var_type="learned" (2·3 outputs, the
+    second half a variance logit) and loss_type="kl": (a) one f32 train step
+    on CUDA against the CPU; (b) calc_all_bpd at B=2, T=8 on CUDA against the
+    CPU (the nll bound); (c) GRAPH_STEPS bf16 ancestral steps at CFG w=0.1
+    B=32, graph against eager, which replays the interpolated log-variance.
+    Returns (b)'s and (c)'s launches."""
+    cfg = dict(cfg, diffusion=dict(cfg["diffusion"], model_var_type="learned", loss_type="kl"))
+    model = _perturbed_unet(dict(cfg, model=dict(cfg["model"], drop_rate=0.0)))
+    gen = torch.Generator().manual_seed(44)
+    x_0 = torch.randint(0, 256, (2, 32, 32, 3), generator=gen).float() / 127.5 - 1.0
+    _train_step_parity("learned: train-unet (kl loss)", cfg, model, x_0, torch.tensor([3, 7]),
+                       torch.tensor([True, False]), TRAIN_STEP_LAUNCHES)
+    by_path = {"learned_nll": _bpd_parity("learned: nll", cfg, model)}
+    del model
+    bf16 = _perturbed_unet(cfg, dtype=torch.bfloat16).cuda()
+    B = 32
+    x_T = torch.randn(B, 32, 32, 3, device="cuda", generator=torch.Generator(device="cuda").manual_seed(45))
+    y = (torch.arange(B, device="cuda") % 10 + 1).float()
+    by_path["learned_graph_ancestral"] = _graph_vs_eager(
+        f"cifar10_cond learned variance w=0.1 B={B}", bf16, cfg, 0.1, x_T, y, GRAPH_STEPS,
+        SAMPLE_FWD_LAUNCHES_BF16, use_ddim=False)
+    del bf16
+    torch.cuda.empty_cache()
+    return by_path
 
 
 def phase_remat(cfg, card):
@@ -2161,7 +2441,6 @@ def phase_nll(cfg, model, ckpt):
     at B=2, T=8 on CUDA against the CPU, same weights and noise. Returns the
     run's launches under the f32 kernels' names."""
     from vdiff_tpu_torch import eval as eval_cli
-    from vdiff_tpu_torch.factory import build_diffusion
 
     _reset_counts()
     torch.cuda.synchronize()
@@ -2182,26 +2461,44 @@ def phase_nll(cfg, model, ckpt):
     if launched != want:
         fail(f"nll: launches {launched}, expected {want}")
 
+    _bpd_parity("nll", cfg, model)
+    return {"attn_fwd_online_f32": launched["attn_fwd_online"],
+            "attn_fwd_qblk": launched["attn_fwd_qblk"]}
+
+
+def _bpd_parity(phase, cfg, model):
+    """calc_all_bpd at B=BPD_B, T=BPD_T on the f32 ``model`` on CUDA against
+    the CPU, same weights, labels and noise: the total bits/dim within
+    BPD_RTOL relative. Returns the CUDA run's launches under the f32
+    kernels' names (attn_fwd_online_f32, attn_fwd_qblk)."""
+    from vdiff_tpu_torch.factory import build_diffusion
+
     diffusion, _ = build_diffusion(cfg["diffusion"], w_guide=0.0, sample_timesteps=BPD_T,
                                    continuous_gate=False)
     gen = torch.Generator().manual_seed(30)
     x_0 = torch.randint(0, 256, (BPD_B, 32, 32, 3), generator=gen).float() / 127.5 - 1.0
-    y = torch.tensor([3.0, 7.0])
+    y = torch.tensor([3.0, 7.0]) if model.num_classes else None
     noise = torch.randn((BPD_T,) + tuple(x_0.shape), generator=gen)
     model_gpu = copy.deepcopy(model).cuda()
-    got = diffusion.calc_all_bpd(model_gpu, x_0.cuda(), y.cuda(), noise=noise.cuda())
+    _reset_counts()
+    got = diffusion.calc_all_bpd(model_gpu, x_0.cuda(), None if y is None else y.cuda(),
+                                 noise=noise.cuda())
+    launched = _counts()
     del model_gpu
     ref = diffusion.calc_all_bpd(model, x_0, y, noise=noise)
     total, ref_total = got[0].cpu().numpy(), ref[0].numpy()
     err = abs(total - ref_total)
     bound = BPD_RTOL * abs(ref_total)
     kl_err = (got[1][:, 1:].cpu() - ref[1][:, 1:]).abs().max().item()
-    print(f"nll: calc_all_bpd B={BPD_B} T={BPD_T} f32 cuda vs cpu: total {total} vs {ref_total}, "
-          f"err {err} (bound {BPD_RTOL} relative), KL terms max err "
+    print(f"{phase}: calc_all_bpd B={BPD_B} T={BPD_T} f32 cuda vs cpu: total {total} vs "
+          f"{ref_total}, err {err} (bound {BPD_RTOL} relative), KL terms max err "
           f"{kl_err} of {ref[1][:, 1:].abs().max().item()}, decoder terms {got[1][:, 0].tolist()} "
-          f"vs {ref[1][:, 0].tolist()}", flush=True)
+          f"vs {ref[1][:, 0].tolist()}, launches {_nonzero(launched)}", flush=True)
     if not (bool((err <= bound).all()) and math.isfinite(float(total.sum()))):
-        fail(f"nll: calc_all_bpd cuda {total} vs cpu {ref_total}, bound {bound}")
+        fail(f"{phase}: calc_all_bpd cuda {total} vs cpu {ref_total}, bound {bound}")
+    want = {k: v * BPD_T for k, v in NLL_FWD_LAUNCHES.items()}
+    if launched != want:
+        fail(f"{phase}: calc_all_bpd launched {launched}, expected {want}")
     return {"attn_fwd_online_f32": launched["attn_fwd_online"],
             "attn_fwd_qblk": launched["attn_fwd_qblk"]}
 
@@ -2374,6 +2671,14 @@ def phase_evaluator(cfg, model, tmp, pre):
     del trainer, bf16
     torch.cuda.empty_cache()
 
+def _timed(name, phase, *args):
+    """``phase(*args)``, then a line with its seconds on the host clock."""
+    t0 = time.perf_counter()
+    out = phase(*args)
+    print(f"{name}: the phase took {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this check needs an NVIDIA GPU")
@@ -2390,6 +2695,7 @@ def main():
     by_path = {}  # each main path's device launches, read just after its run
     with tempfile.TemporaryDirectory() as tmp:
         by_path["cifar_sample"], ckpt, default_rate = phase_sample(model, tmp)
+        by_path["cifar_ancestral"] = _timed("ancestral", phase_ancestral_sample, ckpt, tmp)
         # the eval path: nll in f32 (the eval path's launches), then the
         # metric nets, the dress rehearsal and the Evaluator
         by_path["eval_nll"] = phase_nll(cfg, model, ckpt)
@@ -2411,6 +2717,13 @@ def main():
         # the train CLI turns cuDNN's autotuner on (defaults.json); the later
         # phases run as the generate CLI and the profile scripts do, without it
         torch.backends.cudnn.benchmark = False
+        # the configurations besides cifar10_cond and celeba
+        mnist_paths, mnist_shapes = _timed("mnist", phase_mnist, tmp)
+        by_path.update(mnist_paths)
+        for name, shapes in mnist_shapes.items():
+            record[name]["shapes"] = shapes
+        by_path.update(_timed("uncond", phase_uncond))
+        by_path.update(_timed("learned", phase_learned, cfg))
 
         record.update(phase_celeba_kernels())
         celeba_cfg, _ = load_experiment_config(CELEBA_CONFIG)

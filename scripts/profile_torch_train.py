@@ -1,13 +1,14 @@
 """Where the port's train step spends its time on the GPU.
 
-    python scripts/profile_torch_train.py [--config synthetic_flagship|celeba] [--batch B]
+    python scripts/profile_torch_train.py [--config synthetic_flagship|celeba|mnist] [--batch B]
         [--steps 8] [--cudnn-benchmark] [--remat | --remat-policy conv]
         [--out profile_train.txt]
 
 Builds the full-width UNet of ``vdiff_tpu_torch`` for ``--config`` (random
 weights, bf16 activations, dropout as configured): synthetic_flagship, the
-cifar10_cond model at the default B=128, or celeba at the JAX bench's B=48
-(bench.py:380-408: no remat, multi-hot tags). Its train step (loss, backward,
+cifar10_cond model at the default B=128, celeba at the JAX bench's B=48
+(bench.py:380-408: no remat, multi-hot tags), or mnist (one input channel,
+heads of 128) at its config's B=128. Its train step (loss, backward,
 clip, AdamW, EMA; the config's optimizer settings) runs on seeded images and
 labels: 3 warm-up steps (each timed on its own), then ``--steps`` steps timed
 (host clock around synchronised steps), then 2 steps profiled with ``torch.profiler``. Prints the
@@ -38,8 +39,9 @@ from vdiff_tpu_torch.factory import (CONFIG_DIR, build_diffusion, build_unet,  #
                                      load_experiment_config)
 from vdiff_tpu_torch.train_lib import Optimizer, make_train_step  # noqa: E402
 
-# config → (classes, multi-tag, resolution, default batch)
-SETUPS = {"synthetic_flagship": (10, False, 32, 128), "celeba": (40, True, 64, 48)}
+# config → (classes, multi-tag, resolution, default batch, input channels)
+SETUPS = {"synthetic_flagship": (10, False, 32, 128, 3), "celeba": (40, True, 64, 48, 3),
+          "mnist": (10, False, 32, 128, 1)}
 
 
 def _device_us(evt):
@@ -68,11 +70,12 @@ def main():
         capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0])
     torch.backends.cudnn.benchmark = args.cudnn_benchmark
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
-    num_classes, multitags, res, batch = SETUPS[args.config]
+    num_classes, multitags, res, batch, channels = SETUPS[args.config]
     args.batch = args.batch or batch
     cfg, _ = load_experiment_config(os.path.join(CONFIG_DIR, f"{args.config}.json"))
     tr, cond = cfg["train"], cfg["conditional"]
-    model = build_unet(cfg["model"], in_channels=3, model_out_type=cfg["diffusion"]["model_out_type"],
+    model = build_unet(cfg["model"], in_channels=channels,
+                       model_out_type=cfg["diffusion"]["model_out_type"],
                        num_classes=num_classes, multitags=multitags, dtype=torch.bfloat16,
                        generator=torch.Generator().manual_seed(0), remat=args.remat,
                        remat_policy=args.remat_policy).cuda()
@@ -84,7 +87,7 @@ def main():
     step = make_train_step(model, diffusion, opt, timesteps, use_cfg=True,
                            ema_decay=tr["ema_decay"], ema_model=ema)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    x = torch.rand(args.batch, res, res, 3, device="cuda", generator=gen) * 2 - 1
+    x = torch.rand(args.batch, res, res, channels, device="cuda", generator=gen) * 2 - 1
     if multitags:
         y = (torch.rand(args.batch, num_classes, device="cuda", generator=gen) < 0.5).float()
     else:

@@ -3,7 +3,8 @@ loader (crop 148×148 at (40, 15) → 64×64 PIL-BILINEAR, flip, normalise) bit
 for bit against the JAX package's, the multi-tag label stream of the generate
 CLI against the JAX CLI's, and both CLIs end to end on a tiny CelebA tree
 that the tests write with PIL; and the twins of tests/test_native.py's resize
-and normalize cases and of the JAX package's 2-D toy-data helpers."""
+and normalize cases and of the JAX package's 2-D toy-data helpers (its
+histogram and discrete KL too)."""
 
 import json
 import os
@@ -193,3 +194,27 @@ def test_toy_data_helpers_match_jax(tmp_path):
     for name in ("a.png", "b.png"):
         with Image.open(tmp_path / name) as im:
             assert im.size == (600, 600)
+
+
+@pytest.mark.parametrize("bins,value_range", [
+    (8, None), ("auto", 4.0), ((5, 7), (-3, 5)), (6, ((-4, 4), (-2, 6))), ("auto", 3),
+])
+def test_histogram_helpers_match_jax(bins, value_range):
+    """hist2d equals the JAX package's bit for bit on integer bins, "auto" and
+    a pair of bins, with a range given as a number, a pair or a pair of pairs;
+    discrete_klv2d of two such histograms (normalised, and raw counts with
+    empty bins) within 1e-12."""
+    from vdiff_tpu.ops import numerics as jnum
+    from vdiff_tpu_torch.utils import misc
+
+    rng = np.random.RandomState(7)
+    pts, other = rng.randn(500, 2) * 2, rng.randn(500, 2) * 2 + 0.5
+    h1, h2 = misc.hist2d(pts, bins, value_range), misc.hist2d(other, bins, value_range)
+    for got, data in ((h1, pts), (h2, other)):
+        ref = jnum.hist2d(data, bins, value_range)
+        assert got.shape == ref.shape and got.sum() > 0
+        assert np.array_equal(got, ref)
+    for a, b in ((h1, h2), (h1 / h1.sum(), h2 / h2.sum())):
+        got, ref = misc.discrete_klv2d(a, b), jnum.discrete_klv2d(a, b)
+        assert np.isfinite(got)
+        np.testing.assert_allclose(got, ref, rtol=0, atol=1e-12)

@@ -1,5 +1,5 @@
-"""Misc utilities: seeding, sample-grid images, 2-D toy-data helpers,
-running statistics (counterpart of ``vdiff_tpu/utils/misc.py``). The grid is
+"""Misc utilities: seeding, sample-grid images, 2-D toy-data helpers (the
+histogram and its discrete KL too), running statistics (counterpart of ``vdiff_tpu/utils/misc.py``). The grid is
 assembled in numpy and written with the port's stdlib PNG encoder; the
 scatterplot imports matplotlib when it is called."""
 
@@ -90,6 +90,30 @@ def save_scatterplot(fpath, x, y=None, xlim=None, ylim=None):
     plt.tight_layout()
     plt.savefig(fpath)
     plt.close()
+
+
+def discrete_klv2d(hist1, hist2, eps: float = 1e-9):
+    """Discretized empirical KL between two 2-D histograms,
+    Σ hist2·(log(hist2 + eps) − log(hist1 + eps)) (toy-data evaluation)."""
+    hist1, hist2 = np.asarray(hist1), np.asarray(hist2)
+    return np.sum(hist2 * (np.log(hist2 + eps) - np.log(hist1 + eps)))
+
+
+def hist2d(data, bins, value_range=None):
+    """2-D histogram matrix of an (N, 2) point set. ``bins="auto"`` takes
+    ⌊√(N // 10)⌋; ``value_range`` is a number r (both axes (-r, r)), one
+    (lo, hi) pair for both axes, or a pair of pairs."""
+    data = np.asarray(data)
+    if bins == "auto":
+        bins = math.floor(math.sqrt(len(data) // 10))
+    if value_range is not None:
+        if isinstance(value_range, (int, float)):
+            value_range = ((-value_range, value_range),) * 2
+        elif hasattr(value_range, "__iter__"):
+            if not hasattr(next(iter(value_range)), "__iter__"):
+                value_range = (tuple(value_range),) * 2
+    x, y = data[:, 0], data[:, 1]
+    return np.histogram2d(x, y, bins=bins, range=value_range)[0]
 
 
 class RunningStatistics:
