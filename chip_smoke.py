@@ -51,6 +51,13 @@ Phases, one output line each (any failure raises and exits non-zero):
   4h. evaluator: train_lib.Evaluator with the Trainer's graph-replayed eval
      sampler (16 DDIM steps, labels drawn), 3 batches of 128, against A's
      statistics: a finite FID;
+  4i. gate: python -m vdiff_tpu_torch.quality_gate (train -> generate -> eval,
+     each stage a process of its own) at the cifar10_cond widths in f32, as
+     the JAX gate runs them: synthetic_flagship.json, 1 epoch of 128 (4
+     steps), 256 PNGs at 16 DDIM steps, eval's fid, is, pr and nll on 64
+     images, from <tmp> (4f's weights and 4g's statistics in ./precomputed):
+     exit 0, the JSON last line, 256 finite PNGs, all four metrics finite, and
+     each stage's f32 launches read from its own summary;
   4p. progressive: generate --progressive (16 steps at w=0.1, a snapshot
      every 4, B=16): 16 finite strips of 32x128 pixels;
   4a. fused-kernels: gn_film_silu_kernel (B10) and fused_gn_silu_conv3x3 (B11)
@@ -59,9 +66,9 @@ Phases, one output line each (any failure raises and exits non-zero):
      FiLM; B11 at 256->256 in its conv1 and conv2 forms), B10 at celeba's
      B=32 shapes (64x64 at C=192, 384 and 576, whose slabs take clusters of 8
      and 16 blocks, and 8x8 at 1536) with its plan printed and two bf16 calls
-     held to the same bits, and, off the path, at celeba's fusable widths,
-     one C_in != C_out case, the bare conv with and without a skip and odd
-     shapes (groups of 6 and 42, 4 groups of 6, a non-square image, ragged
+     held to the same bits, and, off the path, one C_in != C_out case, the
+     bare conv with and without a skip and odd shapes (groups of 6 and 42, 4
+     groups of 6, a non-square image, ragged
      tiles); f32 and bf16, then timed in bf16 beside the twin, the card's
      bound and F.group_norm on the same x; B11's bf16 calls
      run the tensor-core conv of gn_silu_conv3x3_tc.cu, timed beside the FMA
@@ -134,13 +141,28 @@ Phases, one output line each (any failure raises and exits non-zero):
      (in bf16, phase 11, attn_fwd_tc takes attn_fwd_qblk's 8);
  10. celeba-train-unet: one full-width f32 train step at B=1 on the GPU against
      the CPU, dropout off, with the per-step launch counts of CELEBA_STEP_LAUNCHES;
- 10a. celeba-graph: phase 3a's check on the celeba model in bf16 at B=32, 4
-     steps, with the switches off and with VDIFF_FUSED_GN=1 (B10 on thread-block
-     clusters at 64x64);
+ 10a. celeba-graph (after 10b and 10c): phase 3a's check on the celeba model in
+     bf16 at B=32, 4 steps, with the switches off, with VDIFF_FUSED_GN=1 (B10
+     on thread-block clusters at 64x64) and with both switches;
+ 10b. celeba-nll: celeba's nll at full width in f32 (TF32 off), as the eval CLI
+     runs it: attn_fwd_pack1 (B6) in f32, attn_fwd_online.cu, at B=1 and
+     T=4096, 1024, 256 (N=6) and 256 (N=12) against its twin, timed beside
+     SDPA in f32 and the card's f32 bound; then calc_all_bpd at B=1, T=4 on
+     seeded images and multi-hot tags, CUDA vs the CPU, same weights and
+     noise: total within 1e-3 relative, B6 x10, B2 x8 and B1 x9 a forward on
+     the f32 kernels;
+ 10c. celeba-fused: the bf16 celeba UNet at B=2 with both fused switches, with
+     VDIFF_FUSED_GN=1 alone and with VDIFF_FUSED_CONV=1 alone, each against
+     both off within 2^-4 of max|out| (the share printed), B11 x23 and B10 x77
+     a forward with both; B11 at each of its forms on that path at B=32
+     (conv1 and conv2 at 32x32x384, conv2 at 16x16x384, conv1 and conv2 at
+     8x8x768) against its twin in f32 and bf16, timed beside cuDNN's conv;
  11. celeba-sample: the generate CLI on the random-weight model with
      celeba.json, B=32, 16 DDIM steps at w=0, bf16, tags drawn from a written
      list_attr_celeba.txt: finite PNGs and 10 / 8 / 9 launches per forward
-     (attn_fwd_pack1 / attn_fwd_tc / attn_fwd_online);
+     (attn_fwd_pack1 / attn_fwd_tc / attn_fwd_online); then the same with
+     both fused switches (B11 x23 and B10 x77 a forward more), its samples/s
+     beside the first run's;
  12. celeba-train: 3 steps of the bf16 train step at B=48 on seeded images and
      multi-hot tags, each with CELEBA_STEP_LAUNCHES_BF16, a finite loss and
      the peak device memory;
@@ -180,15 +202,21 @@ Phases, one output line each (any failure raises and exits non-zero):
      sampler's eager loop): finite PNGs, 17 + 1 launches a forward on each
      rank, samples/s beside the plain CLI's; (c) the full-width celeba bf16
      forward at B=2 under --tp within 4·2^-8 of max|ref| of one rank, the same
-     weights in f32 within UNET_RTOL, B6 x10, B2 x8 and B1 x9 a rank;
+     weights in f32 within UNET_RTOL, B6 x10, B2 x8 and B1 x9 a rank; (d)
+     generate --tp --progressive and --spatial-shard --progressive at 4p's
+     settings in f32: 16 finite 32x128 strips, within UNET_RTOL of the plain
+     CLI's f32 strips from the same seed (PNGs within one level), 17 + 1
+     launches a forward on each rank;
  13. bench: python -m vdiff_tpu_torch.bench at full width with its sampling
      cut to 16 steps (--sample-steps), in this process: its JSON lines (the
      root bench's five, the canary and three arms, the headline last).
 Every kernel's launches in the JSON record are counted on the main paths
-(phases 4, 4q, 4e, 4c, 7, 7a, 7b's train and generate runs, 7c's and 7d's
-graph runs, 7d's calc_all_bpd, 11, 12, 12b's ddp_train_cli, fsdp_train_cli
-and dp_generate, read back from the torchrun rank's summary.json files, and
-12c's tp_generate and sp_generate, summed over the two ranks),
+(phases 4, 4q, 4e, 4i's gate_train, gate_generate and gate_eval, read back
+from each stage's summary, 4c, 7, 7a, 7b's train and generate runs, 7c's and
+7d's graph runs, 7d's calc_all_bpd, 10b's calc_all_bpd, 11's two runs, 12,
+12b's ddp_train_cli, fsdp_train_cli and dp_generate, read back from the
+torchrun rank's summary.json files, and 12c's tp_generate, sp_generate,
+tp_progressive and sp_progressive, summed over the two ranks),
 each run with the counts set to 0 just before it and read just after:
 "launches" is their sum over the paths, and "launches_by_path" each path's
 own count. A sampling path replays CUDA
@@ -201,7 +229,10 @@ tensor-core kernels of B1-B9 and B11 the FMA kernel's time on the same
 inputs, "before_ms"; phases 2 and 5 list every bf16 shape of a wrapper under
 "shapes", the first of them the record's own; B1's and B2's f32 calls, the
 eval path's, are attn_fwd_online_f32 and attn_fwd_qblk, with phase 2's f32
-shapes); the last line is
+shapes; B6's f32 calls, celeba's nll, are attn_fwd_pack1_f32, and B3's and
+the backward pair's f32 calls, the gate's train stage, attn_fwd_train_f32,
+attn_bwd_rows and attn_bwd_cols, with phase 10b's and phase 5's f32 shapes);
+the last line is
 {"ok": true, "device": {...}}.
 Imports nothing of JAX.
 """
@@ -266,6 +297,19 @@ FUSED_B = 64  # the fused sampling path's batch
 # the celeba forward with VDIFF_FUSED_GN=1: all 100 GroupNorms through B10
 CELEBA_FUSED_GN_FWD_LAUNCHES = _launches(attn_fwd_pack1=10, attn_fwd_tc=8, attn_fwd_online=9,
                                          gn_film_silu_kernel=100)
+# with VDIFF_FUSED_CONV=1 the 23 residual-block convs at 384 and 768 channels
+# go through B11 (fusable: C % 128, JAX's 14 MiB estimate; the 192- and
+# 576-wide ones stay cuDNN's); with both switches the 77 GroupNorms left alone
+# go through B10 (tests/test_torch_conv3x3.py pins both on the meta device)
+CELEBA_FUSED_CONV_FWD_LAUNCHES = _launches(attn_fwd_pack1=10, attn_fwd_tc=8, attn_fwd_online=9,
+                                           fused_gn_silu_conv3x3=23)
+CELEBA_FUSED_FWD_LAUNCHES = dict(CELEBA_FUSED_CONV_FWD_LAUNCHES, gn_film_silu_kernel=77)
+# B11's forms in that forward (H, W, C_in, C_out, film, skip, gn), held at
+# the sampler's B=32: conv1 (no FiLM, no skip) x2 and conv2 (FiLM + skip) x7
+# at 32x32x384, conv2 x1 at 16x16x384, conv1 x4 and conv2 x9 at 8x8x768
+CELEBA_CONV_SHAPES = [(32, 32, 384, 384, False, False, True), (32, 32, 384, 384, True, True, True),
+                      (16, 16, 384, 384, True, True, True), (8, 8, 768, 768, False, False, True),
+                      (8, 8, 768, 768, True, True, True)]
 # the graph phase: DDIM steps of each graph-vs-eager run (CIFAR, celeba)
 GRAPH_STEPS, CELEBA_GRAPH_STEPS = 8, 4
 # a replayed graph runs the eager step's kernels on the same inputs: no
@@ -551,6 +595,20 @@ def phase_kernels():
 # attn_fwd_qblk.cu): B1's wrapper counts both dtypes, so its f32 record and
 # launches go under a name of their own
 F32_RECORDS = {"attn_fwd_online": "attn_fwd_online_f32", "attn_fwd_qblk": "attn_fwd_qblk"}
+# ... and of every f32 call an f32 path makes (the eval CLI's nll, celeba's
+# nll, the quality gate's f32 stages): B6's f32 calls run attn_fwd_online.cu
+# under attn_fwd_pack1's count, B3's attn_fwd_train.cu under attn_fwd_train's,
+# B4's and B5's the attn_bwd_rows.cu + attn_bwd_cols.cu pair, each counted
+F32_PATH_NAMES = dict(F32_RECORDS, attn_fwd_pack1="attn_fwd_pack1_f32",
+                      attn_fwd_train="attn_fwd_train_f32", attn_bwd_rows="attn_bwd_rows",
+                      attn_bwd_cols="attn_bwd_cols")
+
+
+def _f32_path(counts):
+    """An f32 path's launches under the f32 kernels' JSON names."""
+    if any(n for k, n in counts.items() if k not in F32_PATH_NAMES):
+        fail(f"an f32 path launched {_nonzero(counts)}: a kernel without an f32 record")
+    return {F32_PATH_NAMES[k]: n for k, n in counts.items() if k in F32_PATH_NAMES and n}
 
 
 def _keep_shape(record, name, shape, rec):
@@ -714,7 +772,9 @@ def phase_train_kernels():
     T=1024, timed beside the pair on the same inputs (``before_ms``).
     Returns the per-kernel records in bf16: B3 and B4 at T=256, C=256 (8 of
     the 18 attention calls of a training forward; --allow-bf16), with every
-    bf16 shape of each under "shapes", and attn_bwd_tc at T=1024."""
+    bf16 shape of each under "shapes", and attn_bwd_tc at T=1024; and in f32
+    (attn_fwd_train_f32, attn_bwd_rows, attn_bwd_cols) at the same first
+    shape, with every f32 shape of each under "shapes"."""
     from vdiff_tpu_torch.ops import attention as A
 
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -782,6 +842,9 @@ def phase_train_kernels():
                     _keep_shape(record, name, (B, T, N, C), r)
                 elif bf16 and name not in record:
                     record[name] = r
+                elif not bf16 and name in ("attn_fwd_train", "attn_bwd_rows", "attn_bwd_cols"):
+                    # the f32 FMA kernels, which the quality gate's f32 train stage runs
+                    _keep_shape(record, F32_PATH_NAMES[name], (B, T, N, C), r)
             del qkv, g, dqkv
             torch.cuda.empty_cache()
     return record
@@ -1163,27 +1226,58 @@ def phase_graph(cfg):
                             per_fwd[conv, gn], eta, use_ddim=ddim)
 
 
-def phase_celeba_graph(cfg, model):
-    """The celeba model in bf16 at B=32: graph against eager, with the
-    switches off and with VDIFF_FUSED_GN=1 (B10 on thread-block clusters at
-    64x64)."""
+def _celeba_bf16(cfg, model):
+    """The celeba ``model``'s weights in the bf16 UNet on the card, for inference."""
     from vdiff_tpu_torch.factory import build_unet
 
     with torch.device("meta"):
-        bf16 = build_unet(cfg["model"], in_channels=3, model_out_type=cfg["diffusion"]["model_out_type"],
-                          num_classes=40, multitags=True, dtype=torch.bfloat16)
+        bf16 = build_unet(cfg["model"], in_channels=3,
+                          model_out_type=cfg["diffusion"]["model_out_type"], num_classes=40,
+                          multitags=True, dtype=torch.bfloat16)
     bf16.load_state_dict({k: v.cuda() for k, v in model.state_dict().items()}, assign=True)
-    bf16.eval()
+    return bf16.eval()
+
+
+def phase_celeba_graph(cfg, bf16):
+    """The celeba model in bf16 at B=32: graph against eager, with the
+    switches off, with VDIFF_FUSED_GN=1 (B10 on thread-block clusters at
+    64x64) and with both switches (B11 at 384 and 768 channels too)."""
     _, y = _celeba_inputs(CELEBA_SAMPLE_B, torch.Generator().manual_seed(22))
     gen = torch.Generator(device="cuda").manual_seed(23)
-    for gn in (False, True):
+    for conv, gn, per_fwd in ((False, False, CELEBA_FWD_LAUNCHES_BF16),
+                              (False, True, CELEBA_FUSED_GN_FWD_LAUNCHES),
+                              (True, True, CELEBA_FUSED_FWD_LAUNCHES)):
         x_T = torch.randn(CELEBA_SAMPLE_B, 64, 64, 3, device="cuda", generator=gen)
-        with _switches(False, gn):
-            _graph_vs_eager(f"celeba w=0 B={CELEBA_SAMPLE_B} VDIFF_FUSED_GN={int(gn)}", bf16, cfg,
-                            0.0, x_T, y.cuda(), CELEBA_GRAPH_STEPS,
-                            CELEBA_FUSED_GN_FWD_LAUNCHES if gn else CELEBA_FWD_LAUNCHES_BF16)
-    del bf16
+        with _switches(conv, gn):
+            _graph_vs_eager(f"celeba w=0 B={CELEBA_SAMPLE_B} VDIFF_FUSED_CONV={int(conv)} "
+                            f"VDIFF_FUSED_GN={int(gn)}", bf16, cfg, 0.0, x_T, y.cuda(),
+                            CELEBA_GRAPH_STEPS, per_fwd)
     torch.cuda.empty_cache()
+
+
+def phase_celeba_fused(bf16):
+    """celeba with the fused switches: (a) the bf16 UNet at B=2 with both on,
+    with VDIFF_FUSED_GN alone and with VDIFF_FUSED_CONV alone, each against
+    both off within FUSED_UNET_RTOL of the output's scale, and each
+    forward's launches; (b) B11 at every form of that forward
+    (CELEBA_CONV_SHAPES) at the sampler's B=32 against its twin, f32 and
+    bf16, timed beside cuDNN's bf16 conv. Returns (b)'s bf16 records."""
+    gen = torch.Generator().manual_seed(24)
+    x, y = _celeba_inputs(2, gen)
+    t = torch.rand(2, generator=gen)
+    _fused_unet("celeba-fused: unet", bf16, x.cuda(), t.cuda(), y.cuda(), CELEBA_FWD_LAUNCHES_BF16,
+                (("both switches", True, True, CELEBA_FUSED_FWD_LAUNCHES),
+                 ("VDIFF_FUSED_GN alone", False, True, CELEBA_FUSED_GN_FWD_LAUNCHES),
+                 ("VDIFF_FUSED_CONV alone", True, False, CELEBA_FUSED_CONV_FWD_LAUNCHES)))
+    kgen = torch.Generator(device="cuda").manual_seed(25)
+    B = CELEBA_SAMPLE_B
+    shapes = []
+    for H, W, C, CO, film, skip, gn in CELEBA_CONV_SHAPES:
+        rec = _conv_case("celeba-fused: fused-kernels (on the path)", kgen, B, H, W, C, CO, film,
+                         skip, gn)
+        shapes.append(dict(B=B, H=H, W=W, C=C, CO=CO, film=film, skip=skip, gn=gn, **rec))
+    torch.cuda.empty_cache()
+    return shapes
 
 
 def phase_bench():
@@ -1394,9 +1488,8 @@ def phase_fused_kernels():
     # (B, H, W, C_in, C_out, film, skip, gn): conv1 and conv2 forms on the path
     conv_cases = [(B, H, H, 256, 256, film, film, True) for H in (32, 16, 8)
                   for film in (False, True)]
-    conv_cases += [(32, 32, 32, 384, 384, True, True, True),   # celeba's fusable widths
-                   (32, 8, 8, 768, 768, True, True, True),
-                   (B, 16, 16, 512, 256, False, False, True),  # C_in != C_out
+    # (celeba's 384- and 768-wide forms run in phase celeba-fused, on its path)
+    conv_cases += [(B, 16, 16, 512, 256, False, False, True),  # C_in != C_out
                    (B, 16, 16, 256, 256, False, True, False),  # the bare conv (+ skip)
                    (B, 32, 32, 256, 256, False, False, False),  # the bare conv: one F.conv2d
                    (3, 5, 7, 192, 72, True, True, True),       # ragged tiles, groups of 6
@@ -1436,7 +1529,8 @@ def _fused_unet(phase, model, x, t, y, want_default, arms):
         out, launched = forward(conv, gn)
         err = (out - base).abs().max().item()
         print(f"{phase}: full width B={x.shape[0]} bf16, {name} vs both off: max_abs_err={err} "
-              f"(|out|max={scale}, limit {FUSED_UNET_RTOL * scale}), launches {_nonzero(launched)}",
+              f"(|out|max={scale}, limit {FUSED_UNET_RTOL * scale}: "
+              f"{err / (FUSED_UNET_RTOL * scale)} of it), launches {_nonzero(launched)}",
               flush=True)
         if not bool(torch.isfinite(out).all()) or err > FUSED_UNET_RTOL * scale:
             fail(f"{phase}: {name}: max err {err} > {FUSED_UNET_RTOL} * {scale}")
@@ -1628,7 +1722,11 @@ def _write_attr_table(root, rows, seed=5):
 
 
 def phase_celeba_sample(model, tmp):
-    """The generate CLI on celeba.json; returns the run's launch counts."""
+    """The generate CLI on celeba.json (bf16, B=32, CELEBA_STEPS DDIM steps at
+    w=0, tags from a written attribute table) with both fused switches off,
+    then with both on (VDIFF_FUSED_CONV=1 VDIFF_FUSED_GN=1, set for that run
+    only); returns each run's launches (paths celeba_sample and
+    celeba_fused_sample)."""
     from vdiff_tpu_torch import generate
 
     ckpt = os.path.join(tmp, "celeba.pt")
@@ -1637,22 +1735,32 @@ def phase_celeba_sample(model, tmp):
     data_root = os.path.join(tmp, "celeba_data")
     _write_attr_table(data_root, rows=64)
     B = CELEBA_SAMPLE_B
-    _reset_counts()
-    summary = generate.main([
-        "--config-path", CELEBA_CONFIG, "--ckpt-path", ckpt, "--data-root", data_root,
-        "--save-dir", os.path.join(tmp, "celeba_out"), "--use-ema", "--use-ddim", "--allow-bf16",
-        "--sample-timesteps", str(CELEBA_STEPS), "--w-guide", "0", "--batch-size", str(B),
-        "--total-size", str(B), "--seed", "0",
-    ])
-    launched = _device_launches("celeba-sample", _counts(), summary["stats"],
-                                CELEBA_FWD_LAUNCHES_BF16, CELEBA_STEPS)
-    pngs = len(glob.glob(os.path.join(summary["save_dir"], "*.png")))
-    print(f"celeba-sample: w=0 B={B}, {CELEBA_STEPS} DDIM steps bf16: "
-          f"{summary['images'] / summary['seconds']} samples/s ({summary['seconds']} s, the first "
-          f"batch's warm-up included), {pngs} PNGs, finite={summary['finite']}", flush=True)
-    if pngs != B or not summary["finite"]:
-        fail(f"celeba-sample: {pngs} PNGs (want {B}), finite={summary['finite']}")
-    return launched
+    by_path, rates = {}, {}
+    for path, name, on, per_fwd in (
+            ("celeba_sample", "switches off", False, CELEBA_FWD_LAUNCHES_BF16),
+            ("celeba_fused_sample", "VDIFF_FUSED_CONV=1 VDIFF_FUSED_GN=1", True,
+             CELEBA_FUSED_FWD_LAUNCHES)):
+        with _switches(on, on):
+            _reset_counts()
+            summary = generate.main([
+                "--config-path", CELEBA_CONFIG, "--ckpt-path", ckpt, "--data-root", data_root,
+                "--save-dir", os.path.join(tmp, f"{path}_out"), "--use-ema", "--use-ddim",
+                "--allow-bf16", "--sample-timesteps", str(CELEBA_STEPS), "--w-guide", "0",
+                "--batch-size", str(B), "--total-size", str(B), "--seed", "0",
+            ])
+            by_path[path] = _device_launches(f"celeba-sample: {name}", _counts(),
+                                             summary["stats"], per_fwd, CELEBA_STEPS)
+        pngs = len(glob.glob(os.path.join(summary["save_dir"], "*.png")))
+        rates[path] = summary["images"] / summary["seconds"]
+        print(f"celeba-sample: {name}, w=0 B={B}, {CELEBA_STEPS} DDIM steps bf16: "
+              f"{rates[path]} samples/s ({summary['seconds']} s, the first batch's warm-up "
+              f"included), {pngs} PNGs, finite={summary['finite']}", flush=True)
+        if pngs != B or not summary["finite"]:
+            fail(f"celeba-sample {name}: {pngs} PNGs (want {B}), finite={summary['finite']}")
+    print(f"celeba-sample: both switches {rates['celeba_fused_sample']} samples/s against "
+          f"{rates['celeba_sample']} with both off (one batch each, its warm-up included; the "
+          "bench phase's celeba _fused_gn line follows)", flush=True)
+    return by_path
 
 
 def phase_celeba_train(cfg):
@@ -2223,6 +2331,16 @@ def gloo_ddp_worker():
 MP_SAMPLE_B, MP_SAMPLE_STEPS = 16, 16
 MP_BF16_RTOL = 4 * 2.0 ** -8
 MP_MODES = {"tp": ("--tp",), "sp": ("--spatial-shard",), "tpsp": ("--tp", "--spatial-shard")}
+# (d) generate --progressive under --tp and under --spatial-shard on phase 4's
+# checkpoint at phase 4p's settings (PROGRESSIVE_STEPS DDIM steps at w=0.1, a
+# snapshot every PROGRESSIVE_FREQ, B=MP_SAMPLE_B), in f32, against the plain
+# CLI's f32 strips from the same seed: the f32 bound of (a), UNET_RTOL of
+# max(1, max|ref|) (the strips are a v-model's clipped x̂_0, so no step divides
+# by a small alpha), and the PNGs within one level of 255. In bf16 a
+# half-width conv rounds other sums than the whole one, and 16 steps carry
+# that past the bf16 forward bound, which the plain run itself keeps only
+# against the same kernels; so these runs are f32.
+MP_PROGRESSIVE_MODES = ("tp", "sp")
 
 
 def _mp_gen_args(tmp, name, ckpt, *flags):
@@ -2230,6 +2348,31 @@ def _mp_gen_args(tmp, name, ckpt, *flags):
             "--allow-bf16", "--sample-timesteps", str(MP_SAMPLE_STEPS), "--w-guide", "0",
             "--batch-size", str(MP_SAMPLE_B), "--total-size", str(MP_SAMPLE_B), "--seed", "0",
             "--save-dir", os.path.join(tmp, f"mp_gen_{name}"), *flags]
+
+
+def _mp_progressive_args(tmp, name, ckpt, *flags):
+    return ["--config-path", CONFIG, "--ckpt-path", ckpt, "--use-ema", "--use-ddim",
+            "--sample-timesteps", str(PROGRESSIVE_STEPS), "--progressive", "--pred-freq",
+            str(PROGRESSIVE_FREQ), "--w-guide", "0.1", "--batch-size", str(MP_SAMPLE_B),
+            "--total-size", str(MP_SAMPLE_B), "--seed", "0",
+            "--save-dir", os.path.join(tmp, f"mp_prog_{name}"), *flags]
+
+
+def _captured_generate(args, out):
+    """generate.main(args) with the float samples (strips) captured before the
+    PNG writer quantises them, saved to ``out`` (np.save) by the process that
+    writes the PNGs; returns the CLI's summary."""
+    from vdiff_tpu_torch import generate
+
+    captured, write = [], generate.write_pngs
+    generate.write_pngs = lambda save_dir, x: (captured.append(np.array(x)), write(save_dir, x))
+    try:
+        summary = generate.main(args)
+    finally:
+        generate.write_pngs = write
+    if captured:
+        np.save(out, np.concatenate(captured))
+    return summary
 
 
 def phase_mp(tmp, ckpt, card):
@@ -2241,8 +2384,10 @@ def phase_mp(tmp, ckpt, card):
 
     t0 = time.perf_counter()
     plain = generate.main(_mp_gen_args(tmp, "plain", ckpt))
+    plain_prog = _captured_generate(_mp_progressive_args(tmp, "plain", ckpt),
+                                    os.path.join(tmp, "mp_prog_plain.npy"))
     _run("mp: torchrun, two gloo ranks on one card (TP, SP, TP+SP forwards; generate --tp, "
-         "--spatial-shard; celeba TP forward)",
+         "--spatial-shard, each also with --progressive; celeba TP forward)",
          _torchrun(2, os.path.abspath(__file__), "--mp", tmp, ckpt))
     ranks = []
     for r in range(2):
@@ -2285,6 +2430,43 @@ def phase_mp(tmp, ckpt, card):
                 fail(f"mp: generate {name} on rank {r}: launches {counts} (want {want}), "
                      f"stats {run['stats']}")
         launched[f"{name}_generate"] = {k: sum(c[k] for c in per_rank) for k in KERNELS}
+    ref = np.load(os.path.join(tmp, "mp_prog_plain.npy"))
+    quant = lambda a: np.clip(a * 127.5 + 127.5, 0, 255).astype(np.uint8).astype(int)  # noqa: E731
+    bound = UNET_RTOL * max(1.0, float(np.abs(ref).max()))
+    L = PROGRESSIVE_STEPS // PROGRESSIVE_FREQ
+    want = {k: v * PROGRESSIVE_STEPS for k, v in NLL_FWD_LAUNCHES.items()}
+    for name in MP_PROGRESSIVE_MODES:
+        runs = [res["progressive"][name] for res in ranks]
+        got = np.load(os.path.join(tmp, f"mp_prog_{name}.npy"))
+        err = float(np.abs(got - ref).max()) if got.shape == ref.shape else math.inf
+        levels = int(np.abs(quant(got) - quant(ref)).max()) if got.shape == ref.shape else 256
+        pngs = glob.glob(os.path.join(tmp, f"mp_prog_{name}", "**", "*.png"), recursive=True)
+        sizes = {_png_header(f)[:2] for f in pngs}
+        per_rank = [{k: run["stats"]["launches"].get(k, 0) for k in KERNELS} for run in runs]
+        print(f"mp: generate {' '.join(MP_MODES[name])} --progressive, 2 ranks, f32 "
+              f"B={MP_SAMPLE_B} {PROGRESSIVE_STEPS} DDIM steps at w=0.1, a snapshot every "
+              f"{PROGRESSIVE_FREQ}: {len(pngs)} strips of {sizes} (width, height), max_abs_err "
+              f"{err} vs the plain CLI's f32 strips {got.shape} (bound UNET_RTOL x max(1, "
+              f"|ref|max) = {bound}), PNGs "
+              f"{levels} level(s) apart, finite {[run['finite'] for run in runs]}, "
+              f"{[run['seconds'] for run in runs]} s of sampling a rank "
+              f"({[run['images'] / run['seconds'] for run in runs]} samples/s) vs "
+              f"{plain_prog['seconds']} s plain (one batch, its warm-up included), launches a "
+              f"rank {[_nonzero(c) for c in per_rank]} ({card})", flush=True)
+        if (got.shape != ref.shape or got.shape != (MP_SAMPLE_B, 32, 32 * L, 3)
+                or not np.isfinite(got).all() or err > bound or levels > 1):
+            fail(f"mp: generate {name} --progressive: strips {got.shape}, max err {err} "
+                 f"(bound {bound}), {levels} levels")
+        if len(pngs) != MP_SAMPLE_B or sizes != {(32 * L, 32)} or \
+                not all(run["finite"] for run in runs):
+            fail(f"mp: generate {name} --progressive: {len(pngs)} strips of {sizes}")
+        for r, (run, counts) in enumerate(zip(runs, per_rank)):
+            if (counts != want or run["stats"]["eager_steps"] != PROGRESSIVE_STEPS
+                    or run["stats"]["graph"] or run["world_size"] != 2):
+                fail(f"mp: generate {name} --progressive on rank {r}: launches {counts} (want "
+                     f"{want}), stats {run['stats']}")
+        launched[f"{name}_progressive"] = _f32_path(
+            {k: sum(c[k] for c in per_rank) for k in KERNELS})
     for r, res in enumerate(ranks):
         c = res["celeba"]
         print(f"mp: celeba bf16 B=2 --tp rank {r}: max_abs_err {c['err']} vs the one-rank forward "
@@ -2376,6 +2558,13 @@ def mp_worker(tmp, ckpt):
         summary = generate.main(_mp_gen_args(tmp, name, ckpt, *MP_MODES[name]))
         res["generate"][name] = {k: summary[k] for k in ("images", "finite", "seconds", "stats",
                                                          "world_size")}
+    res["progressive"] = {}
+    for name in MP_PROGRESSIVE_MODES:
+        _reset_counts()
+        summary = _captured_generate(_mp_progressive_args(tmp, name, ckpt, *MP_MODES[name]),
+                                     os.path.join(tmp, f"mp_prog_{name}.npy"))
+        res["progressive"][name] = {k: summary[k] for k in ("images", "finite", "seconds", "stats",
+                                                            "world_size")}
     celeba_cfg, _ = load_experiment_config(CELEBA_CONFIG)
     celeba = _perturbed_unet(dict(celeba_cfg, model=dict(celeba_cfg["model"], drop_rate=0.0)),
                              num_classes=40, multitags=True, dtype=torch.bfloat16)
@@ -2462,23 +2651,24 @@ def phase_nll(cfg, model, ckpt):
         fail(f"nll: launches {launched}, expected {want}")
 
     _bpd_parity("nll", cfg, model)
-    return {"attn_fwd_online_f32": launched["attn_fwd_online"],
-            "attn_fwd_qblk": launched["attn_fwd_qblk"]}
+    return _f32_path(launched)
 
 
-def _bpd_parity(phase, cfg, model):
-    """calc_all_bpd at B=BPD_B, T=BPD_T on the f32 ``model`` on CUDA against
-    the CPU, same weights, labels and noise: the total bits/dim within
-    BPD_RTOL relative. Returns the CUDA run's launches under the f32
-    kernels' names (attn_fwd_online_f32, attn_fwd_qblk)."""
+def _bpd_parity(phase, cfg, model, B=BPD_B, T=BPD_T, res=32, y=None, per_fwd=NLL_FWD_LAUNCHES):
+    """calc_all_bpd at B, T on the f32 ``model`` on CUDA against the CPU, same
+    weights, labels (``y``; classes 3 and 7 for a class-conditional model
+    without it) and noise, on B seeded images of res x res on the 8-bit grid:
+    the total bits/dim within BPD_RTOL relative, ``per_fwd`` launches a
+    forward. Returns the CUDA run's launches under the f32 kernels' names."""
     from vdiff_tpu_torch.factory import build_diffusion
 
-    diffusion, _ = build_diffusion(cfg["diffusion"], w_guide=0.0, sample_timesteps=BPD_T,
+    diffusion, _ = build_diffusion(cfg["diffusion"], w_guide=0.0, sample_timesteps=T,
                                    continuous_gate=False)
     gen = torch.Generator().manual_seed(30)
-    x_0 = torch.randint(0, 256, (BPD_B, 32, 32, 3), generator=gen).float() / 127.5 - 1.0
-    y = torch.tensor([3.0, 7.0]) if model.num_classes else None
-    noise = torch.randn((BPD_T,) + tuple(x_0.shape), generator=gen)
+    x_0 = torch.randint(0, 256, (B, res, res, 3), generator=gen).float() / 127.5 - 1.0
+    if y is None and model.num_classes:
+        y = torch.tensor([3.0, 7.0])
+    noise = torch.randn((T,) + tuple(x_0.shape), generator=gen)
     model_gpu = copy.deepcopy(model).cuda()
     _reset_counts()
     got = diffusion.calc_all_bpd(model_gpu, x_0.cuda(), None if y is None else y.cuda(),
@@ -2490,17 +2680,58 @@ def _bpd_parity(phase, cfg, model):
     err = abs(total - ref_total)
     bound = BPD_RTOL * abs(ref_total)
     kl_err = (got[1][:, 1:].cpu() - ref[1][:, 1:]).abs().max().item()
-    print(f"{phase}: calc_all_bpd B={BPD_B} T={BPD_T} f32 cuda vs cpu: total {total} vs "
-          f"{ref_total}, err {err} (bound {BPD_RTOL} relative), KL terms max err "
-          f"{kl_err} of {ref[1][:, 1:].abs().max().item()}, decoder terms {got[1][:, 0].tolist()} "
-          f"vs {ref[1][:, 0].tolist()}, launches {_nonzero(launched)}", flush=True)
+    print(f"{phase}: calc_all_bpd B={B} T={T} f32 cuda vs cpu: total {total} vs "
+          f"{ref_total}, err {err} ({(err / abs(ref_total)).tolist()} relative, bound {BPD_RTOL}), "
+          f"KL terms max err {kl_err} of {ref[1][:, 1:].abs().max().item()}, decoder terms "
+          f"{got[1][:, 0].tolist()} vs {ref[1][:, 0].tolist()}, launches {_nonzero(launched)}",
+          flush=True)
     if not (bool((err <= bound).all()) and math.isfinite(float(total.sum()))):
         fail(f"{phase}: calc_all_bpd cuda {total} vs cpu {ref_total}, bound {bound}")
-    want = {k: v * BPD_T for k, v in NLL_FWD_LAUNCHES.items()}
+    want = {k: v * T for k, v in per_fwd.items()}
     if launched != want:
         fail(f"{phase}: calc_all_bpd launched {launched}, expected {want}")
-    return {"attn_fwd_online_f32": launched["attn_fwd_online"],
-            "attn_fwd_qblk": launched["attn_fwd_qblk"]}
+    return _f32_path(launched)
+
+
+# celeba's nll at full width: calc_all_bpd at B=1, T=4 in f32 (the eval CLI's
+# type), B6's f32 calls on attn_fwd_online.cu under attn_fwd_pack1's count;
+# B6 alone at the shapes a forward gives it at B=1 (N, T): up_1_us's T=4096,
+# down_1_*/up_1_* at T=1024, down_1_ds at T=256 and up_3_us's T=256 at N=12
+CELEBA_NLL_B, CELEBA_NLL_T = 1, 4
+CELEBA_NLL_SHAPES = ((4096, 6), (1024, 6), (256, 6), (256, 12))
+
+
+def phase_celeba_nll(cfg, model):
+    """celeba's nll at full width in f32 with TF32 off, as the eval CLI runs
+    it: (a) attn_fwd_pack1 (B6) in f32, attn_fwd_online.cu, at B=1 and each of
+    CELEBA_NLL_SHAPES against its twin within F32_ATOL, timed beside the twin,
+    SDPA in f32 and the card's f32 bound; (b) calc_all_bpd at B=1, T=4 on
+    the f32 celeba UNet on CUDA against the CPU, seeded images and multi-hot
+    tags, same weights and noise: the total within BPD_RTOL relative,
+    CELEBA_FWD_LAUNCHES a forward. Returns (a)'s record (the first shape's,
+    every shape's under "shapes") and (b)'s launches."""
+    from vdiff_tpu_torch.ops import attention as A
+
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    record, B, C = {}, CELEBA_NLL_B, 64
+    for T, N in CELEBA_NLL_SHAPES:
+        qkv = torch.randn(B, T, 3 * N * C, device="cuda", generator=gen)
+        tag = f"attn_fwd_pack1 B={B} T={T} N={N} C={C} float32"
+        err = _check_fwd(tag, A.attn_fwd_pack1(qkv, N), A.attention_qkv_lse_reference(qkv, N)[0],
+                         torch.float32)
+        rec = {"max_abs_err": err, "ms": cuda_ms(lambda: A.attn_fwd_pack1(qkv, N), iters=5),
+               "plain_ms": cuda_ms(lambda: A.attention_qkv_lse_reference(qkv, N), iters=5),
+               "library_ms": cuda_ms(_sdpa(qkv, N), iters=5),
+               **_bound("fwd", B, T, N, C, torch.float32)}
+        print(f"celeba-nll: {tag}: {_fmt(rec)} (library: SDPA in f32)", flush=True)
+        _keep_shape(record, "attn_fwd_pack1_f32", (B, T, N, C), rec)
+        del qkv
+    torch.cuda.empty_cache()
+    _, y = _celeba_inputs(CELEBA_NLL_B, torch.Generator().manual_seed(27))
+    launched = _bpd_parity("celeba-nll", cfg, model, B=CELEBA_NLL_B, T=CELEBA_NLL_T, res=64, y=y,
+                           per_fwd=CELEBA_FWD_LAUNCHES)
+    torch.cuda.empty_cache()
+    return record, launched
 
 
 def _write_metric_weights(pre):
@@ -2671,6 +2902,105 @@ def phase_evaluator(cfg, model, tmp, pre):
     del trainer, bf16
     torch.cuda.empty_cache()
 
+# the quality gate (phase 4i): python -m vdiff_tpu_torch.quality_gate at the
+# cifar10_cond widths (synthetic_flagship.json) in f32, as the JAX gate runs
+# them (it passes no --allow-bf16), from <tmp>, where 4f's synthetic metric
+# weights and 4g's FID statistics and P&R manifold lie in ./precomputed: the
+# train stage takes GATE_TRAIN_STEPS steps of 128 on the 512 synthetic images
+# and draws the epoch-end grid (the config's 16 images, STEPS DDIM steps);
+# generate writes GATE_IMAGES PNGs in batches of 128 at GATE_SAMPLE_STEPS steps;
+# eval runs fid, is, pr on GATE_EVAL images and nll on as many test images in
+# one batch, STEPS steps. Every stage is a process of its own; the kernels
+# built in this one load from vdiff_tpu_torch/_build.
+GATE_IMAGES, GATE_SAMPLE_STEPS, GATE_EVAL, GATE_TRAIN_STEPS = 256, 16, 64, 4
+GATE_ARGS = ["--config", "vdiff_tpu_torch/configs/synthetic_flagship.json", "--dataset",
+             "synthetic", "--epochs", "1", "--batch-size", "128", "--total-size", str(GATE_IMAGES),
+             "--sample-timesteps", str(GATE_SAMPLE_STEPS), "--eval-total-size", str(GATE_EVAL),
+             "--eval-batch-size", str(GATE_EVAL), "--metrics", "fid", "is", "pr", "nll"]
+GATE_TIMEOUT = 600
+
+
+def _finite(text, sep):
+    """Whether every number in ``text`` (a metric the eval CLI prints as
+    "a +/- b" or "a/b", or a float) is finite."""
+    try:
+        return all(math.isfinite(float(v)) for v in str(text).split(sep))
+    except ValueError:
+        return False
+
+
+def phase_gate(tmp, pre, card):
+    """The quality gate at full width (GATE_ARGS) in a subprocess whose
+    working directory holds ``pre`` as ./precomputed: exit 0, the JSON last
+    line, GATE_IMAGES finite PNGs, and fid, is, pr and nll all computed and
+    finite by the eval stage (a metric skipped for want of weights fails
+    here). Each stage's launches are read from its own summary (train's and
+    generate's summary.json, eval's eval_summary.json): TRAIN_STEP_LAUNCHES
+    a step and the grid's NLL_FWD_LAUNCHES a forward, 17 + 1 a forward for
+    generate and eval's nll, all on the f32 kernels. Returns the three
+    stages' launches (paths gate_train, gate_generate, gate_eval)."""
+    work = os.path.join(tmp, "gate")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [REPO_ROOT] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "vdiff_tpu_torch.quality_gate", *GATE_ARGS,
+                           "--work-dir", work, "--precomputed-dir", pre],
+                          cwd=tmp, env=env, capture_output=True, text=True, timeout=GATE_TIMEOUT)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"gate: exit {proc.returncode}\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    lines = proc.stdout.strip().splitlines()
+    for line in lines:
+        if line.startswith(("===", "---", "checkpoint:", "FID", "IS", "PR", "NLL", "1/1 epochs",
+                            "batch ", "nll ")):
+            print(f"gate: {line}", flush=True)
+    last = json.loads(lines[-1])
+    images = last["images"]
+    gen = _summary(images)
+    with open(os.path.join(images, "eval_summary.json")) as f:
+        ev = json.load(f)
+    train = _summary(os.path.join(work, "exps"))
+    results = ev["results"]
+    pngs = len(glob.glob(os.path.join(images, "*.png")))
+    print(f"gate: quality_gate {last['quality_gate']} in {seconds:.1f} s (three processes; "
+          f"{card}): train {train['steps']} steps, loss {train['loss']}, {train['img_per_s']} "
+          f"img/s after the first step; generate {gen['images']} images, finite={gen['finite']}, "
+          f"{gen.get('samples_per_s')} samples/s after the first batch; eval in "
+          f"{ev['seconds']:.1f} s: {results}", flush=True)
+    if last["quality_gate"] != "ok" or pngs != GATE_IMAGES or gen["images"] != GATE_IMAGES or \
+            not gen["finite"]:
+        fail(f"gate: {last}, {pngs} PNGs, generate summary {gen}")
+    if not (isinstance(results.get("fid"), float) and math.isfinite(results["fid"])
+            and _finite(results.get("is"), " +/- ") and _finite(results.get("pr"), "/")
+            and isinstance(results.get("nll"), float) and math.isfinite(results["nll"])):
+        fail(f"gate: eval results {results}: every metric must be computed and finite")
+    if train["steps"] != GATE_TRAIN_STEPS or not math.isfinite(train["loss"]):
+        fail(f"gate: train {train['steps']} steps, loss {train['loss']}")
+
+    # train: the steps, then the grid's graph-replayed sampler (its captures
+    # launched nothing, its replays uncounted)
+    sampler = train["sampler"]
+    train_dev = {k: train["launches"].get(k, 0) - sampler["captured_launches"].get(k, 0)
+                 + sampler["replayed_launches"].get(k, 0) for k in KERNELS}
+    want = {k: v * GATE_TRAIN_STEPS + NLL_FWD_LAUNCHES[k] * STEPS
+            for k, v in TRAIN_STEP_LAUNCHES.items()}
+    if train_dev != want:
+        fail(f"gate: train launched {train_dev}, expected {want}")
+    device = {k: gen["stats"]["launches"].get(k, 0) for k in KERNELS}
+    counted = {k: device[k] + gen["stats"]["captured_launches"].get(k, 0)
+               - gen["stats"]["replayed_launches"].get(k, 0) for k in KERNELS}
+    gen_dev = _device_launches("gate: generate", counted, {**gen["stats"], "launches": device},
+                               NLL_FWD_LAUNCHES, GATE_SAMPLE_STEPS * GATE_IMAGES // 128)
+    ev_dev = {k: ev["launches"].get(k, 0) for k in KERNELS}
+    if ev_dev != {k: v * STEPS for k, v in NLL_FWD_LAUNCHES.items()}:
+        fail(f"gate: eval launched {ev_dev}, expected {NLL_FWD_LAUNCHES} x {STEPS}")
+    print(f"gate: f32 launches: train {_nonzero(train_dev)}, generate {_nonzero(gen_dev)}, eval "
+          f"{_nonzero(ev_dev)}", flush=True)
+    return {"gate_train": _f32_path(train_dev), "gate_generate": _f32_path(gen_dev),
+            "gate_eval": _f32_path(ev_dev)}
+
+
 def _timed(name, phase, *args):
     """``phase(*args)``, then a line with its seconds on the host clock."""
     t0 = time.perf_counter()
@@ -2704,6 +3034,7 @@ def main():
         phase_metric_nets(pre)
         phase_rehearsal(ckpt, tmp, pre)
         phase_evaluator(cfg, model, tmp, pre)
+        by_path.update(_timed("gate", phase_gate, tmp, pre, card))
         del model
         phase_progressive(ckpt, tmp)
         record.update(phase_fused_kernels())
@@ -2729,8 +3060,15 @@ def main():
         celeba_cfg, _ = load_experiment_config(CELEBA_CONFIG)
         model = phase_celeba_unet(celeba_cfg)
         phase_celeba_train_unet(celeba_cfg, model)
-        phase_celeba_graph(celeba_cfg, model)
-        by_path["celeba_sample"] = phase_celeba_sample(model, tmp)
+        nll_record, by_path["celeba_nll"] = _timed("celeba-nll", phase_celeba_nll, celeba_cfg,
+                                                   model)
+        record.update(nll_record)
+        bf16 = _celeba_bf16(celeba_cfg, model)
+        conv_shapes = _timed("celeba-fused", phase_celeba_fused, bf16)
+        record["fused_gn_silu_conv3x3"].setdefault("shapes", []).extend(conv_shapes)
+        phase_celeba_graph(celeba_cfg, bf16)
+        del bf16
+        by_path.update(_timed("celeba-sample", phase_celeba_sample, model, tmp))
         del model
         by_path["celeba_train"] = phase_celeba_train(celeba_cfg)
         phase_remat(celeba_cfg, card)
@@ -2782,6 +3120,18 @@ def main():
                                 "vdiff_tpu/ops/attention.py:37"),
         "attn_fwd_qblk": ("vdiff_tpu_torch/csrc/attn_fwd_qblk.cu",
                           "vdiff_tpu/ops/attention.py:224"),
+        # B6 in f32, celeba's nll: B1's FMA kernel under attn_fwd_pack1's count
+        "attn_fwd_pack1_f32": ("vdiff_tpu_torch/csrc/attn_fwd_online.cu",
+                               "vdiff_tpu/ops/attention.py:318"),
+        # B3, B4 and B5 in f32, the quality gate's train stage: the FMA
+        # forward and the row and column passes of the backward (B5's T=1024
+        # calls run the same pair)
+        "attn_fwd_train_f32": ("vdiff_tpu_torch/csrc/attn_fwd_train.cu",
+                               "vdiff_tpu/ops/attention.py:184"),
+        "attn_bwd_rows": ("vdiff_tpu_torch/csrc/attn_bwd_rows.cu",
+                          "vdiff_tpu/ops/attention.py:204"),
+        "attn_bwd_cols": ("vdiff_tpu_torch/csrc/attn_bwd_cols.cu",
+                          "vdiff_tpu/ops/attention.py:204"),
     }
     kernels = []
     for name, (source, replaces) in meta.items():

@@ -28,7 +28,7 @@ PORT_MODULES = [
     "vdiff_tpu_torch.metrics.device_apply", "vdiff_tpu_torch.metrics.manifests",
     "vdiff_tpu_torch.parallel", "vdiff_tpu_torch.parallel.mesh", "vdiff_tpu_torch.parallel.fsdp",
     "vdiff_tpu_torch.parallel.dryrun", "vdiff_tpu_torch.parallel.tp",
-    "vdiff_tpu_torch.parallel.spatial",
+    "vdiff_tpu_torch.parallel.spatial", "vdiff_tpu_torch.quality_gate",
 ]
 
 

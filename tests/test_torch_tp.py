@@ -245,23 +245,34 @@ def test_spatial_shapes_and_refusals(ranks):
         assert "VDIFF_FUSED_GN=1" in refused["VDIFF_FUSED_GN"]
 
 
-@pytest.fixture(scope="module")
-def one_rank_cli(ranks, tmp_path_factory):
-    """The one-rank generate CLI's float samples, before the PNG writer."""
+def _one_rank_cli(setup, tmp_path_factory, *flags):
+    """The one-rank generate CLI's float samples (or strips), before the PNG writer."""
     from vdiff_tpu_torch import generate
 
-    setup, _ = ranks
     captured, write = [], generate.write_pngs
     generate.write_pngs = lambda save_dir, x: (captured.append(np.array(x)), write(save_dir, x))
     n = torch.get_num_threads()
     torch.set_num_threads(2)
     try:
-        generate.main(setup["generate_args"]
+        generate.main(setup["generate_args"] + list(flags)
                       + ["--save-dir", str(tmp_path_factory.mktemp("one_rank_cli"))])
     finally:
         generate.write_pngs = write
         torch.set_num_threads(n)
     return np.concatenate(captured)
+
+
+@pytest.fixture(scope="module")
+def one_rank_cli(ranks, tmp_path_factory):
+    return _one_rank_cli(ranks[0], tmp_path_factory)
+
+
+@pytest.fixture(scope="module")
+def one_rank_progressive(ranks, tmp_path_factory):
+    from tests.torch_parallel_worker import PROGRESSIVE_FREQ
+
+    return _one_rank_cli(ranks[0], tmp_path_factory, "--progressive", "--pred-freq",
+                         str(PROGRESSIVE_FREQ))
 
 
 @pytest.mark.parametrize("mode", ["tp", "sp", "tpsp"])
@@ -281,6 +292,30 @@ def test_generate_cli_matches_one_rank(ranks, one_rank_cli, mode):
     assert len(pngs) == 6 and summary["world_size"] == 2
     for rank_res in res:
         stats = rank_res[f"generate_{mode}_summary"]["stats"]
+        assert stats["graph"] is False and stats["eager_steps"] == 8 and stats["captures"] == 0
+
+
+@pytest.mark.parametrize("mode", ["tp", "sp"])
+def test_generate_progressive_matches_one_rank(ranks, one_rank_progressive, mode):
+    """generate --progressive (4 steps, a snapshot every 2) under --tp and
+    --spatial-shard on two ranks: rank 0's strips of x̂_0 snapshots are the
+    one-rank CLI's within 1e-5 before the PNG writer quantises them, and its
+    PNGs within one level of 255; each rank ran its steps eagerly (two
+    batches of 4 steps)."""
+    _, r = ranks
+    want = one_rank_progressive
+    quant = lambda x: np.clip(x * 127.5 + 127.5, 0, 255).astype(np.uint8).astype(int)  # noqa: E731
+    res = r.results()
+    got = res[0][f"generate_{mode}_progressive"]
+    assert got.shape == want.shape == (6, 32, 64, 3)
+    assert res[1][f"generate_{mode}_progressive"] is None
+    assert np.isfinite(got).all()
+    _close(got, want, ONE_RANK_TOL)
+    assert np.abs(quant(got) - quant(want)).max() <= 1
+    summary = res[0][f"generate_{mode}_progressive_summary"]
+    assert len([f for f in os.listdir(summary["save_dir"]) if f.endswith(".png")]) == 6
+    for rank_res in res:
+        stats = rank_res[f"generate_{mode}_progressive_summary"]["stats"]
         assert stats["graph"] is False and stats["eager_steps"] == 8 and stats["captures"] == 0
 
 

@@ -367,16 +367,20 @@ def phase_tp_sample(rank, world, workdir, setup, results):
 
 
 def phase_tp_generate(rank, world, workdir, setup, results):
-    """generate --tp, --spatial-shard and both on every rank (rank 0's float
-    samples captured before the PNG writer quantises them), and
-    --spatial-shard refusing a config whose lowest level does not split."""
+    """generate --tp, --spatial-shard and both on every rank, and --tp and
+    --spatial-shard with --progressive (rank 0's float samples or strips
+    captured before the PNG writer quantises them), and --spatial-shard
+    refusing a config whose lowest level does not split."""
     import numpy as np
 
     from vdiff_tpu_torch import generate
 
     write = generate.write_pngs
+    progressive = ["--progressive", "--pred-freq", str(PROGRESSIVE_FREQ)]
     for name, flags in (("tp", ["--tp"]), ("sp", ["--spatial-shard"]),
-                        ("tpsp", ["--tp", "--spatial-shard"])):
+                        ("tpsp", ["--tp", "--spatial-shard"]),
+                        ("tp_progressive", ["--tp"] + progressive),
+                        ("sp_progressive", ["--spatial-shard"] + progressive)):
         captured = []
         generate.write_pngs = lambda save_dir, x: (captured.append(np.array(x)),
                                                    write(save_dir, x))
@@ -394,6 +398,10 @@ def phase_tp_generate(rank, world, workdir, setup, results):
     except SystemExit as e:
         results["six_levels_refused"] = str(e)
 
+
+# generate --progressive under the model-parallel modes: a snapshot every
+# PROGRESSIVE_FREQ of the setup's 4 steps
+PROGRESSIVE_FREQ = 2
 
 PHASES = {
     "data": phase_data,

@@ -31,8 +31,10 @@ all-gathered; FID, IS and P&R are computed on rank 0 and broadcast, and rank
 from __future__ import annotations
 
 import argparse
+import json
 import math
 import os
+import time
 
 import numpy as np
 import torch
@@ -199,7 +201,10 @@ def _compute_metric(metric, args, dataset, root, img_dir, device, mesh=None):
 
 def main(argv=None) -> dict:
     """Run the CLI on ``argv``; returns {metric: result} of the metrics that
-    ran (a skipped or unsupported one is left out)."""
+    ran (a skipped or unsupported one is left out). Where the image folder
+    exists, rank 0 also writes ``eval_summary.json`` there: the results, the
+    seconds the metrics took and the kernels' launches (the nll UNet's)."""
+    from .ops import launch_counts
     from .utils.misc import seed_all
 
     args = build_parser().parse_args(argv)
@@ -215,7 +220,7 @@ def main(argv=None) -> dict:
     log(f"Dataset: {dataset}")
     img_dir = os.path.join(args.eval_dir, args.folder_name) if args.folder_name else args.eval_dir
 
-    results = {}
+    results, before, t0 = {}, launch_counts(), time.perf_counter()
     for metric in sorted(set(args.metrics)):
         try:
             result = _compute_metric(metric, args, dataset, root, img_dir, device, mesh)
@@ -229,6 +234,11 @@ def main(argv=None) -> dict:
             continue
         log(f"{metric.upper()}: {result}", flush=True)
         results[metric] = result
+    if (mesh is None or is_leader()) and os.path.isdir(img_dir):  # what a launcher reads back
+        summary = {"results": results, "seconds": time.perf_counter() - t0,
+                   "launches": {k: n - before[k] for k, n in launch_counts().items()}}
+        with open(os.path.join(img_dir, "eval_summary.json"), "w") as f:
+            json.dump(summary, f)
     return results
 
 
