@@ -13,7 +13,10 @@ Phases, one output line each (any failure raises and exits non-zero):
      1e-4, at every CIFAR, celeba and mnist sampling shape: B1 at T=256 and
      T=64 (celeba N=12 and 9, mnist's one head of 128 at B=128), B2 at T=1024
      (mnist's too) and celeba's N=9 levels), each timed
-     beside the f32-FMA kernel it replaced on the same inputs;
+     beside the f32-FMA kernel it replaced on the same inputs; their f32
+     calls run the 3xTF32 tensor-core attn_fwd_tf32.cu, held to the f32 twin
+     within 1e-4 and to an f64 twin within twice the f32-FMA kernel's largest
+     error on the same inputs, and timed beside that FMA kernel;
   3. unet: the full-width cifar10_cond UNet (random weights, zero-init layers
      perturbed) in f32 on the GPU against the same UNet on the CPU, then the
      same with resample_with_res=False (strided-conv resampling: 15 attention
@@ -35,10 +38,9 @@ Phases, one output line each (any failure raises and exits non-zero):
      launches a forward;
   4e. nll: the eval CLI (vdiff_tpu_torch.eval --metrics nll) on phase 4's
      checkpoint in f32, 256 steps, 2 batches of 64 synthetic test images:
-     finite bits/dim, forwards/s, and per forward B1 x17 and B2 x1 on their
-     f32 FMA kernels (attn_fwd_online.cu, attn_fwd_qblk.cu); then
-     calc_all_bpd at B=2, T=8 on CUDA against the CPU, same weights and
-     noise: total within 1e-3 relative;
+     finite bits/dim, forwards/s, and per forward B1 x17 and B2 x1 on
+     attn_fwd_tf32.cu; then calc_all_bpd at B=2, T=8 on CUDA against the CPU,
+     same weights and noise: total within 1e-3 relative, its forwards/s;
   4f. metric-nets: synthetic release-format FID Inception (with the IS head)
      and VGG16 weights written to <tmp>/precomputed; Inception's 2048-d
      features, its IS probabilities and VGG16's fc7 on the card vs the CPU
@@ -56,8 +58,9 @@ Phases, one output line each (any failure raises and exits non-zero):
      the JAX gate runs them: synthetic_flagship.json, 1 epoch of 128 (4
      steps), 256 PNGs at 16 DDIM steps, eval's fid, is, pr and nll on 64
      images, from <tmp> (4f's weights and 4g's statistics in ./precomputed):
-     exit 0, the JSON last line, 256 finite PNGs, all four metrics finite, and
-     each stage's f32 launches read from its own summary;
+     exit 0, the JSON last line, 256 finite PNGs, all four metrics finite,
+     each stage's f32 launches read from its own summary, and the eval
+     stage's nll forwards/s;
   4p. progressive: generate --progressive (16 steps at w=0.1, a snapshot
      every 4, B=16): 16 finite strips of 32x128 pixels;
   4a. fused-kernels: gn_film_silu_kernel (B10) and fused_gn_silu_conv3x3 (B11)
@@ -92,12 +95,13 @@ Phases, one output line each (any failure raises and exits non-zero):
      nine heads of 64 at T=1024, 256 and 64, twelve at T=64), f32 and bf16,
      timed with CUDA
      events, the tensor-core kernels beside the f32-FMA ones they replaced on
-     the same bf16 inputs;
+     the same inputs (the f32 forwards on attn_fwd_tf32.cu, held as in phase
+     2); the f32 backward pair beside SDPA's f32 forward + backward;
   6. train-unet: one full-width train step (loss, backward, clip, AdamW, EMA)
      in f32 at B=2 on the GPU against the same step on the CPU, same weights,
      t, noise and CFG mask, dropout off; one step must launch attn_fwd_train
      17 times, attn_fwd_qblk once, each backward pass 18 times and
-     attn_fwd_online never (f32 keeps the FMA kernels);
+     attn_fwd_online never (f32: attn_fwd_tf32.cu and the FMA backward pair);
   7. train-cli: the port's train CLI (vdiff_tpu_torch.train) on
      synthetic_flagship.json with --allow-bf16 --epochs 1 (4 steps of 128, the
      epoch-end sample grid, ckpt_last), then generate samples from ckpt_last;
@@ -134,7 +138,9 @@ Phases, one output line each (any failure raises and exits non-zero):
      run the tensor-core kernels in bf16 (B6 attn_fwd_tc.cu and B7 its lse
      entry, both held to B2's P·|v| limit; B8 attn_bwd_tc.cu; B9 that file's
      saved-statistics entry, vdiff_attn_bwd_tc_kv), each timed beside the
-     f32-FMA kernel it replaced on the same inputs;
+     f32-FMA kernel it replaced on the same inputs; in f32 B6 and B7 run
+     attn_fwd_tf32.cu and its lse entry, held as in phase 2 and timed beside
+     the FMA kernels;
   9. celeba-unet: the full-width celeba UNet (301 M parameters, 40 multi-hot
      tags, 'both' head) in f32 at B=1 on the GPU against the CPU; one forward
      must launch attn_fwd_pack1 10 times, attn_fwd_qblk 8 and attn_fwd_online 9
@@ -145,12 +151,13 @@ Phases, one output line each (any failure raises and exits non-zero):
      bf16 at B=32, 4 steps, with the switches off, with VDIFF_FUSED_GN=1 (B10
      on thread-block clusters at 64x64) and with both switches;
  10b. celeba-nll: celeba's nll at full width in f32 (TF32 off), as the eval CLI
-     runs it: attn_fwd_pack1 (B6) in f32, attn_fwd_online.cu, at B=1 and
-     T=4096, 1024, 256 (N=6) and 256 (N=12) against its twin, timed beside
-     SDPA in f32 and the card's f32 bound; then calc_all_bpd at B=1, T=4 on
-     seeded images and multi-hot tags, CUDA vs the CPU, same weights and
-     noise: total within 1e-3 relative, B6 x10, B2 x8 and B1 x9 a forward on
-     the f32 kernels;
+     runs it: attn_fwd_pack1 (B6) in f32, attn_fwd_tf32.cu, at B=1 and
+     T=4096, 1024, 256 (N=6) and 256 (N=12) against its twins (f32, f64),
+     timed beside the f32-FMA kernel it replaced, SDPA in f32 and the card's
+     f32 bound; then calc_all_bpd at B=1, T=4 on seeded images and multi-hot
+     tags, CUDA vs the CPU, same weights and noise: total within 1e-3
+     relative, B6 x10, B2 x8 and B1 x9 a forward on the f32 kernels, its
+     forwards/s;
  10c. celeba-fused: the bf16 celeba UNet at B=2 with both fused switches, with
      VDIFF_FUSED_GN=1 alone and with VDIFF_FUSED_CONV=1 alone, each against
      both off within 2^-4 of max|out| (the share printed), B11 x23 and B10 x77
@@ -231,7 +238,9 @@ inputs, "before_ms"; phases 2 and 5 list every bf16 shape of a wrapper under
 eval path's, are attn_fwd_online_f32 and attn_fwd_qblk, with phase 2's f32
 shapes; B6's f32 calls, celeba's nll, are attn_fwd_pack1_f32, and B3's and
 the backward pair's f32 calls, the gate's train stage, attn_fwd_train_f32,
-attn_bwd_rows and attn_bwd_cols, with phase 10b's and phase 5's f32 shapes);
+attn_bwd_rows and attn_bwd_cols, with phase 10b's and phase 5's f32 shapes;
+the f32 forward records, attn_fwd_tf32.cu's, also carry their largest error
+against the f64 twin, "f64_err", beside the FMA kernel's, "before_f64_err");
 the last line is
 {"ok": true, "device": {...}}.
 Imports nothing of JAX.
@@ -272,9 +281,10 @@ def _launches(**counts):
 
 
 # attention calls per cifar10_cond UNet forward: 17 at T <= 512 (8 at T=256,
-# 9 at T=64) go to the online kernel (attn_fwd_train when training), 1 at
-# T=1024 (up_1_us) to B2: the q-blocked FMA kernel in f32, the tensor-core
-# attn_fwd_tc in bf16. A training backward runs each backward pass once per
+# 9 at T=64) go to attn_fwd_online (attn_fwd_train when training), 1 at
+# T=1024 (up_1_us) to B2: attn_fwd_qblk in f32, attn_fwd_tc in bf16; every
+# forward call runs a tensor-core kernel, attn_fwd_tf32.cu in f32,
+# attn_fwd_tc.cu in bf16. A training backward runs each backward pass once per
 # call in f32; in bf16 every call runs attn_bwd_tc.cu, counted under
 # attn_bwd at T <= 512 (B4) and under attn_bwd_tc at T=1024 (B5).
 ONLINE_PER_FWD, QBLK_PER_FWD = 17, 1
@@ -403,9 +413,17 @@ TWIN_FULL_BATCH_MAX_T = 1024
 # cores, f32 outside them; HBM3 bandwidth
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 HBM_BYTES_PER_S = 3.35e12
+# attention's peaks: f32-accurate attention runs on the tensor cores as
+# 3xTF32 (attn_fwd_tf32.cu: three TF32 products per f32 product at the dense
+# TF32 rate, 495 TFLOP/s), 165 TFLOP/s, above the FMA units' 67
+ATTN_PEAK_FLOPS = {torch.bfloat16: PEAK_FLOPS[torch.bfloat16], torch.float32: 495e12 / 3}
 
 # f32: both sides do f32 math; only the summation order differs.
 F32_ATOL = 1e-4
+# an f32 forward on the tensor cores (3xTF32) against the f64 twin: its
+# largest error may be at most this many times the largest error of the
+# f32-FMA kernel it replaced, on the same inputs ("f32 means f32")
+F64_ERR_RATIO = 2.0
 # bf16: the kernel does f32 math on the bf16 values and rounds once at the
 # output, so it must sit within half a bf16 ulp (2^-8 relative) of the twin
 # run in f32 on the same values, plus the f32 allowance.
@@ -488,8 +506,10 @@ def cuda_ms(fn, iters=20, warmup=3):
 
 def _bound(kind, B, T, N, C, dtype):
     """The least time the card could take for one attention call: the larger
-    of its operations over the peak for the inputs' type and its bytes (each
-    input read once, each output written once) over the memory rate.
+    of its operations over attention's peak for the inputs' type
+    (ATTN_PEAK_FLOPS: bf16 989 TFLOP/s; f32 165 TFLOP/s, three TF32 products
+    per f32 product on the tensor cores) and its bytes (each input read once,
+    each output written once) over the memory rate.
     Operations per (batch, head): 4·T²·C forward (q·kᵀ and P·v); 10·T²·C for
     a whole backward (S, dP, dQ, dK, dV); 6·T²·C for the row pass alone (S,
     dP, dQ), 8·T²·C for the column pass (S, dP, dK, dV)."""
@@ -503,7 +523,7 @@ def _bound(kind, B, T, N, C, dtype):
         "bwd_rows": (6, 3 * x + x + x + 2 * stats),
         "bwd_cols": (8, 3 * x + x + 2 * stats + 2 * x),
     }[kind]
-    t_ops = flops * T * T * C * N * B / PEAK_FLOPS[dtype]
+    t_ops = flops * T * T * C * N * B / ATTN_PEAK_FLOPS[dtype]
     t_bytes = nbytes / HBM_BYTES_PER_S
     return {"bound_ms": max(t_ops, t_bytes) * 1e3,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
@@ -536,11 +556,13 @@ def phase_card():
 def phase_kernels():
     """Each kernel vs attention_qkv_reference on the same inputs. The bf16
     calls of B1 (attn_fwd_online) and B2 (attn_fwd_qblk → attn_fwd_tc) run
-    attn_fwd_tc.cu, held by _check_tc_fwd and timed beside the f32-FMA
-    kernel they replaced on the same inputs (``before_ms``), at the CIFAR
-    and celeba sampling shapes. Returns the per-kernel record at the
-    sampler's shape (bf16, as --allow-bf16 runs), with every bf16 shape's
-    under "shapes"."""
+    attn_fwd_tc.cu, held by _check_tc_fwd, their f32 calls attn_fwd_tf32.cu,
+    held by _check_f32_fwd; each is timed beside the f32-FMA kernel it
+    replaced on the same inputs (``before_ms``), the twin and SDPA (in f32
+    with TF32 off), at the CIFAR and celeba sampling shapes. Returns the
+    per-kernel record at the sampler's shape (bf16, as --allow-bf16 runs),
+    with every bf16 shape's under "shapes", and the f32 records (the eval
+    path's) with every f32 shape's."""
     from vdiff_tpu_torch import kernels
     from vdiff_tpu_torch.ops import attention as A
 
@@ -563,7 +585,8 @@ def phase_kernels():
         (A.attn_fwd_qblk, 32, 1024, 9, 64),   # celeba sampling, up_2_us
         (A.attn_fwd_qblk, 128, 1024, 1, 128),  # mnist sampling, up_1_us
     ]
-    # the f32-FMA kernel each wrapper's bf16 calls ran before attn_fwd_tc.cu
+    # the f32-FMA kernel each wrapper's calls ran before attn_fwd_tc.cu (bf16)
+    # and attn_fwd_tf32.cu (f32)
     before = {A.attn_fwd_online: fma_fwd_online, A.attn_fwd_qblk: fma_fwd}
     record = {}
     for fn, B, T, N, C in cases:
@@ -574,31 +597,31 @@ def phase_kernels():
             name = "attn_fwd_tc" if tc and fn is A.attn_fwd_qblk else fn.__name__
             tag = f"{name} B={B} T={T} N={N} C={C} {str(dtype)[6:]}"
             out = fn(qkv, N)
-            err = (_check_tc_fwd(tag, out, qkv, N) if tc else
-                   _check_fwd(tag, out, A.attention_qkv_reference(qkv.float(), N), dtype))
+            errs = ({"max_abs_err": _check_tc_fwd(tag, out, qkv, N)} if tc else
+                    _check_f32_fwd(tag, out, qkv, N, before[fn](qkv, N)))
             del out
-            rec = {"max_abs_err": err, "ms": cuda_ms(lambda: fn(qkv, N)),
-                   **({"before_ms": cuda_ms(lambda: before[fn](qkv, N))} if tc else {}),
+            rec = {**errs, "ms": cuda_ms(lambda: fn(qkv, N)),
+                   "before_ms": cuda_ms(lambda: before[fn](qkv, N)),
                    "plain_ms": cuda_ms(lambda: A.attention_qkv_reference(qkv, N)),
                    "library_ms": cuda_ms(_sdpa(qkv, N)), **_bound("fwd", B, T, N, C, dtype)}
             print(f"kernels: {tag}: " + _fmt(rec), flush=True)
             if tc:
                 _keep_shape(record, name, (B, T, N, C), rec)
-            else:  # f32: the FMA kernels, which the eval path's f32 UNet runs
+            else:  # f32: attn_fwd_tf32.cu, which the eval path's f32 UNet runs
                 _keep_shape(record, F32_RECORDS[fn.__name__], (B, T, N, C), rec)
             del qkv
     torch.cuda.empty_cache()
     return record
 
 
-# the kernels' JSON names of B1's and B2's f32 calls (attn_fwd_online.cu,
-# attn_fwd_qblk.cu): B1's wrapper counts both dtypes, so its f32 record and
-# launches go under a name of their own
+# the kernels' JSON names of B1's and B2's f32 calls (attn_fwd_tf32.cu): B1's
+# wrapper counts both dtypes, so its f32 record and launches go under a name
+# of their own
 F32_RECORDS = {"attn_fwd_online": "attn_fwd_online_f32", "attn_fwd_qblk": "attn_fwd_qblk"}
 # ... and of every f32 call an f32 path makes (the eval CLI's nll, celeba's
-# nll, the quality gate's f32 stages): B6's f32 calls run attn_fwd_online.cu
-# under attn_fwd_pack1's count, B3's attn_fwd_train.cu under attn_fwd_train's,
-# B4's and B5's the attn_bwd_rows.cu + attn_bwd_cols.cu pair, each counted
+# nll, the quality gate's f32 stages): B6's and B3's f32 calls run
+# attn_fwd_tf32.cu under attn_fwd_pack1's and attn_fwd_train's counts, B4's
+# and B5's the attn_bwd_rows.cu + attn_bwd_cols.cu pair, each counted
 F32_PATH_NAMES = dict(F32_RECORDS, attn_fwd_pack1="attn_fwd_pack1_f32",
                       attn_fwd_train="attn_fwd_train_f32", attn_bwd_rows="attn_bwd_rows",
                       attn_bwd_cols="attn_bwd_cols")
@@ -618,13 +641,25 @@ def _keep_shape(record, name, shape, rec):
         dict(zip("BTNC", shape), **rec))
 
 
-def fma_fwd(qkv, N):
-    """B2's f32-FMA kernel (attn_fwd_qblk.cu) on the same inputs, uncounted:
-    what bf16 calls ran before attn_fwd_tc, timed beside it."""
+def _fma_launch(entry, qkv, N):
+    """One launch of an f32-FMA forward entry (qkv, out, B, T, N, C, is_bf16,
+    stream) on the same inputs, uncounted: the FMA kernels are yardsticks."""
+    from vdiff_tpu_torch import kernels
     from vdiff_tpu_torch.ops import attention as A
 
     B, T, C = A._shape(qkv, N)
-    return A._launch("vdiff_attn_fwd_qblk", qkv, N, B, T, C)
+    out = torch.empty(B, T, N * C, dtype=qkv.dtype, device=qkv.device)
+    err = getattr(kernels.library(), entry)(
+        qkv.data_ptr(), out.data_ptr(), B, T, N, C, int(qkv.dtype == torch.bfloat16),
+        torch.cuda.current_stream().cuda_stream)
+    kernels.check(err, entry)
+    return out
+
+
+def fma_fwd(qkv, N):
+    """B2's f32-FMA kernel (attn_fwd_qblk.cu) on the same inputs, uncounted:
+    what bf16 calls ran before attn_fwd_tc, f32 calls before attn_fwd_tf32.cu."""
+    return _fma_launch("vdiff_attn_fwd_qblk", qkv, N)
 
 
 def fma_bwd(qkv, g, N):
@@ -642,20 +677,16 @@ def fma_bwd(qkv, g, N):
 
 def fma_fwd_online(qkv, N):
     """B1's f32-FMA online kernel (attn_fwd_online.cu) on the same inputs,
-    uncounted: what B1's and B6's bf16 calls ran before attn_fwd_tc.cu."""
-    from vdiff_tpu_torch.ops import attention as A
-
-    B, T, C = A._shape(qkv, N)
-    return A._launch("vdiff_attn_fwd_online", qkv, N, B, T, C)
+    uncounted: what B1's and B6's calls ran before attn_fwd_tc.cu (bf16) and
+    attn_fwd_tf32.cu (f32)."""
+    return _fma_launch("vdiff_attn_fwd_online", qkv, N)
 
 
 def fma_fwd_train(qkv, N):
     """B3's f32-FMA kernel (attn_fwd_train.cu) on the same inputs, uncounted:
-    what B3's bf16 calls ran before attn_fwd_tc.cu."""
-    from vdiff_tpu_torch.ops import attention as A
-
-    B, T, C = A._shape(qkv, N)
-    return A._launch("vdiff_attn_fwd_train", qkv, N, B, T, C)
+    what B3's calls ran before attn_fwd_tc.cu (bf16) and attn_fwd_tf32.cu
+    (f32)."""
+    return _fma_launch("vdiff_attn_fwd_train", qkv, N)
 
 
 def fma_bwd_kv(qkv, out, lse, g, N):
@@ -677,8 +708,8 @@ def fma_bwd_kv(qkv, out, lse, g, N):
 
 def fma_fwd_lse(qkv, N):
     """B7's f32-FMA kernel (the lse entry of attn_fwd_online.cu) on the same
-    inputs, uncounted: what B7's bf16 calls ran before attn_fwd_tc.cu's lse
-    entry."""
+    inputs, uncounted: what B7's calls ran before the lse entries of
+    attn_fwd_tc.cu (bf16) and attn_fwd_tf32.cu (f32)."""
     from vdiff_tpu_torch import kernels
     from vdiff_tpu_torch.ops import attention as A
 
@@ -708,6 +739,48 @@ def _check_fwd(name, out, ref, dtype):
         fail(f"{name}: max err {err.max().item()} over tolerance "
              f"({'atol 1e-4' if dtype == torch.float32 else '2^-8 rel + 1e-4'})")
     return err.max().item()
+
+
+def _f64_twin(qkv, N):
+    """softmax(q·kᵀ/√C)·v and each row's logsumexp in f64 on the card, from
+    the same values: (out (B, T, N·C), lse (B, N, T))."""
+    B, T, three_nc = qkv.shape
+    C = three_nc // (3 * N)
+    q, k, v = qkv.double().reshape(B, T, 3, N, C).unbind(2)
+    s = torch.einsum("btnc,bsnc->bnts", q, k).mul_(1.0 / math.sqrt(C))
+    lse = torch.logsumexp(s, dim=-1)
+    p = s.sub_(lse[..., None]).exp_()  # in place: one (B, N, T, T) f64 tensor
+    return torch.einsum("bnts,bsnc->btnc", p, v).reshape(B, T, N * C), lse
+
+
+def _check_f32_fwd(name, out, qkv, N, before, ref=None, lse=None, before_lse=None):
+    """An f32 forward on the tensor cores (attn_fwd_tf32.cu), held two ways:
+    within F32_ATOL of the f32 twin ``ref`` (attention_qkv_reference when
+    None), and against the f64 twin on the same inputs with a largest error
+    at most F64_ERR_RATIO times that of ``before``, the f32-FMA kernel's
+    output. With ``lse`` (and the FMA kernel's ``before_lse``) the rows'
+    logsumexp is held to LSE_ATOL of the f64 twin's. Prints both errors;
+    returns {"max_abs_err": vs the f32 twin, "f64_err", "before_f64_err"}."""
+    from vdiff_tpu_torch.ops import attention as A
+
+    err = _check_fwd(name, out, A.attention_qkv_reference(qkv, N) if ref is None else ref,
+                     torch.float32)
+    want, want_lse = _f64_twin(qkv, N)
+    err64 = (out.double() - want).abs().max().item()
+    before64 = (before.double() - want).abs().max().item()
+    del want
+    line = (f"{name}: vs the f64 twin {err64}, the f32-FMA kernel {before64} "
+            f"(ratio {err64 / before64 if before64 else math.inf:.3f}, limit {F64_ERR_RATIO})")
+    if lse is not None:
+        lse64 = (lse.double() - want_lse).abs().max().item()
+        line += (f"; lse vs f64 {lse64}, the FMA kernel's "
+                 f"{(before_lse.double() - want_lse).abs().max().item()}")
+        if not lse64 <= LSE_ATOL:
+            fail(f"{line}: lse over {LSE_ATOL}")
+    print(line, flush=True)
+    if not err64 <= F64_ERR_RATIO * before64:
+        fail(f"{line}: over {F64_ERR_RATIO} times the FMA kernel's error")
+    return {"max_abs_err": err, "f64_err": err64, "before_f64_err": before64}
 
 
 def _check_tc_fwd(name, out, qkv, N):
@@ -764,15 +837,17 @@ def phase_train_kernels():
     """The training kernels vs their twins at the train steps' shapes (B=128,
     the config's batch; celeba's at B=48: N=9 at T=1024, 256 and 64, N=12 at
     T=64), f32 and bf16, timed with CUDA events. The forward at T <= 512 is
-    B3 (attn_fwd_train: the FMA kernel in f32, attn_fwd_tc.cu in bf16, timed
-    beside the FMA kernel on the same inputs, ``before_ms``), at T=1024 B2
-    (attn_fwd_qblk in f32, attn_fwd_tc in bf16, whose sampling record stays
-    phase 2's). The backward is the FMA pair in f32 and attn_bwd_tc.cu in
-    bf16, counted as B4 (attn_bwd) at T <= 512 and as B5 (attn_bwd_tc) at
-    T=1024, timed beside the pair on the same inputs (``before_ms``).
-    Returns the per-kernel records in bf16: B3 and B4 at T=256, C=256 (8 of
-    the 18 attention calls of a training forward; --allow-bf16), with every
-    bf16 shape of each under "shapes", and attn_bwd_tc at T=1024; and in f32
+    B3 (attn_fwd_train), at T=1024 B2 (attn_fwd_qblk in f32, attn_fwd_tc in
+    bf16, whose sampling record stays phase 2's): attn_fwd_tc.cu in bf16,
+    attn_fwd_tf32.cu in f32 (held by _check_f32_fwd), each timed beside the
+    FMA kernel it replaced on the same inputs (``before_ms``). The backward
+    is the FMA pair in f32 and attn_bwd_tc.cu in bf16, counted as B4
+    (attn_bwd) at T <= 512 and as B5 (attn_bwd_tc) at T=1024, timed beside
+    the pair on the same inputs (``before_ms``); SDPA's forward + backward
+    (f32 with TF32 off in f32) is the library time of both. Returns the
+    per-kernel records in bf16: B3 and B4 at T=256, C=256 (8 of the 18
+    attention calls of a training forward; --allow-bf16), with every bf16
+    shape of each under "shapes", and attn_bwd_tc at T=1024; and in f32
     (attn_fwd_train_f32, attn_bwd_rows, attn_bwd_cols) at the same first
     shape, with every f32 shape of each under "shapes"."""
     from vdiff_tpu_torch.ops import attention as A
@@ -797,12 +872,12 @@ def phase_train_kernels():
                         else (A.attn_fwd_qblk, fma_fwd))
             name = "attn_fwd_tc" if tc else fwd.__name__
             out = fwd(qkv, N)
-            err = (_check_tc_fwd(f"{name} {tag}", out, qkv, N) if bf16 else _check_fwd(
-                f"{name} {tag}", out, A.attention_qkv_reference(qkv.float(), N), dtype))
+            errs = ({"max_abs_err": _check_tc_fwd(f"{name} {tag}", out, qkv, N)} if bf16 else
+                    _check_f32_fwd(f"{name} {tag}", out, qkv, N, fma(qkv, N)))
             del out
             rec = {name: {
-                "max_abs_err": err, "ms": cuda_ms(lambda: fwd(qkv, N), iters=10),
-                **({"before_ms": cuda_ms(lambda: fma(qkv, N), iters=10)} if bf16 else {}),
+                **errs, "ms": cuda_ms(lambda: fwd(qkv, N), iters=10),
+                "before_ms": cuda_ms(lambda: fma(qkv, N), iters=10),
                 "plain_ms": cuda_ms(lambda: A.attention_qkv_reference(qkv, N), iters=10),
                 "library_ms": cuda_ms(_sdpa(qkv, N), iters=10), **_bound("fwd", B, T, N, C, dtype)}}
             bwd_name = "attn_bwd_tc" if tc else "attn_bwd"
@@ -819,14 +894,17 @@ def phase_train_kernels():
                                  "plain_ms": plain, "library_ms": library,
                                  **_bound("bwd", B, T, N, C, dtype)}
             else:
-                # no one PyTorch call computes either pass alone: SDPA's forward
-                # + backward is printed beside them
+                # no one PyTorch call computes either pass alone: SDPA's f32
+                # forward + backward, the whole backward's yardstick, is the
+                # library time of the pair
                 lse, delta = A.attn_bwd_rows(qkv, g, N, dqkv)
-                rec["attn_bwd_rows"] = {"max_abs_err": err, "plain_ms": plain, "library_ms": None,
+                rec["attn_bwd_rows"] = {"max_abs_err": err, "plain_ms": plain,
+                                        "library_ms": library,
                                         "ms": cuda_ms(lambda: A.attn_bwd_rows(qkv, g, N, dqkv),
                                                       iters=10),
                                         **_bound("bwd_rows", B, T, N, C, dtype)}
-                rec["attn_bwd_cols"] = {"max_abs_err": err, "plain_ms": plain, "library_ms": None,
+                rec["attn_bwd_cols"] = {"max_abs_err": err, "plain_ms": plain,
+                                        "library_ms": library,
                                         "ms": cuda_ms(lambda: A.attn_bwd_cols(
                                             qkv, g, N, lse, delta, dqkv), iters=10),
                                         **_bound("bwd_cols", B, T, N, C, dtype)}
@@ -834,8 +912,8 @@ def phase_train_kernels():
             for name, r in rec.items():
                 pair = name in ("attn_bwd_rows", "attn_bwd_cols")
                 print(f"train-kernels: {name} {tag}: " + _fmt(r)
-                      + (f" (plain: whole backward; SDPA forward+backward {library} ms, "
-                         f"bound of the whole backward {_bound('bwd', B, T, N, C, dtype)})"
+                      + (f" (plain: whole backward; library: SDPA forward+backward; bound of "
+                         f"the whole backward {_bound('bwd', B, T, N, C, dtype)})"
                          if pair else " (library: SDPA forward+backward)" if "bwd" in name else ""),
                       flush=True)
                 if bf16 and name in ("attn_fwd_train", "attn_bwd"):
@@ -843,7 +921,7 @@ def phase_train_kernels():
                 elif bf16 and name not in record:
                     record[name] = r
                 elif not bf16 and name in ("attn_fwd_train", "attn_bwd_rows", "attn_bwd_cols"):
-                    # the f32 FMA kernels, which the quality gate's f32 train stage runs
+                    # the f32 kernels the quality gate's f32 train stage runs
                     _keep_shape(record, F32_PATH_NAMES[name], (B, T, N, C), r)
             del qkv, g, dqkv
             torch.cuda.empty_cache()
@@ -1591,11 +1669,14 @@ def phase_celeba_kernels():
     outputs. B9 takes B7's own (out, lse), its twin their slices. In bf16
     all four run the tensor-core kernels: B6's and B7's outputs are held by
     _check_tc_fwd's P·|v| limit (B7's lse within LSE_ATOL as in f32), B8's and
-    B9's d(qkv) by the bf16 backward limit. In bf16 each kernel is then timed
+    B9's d(qkv) by the bf16 backward limit. In f32 B6 and B7 run
+    attn_fwd_tf32.cu and its lse entry, held by _check_f32_fwd on the same
+    slices (B7's lse also against the f64 twin's). Each kernel is then timed
     on the whole batch beside its twin, SDPA, the card's bound and the
-    f32-FMA kernel it replaced on the same inputs (``before_ms``). Returns
-    the per-kernel records (each kernel's first shape; max_abs_err the
-    largest over its bf16 shapes)."""
+    f32-FMA kernel it replaced on the same inputs (``before_ms``): in bf16,
+    and B6 and B7 in f32 too (printed; their f32 records are phase 10b's).
+    Returns the per-kernel records in bf16 (each kernel's first shape;
+    max_abs_err the largest over its bf16 shapes)."""
     from vdiff_tpu_torch.ops import attention as A
 
     torch.cuda.empty_cache()
@@ -1620,7 +1701,8 @@ def phase_celeba_kernels():
                     errs["attn_fwd_pack1"] = _check_tc_fwd(label, got, sq, N)
                 else:
                     ref_out, _ = A.attention_qkv_lse_reference(sq.float(), N)
-                    errs["attn_fwd_pack1"] = _check_fwd(label, got, ref_out, dtype)
+                    errs["attn_fwd_pack1"] = _check_f32_fwd(
+                        label, got, sq, N, fma_fwd_online(qkv, N)[idx], ref_out)["max_abs_err"]
                     del ref_out
                 del got
                 timed["attn_fwd_pack1"] = (lambda: A.attn_fwd_pack1(qkv, N),
@@ -1630,9 +1712,14 @@ def phase_celeba_kernels():
                 ref_out, ref_lse = A.attention_qkv_lse_reference(sq.float(), N)
                 out, lse = A.attn_fwd_pack1_lse(qkv, N)
                 label = f"attn_fwd_pack1_lse {tag}{on}"
-                errs["attn_fwd_pack1_lse"] = (
-                    _check_tc_fwd(label, out[idx], sq, N) if dtype == torch.bfloat16
-                    else _check_fwd(label, out[idx], ref_out, dtype))
+                if dtype == torch.bfloat16:
+                    errs["attn_fwd_pack1_lse"] = _check_tc_fwd(label, out[idx], sq, N)
+                else:
+                    fma_out, fma_lse = fma_fwd_lse(qkv, N)
+                    errs["attn_fwd_pack1_lse"] = _check_f32_fwd(
+                        label, out[idx], sq, N, fma_out[idx], ref_out, lse[idx],
+                        fma_lse[idx])["max_abs_err"]
+                    del fma_out, fma_lse
                 lse_err = (lse[idx] - ref_lse).abs().max().item()
                 if lse.shape != (B, N, T) or not lse_err <= LSE_ATOL:
                     fail(f"attn_fwd_pack1_lse {tag}: lse {tuple(lse.shape)} max err {lse_err}")
@@ -1661,19 +1748,23 @@ def phase_celeba_kernels():
             print(f"celeba-kernels: {tag}{on}: max_abs_err {errs}", flush=True)
             del sq, sg
             torch.cuda.empty_cache()
-            if dtype == torch.bfloat16:
-                for name, (fn, plain, library, kind, before) in timed.items():
+            bf16 = dtype == torch.bfloat16
+            for name, (fn, plain, library, kind, before) in timed.items():
+                if not bf16 and "bwd" in name:
+                    continue  # the f32 backward: the FMA kernels, timed in phase 5
+                if bf16:
                     worst[name] = max(worst[name], errs[name])
-                    rec = {"ms": cuda_ms(fn, iters=3, warmup=1),
-                           **({"before_ms": cuda_ms(before, iters=3, warmup=1)} if before else {}),
-                           "plain_ms": cuda_ms(plain, iters=3, warmup=1),
-                           "library_ms": cuda_ms(library, iters=3, warmup=1),
-                           **_bound(kind, B, T, N, C, dtype)}
-                    print(f"celeba-kernels: {name} {tag}: " + _fmt(rec)
-                          + (" (library: SDPA forward+backward)" if "bwd" in name else ""),
-                          flush=True)
+                rec = {"ms": cuda_ms(fn, iters=3, warmup=1),
+                       "before_ms": cuda_ms(before, iters=3, warmup=1),
+                       "plain_ms": cuda_ms(plain, iters=3, warmup=1),
+                       "library_ms": cuda_ms(library, iters=3, warmup=1),
+                       **_bound(kind, B, T, N, C, dtype)}
+                print(f"celeba-kernels: {name} {tag}: " + _fmt(rec)
+                      + (" (library: SDPA forward+backward)" if "bwd" in name else ""),
+                      flush=True)
+                if bf16:
                     record.setdefault(name, rec)
-                    torch.cuda.empty_cache()
+                torch.cuda.empty_cache()
             del qkv, g, timed
             out = lse = None
             torch.cuda.empty_cache()
@@ -2603,8 +2694,8 @@ def mp_worker(tmp, ckpt):
 # ---------------------------------------------------------------------------
 
 # the nll phase: the eval CLI over synthetic's test images in f32, so every
-# forward runs B1's and B2's FMA kernels (attn_fwd_online.cu ×17 and
-# attn_fwd_qblk.cu ×1); and calc_all_bpd on CUDA against the CPU
+# forward runs B1's and B2's f32 calls (attn_fwd_online ×17 and attn_fwd_qblk
+# ×1, both attn_fwd_tf32.cu); and calc_all_bpd on CUDA against the CPU
 NLL_B, NLL_TOTAL = 64, 128
 NLL_FWD_LAUNCHES = _launches(attn_fwd_online=ONLINE_PER_FWD, attn_fwd_qblk=QBLK_PER_FWD)
 BPD_B, BPD_T = 2, 8
@@ -2626,7 +2717,7 @@ FID_SELF_BOUND = 1e-2
 def phase_nll(cfg, model, ckpt):
     """The eval CLI's nll on the full-width cifar10_cond checkpoint (f32, the
     config's 256 steps, 2 batches of 64 synthetic test images): finite bits/dim
-    and, per forward, B1 ×17 and B2 ×1 on their FMA kernels; then calc_all_bpd
+    and, per forward, B1 ×17 and B2 ×1 on attn_fwd_tf32.cu; then calc_all_bpd
     at B=2, T=8 on CUDA against the CPU, same weights and noise. Returns the
     run's launches under the f32 kernels' names."""
     from vdiff_tpu_torch import eval as eval_cli
@@ -2671,8 +2762,12 @@ def _bpd_parity(phase, cfg, model, B=BPD_B, T=BPD_T, res=32, y=None, per_fwd=NLL
     noise = torch.randn((T,) + tuple(x_0.shape), generator=gen)
     model_gpu = copy.deepcopy(model).cuda()
     _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     got = diffusion.calc_all_bpd(model_gpu, x_0.cuda(), None if y is None else y.cuda(),
                                  noise=noise.cuda())
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
     launched = _counts()
     del model_gpu
     ref = diffusion.calc_all_bpd(model, x_0, y, noise=noise)
@@ -2683,8 +2778,9 @@ def _bpd_parity(phase, cfg, model, B=BPD_B, T=BPD_T, res=32, y=None, per_fwd=NLL
     print(f"{phase}: calc_all_bpd B={B} T={T} f32 cuda vs cpu: total {total} vs "
           f"{ref_total}, err {err} ({(err / abs(ref_total)).tolist()} relative, bound {BPD_RTOL}), "
           f"KL terms max err {kl_err} of {ref[1][:, 1:].abs().max().item()}, decoder terms "
-          f"{got[1][:, 0].tolist()} vs {ref[1][:, 0].tolist()}, launches {_nonzero(launched)}",
-          flush=True)
+          f"{got[1][:, 0].tolist()} vs {ref[1][:, 0].tolist()}, launches {_nonzero(launched)}, "
+          f"{T / seconds:.2f} forwards/s at B={B} on the card (the first call's warm-up "
+          f"included)", flush=True)
     if not (bool((err <= bound).all()) and math.isfinite(float(total.sum()))):
         fail(f"{phase}: calc_all_bpd cuda {total} vs cpu {ref_total}, bound {bound}")
     want = {k: v * T for k, v in per_fwd.items()}
@@ -2694,7 +2790,7 @@ def _bpd_parity(phase, cfg, model, B=BPD_B, T=BPD_T, res=32, y=None, per_fwd=NLL
 
 
 # celeba's nll at full width: calc_all_bpd at B=1, T=4 in f32 (the eval CLI's
-# type), B6's f32 calls on attn_fwd_online.cu under attn_fwd_pack1's count;
+# type), B6's f32 calls on attn_fwd_tf32.cu under attn_fwd_pack1's count;
 # B6 alone at the shapes a forward gives it at B=1 (N, T): up_1_us's T=4096,
 # down_1_*/up_1_* at T=1024, down_1_ds at T=256 and up_3_us's T=256 at N=12
 CELEBA_NLL_B, CELEBA_NLL_T = 1, 4
@@ -2703,9 +2799,10 @@ CELEBA_NLL_SHAPES = ((4096, 6), (1024, 6), (256, 6), (256, 12))
 
 def phase_celeba_nll(cfg, model):
     """celeba's nll at full width in f32 with TF32 off, as the eval CLI runs
-    it: (a) attn_fwd_pack1 (B6) in f32, attn_fwd_online.cu, at B=1 and each of
-    CELEBA_NLL_SHAPES against its twin within F32_ATOL, timed beside the twin,
-    SDPA in f32 and the card's f32 bound; (b) calc_all_bpd at B=1, T=4 on
+    it: (a) attn_fwd_pack1 (B6) in f32, attn_fwd_tf32.cu, at B=1 and each of
+    CELEBA_NLL_SHAPES against its twins (_check_f32_fwd), timed beside the
+    f32-FMA kernel it replaced (attn_fwd_online.cu), the twin, SDPA in f32
+    and the card's f32 bound; (b) calc_all_bpd at B=1, T=4 on
     the f32 celeba UNet on CUDA against the CPU, seeded images and multi-hot
     tags, same weights and noise: the total within BPD_RTOL relative,
     CELEBA_FWD_LAUNCHES a forward. Returns (a)'s record (the first shape's,
@@ -2717,9 +2814,10 @@ def phase_celeba_nll(cfg, model):
     for T, N in CELEBA_NLL_SHAPES:
         qkv = torch.randn(B, T, 3 * N * C, device="cuda", generator=gen)
         tag = f"attn_fwd_pack1 B={B} T={T} N={N} C={C} float32"
-        err = _check_fwd(tag, A.attn_fwd_pack1(qkv, N), A.attention_qkv_lse_reference(qkv, N)[0],
-                         torch.float32)
-        rec = {"max_abs_err": err, "ms": cuda_ms(lambda: A.attn_fwd_pack1(qkv, N), iters=5),
+        errs = _check_f32_fwd(tag, A.attn_fwd_pack1(qkv, N), qkv, N, fma_fwd_online(qkv, N),
+                              A.attention_qkv_lse_reference(qkv, N)[0])
+        rec = {**errs, "ms": cuda_ms(lambda: A.attn_fwd_pack1(qkv, N), iters=5),
+               "before_ms": cuda_ms(lambda: fma_fwd_online(qkv, N), iters=5),
                "plain_ms": cuda_ms(lambda: A.attention_qkv_lse_reference(qkv, N), iters=5),
                "library_ms": cuda_ms(_sdpa(qkv, N), iters=5),
                **_bound("fwd", B, T, N, C, torch.float32)}
@@ -2995,8 +3093,10 @@ def phase_gate(tmp, pre, card):
     ev_dev = {k: ev["launches"].get(k, 0) for k in KERNELS}
     if ev_dev != {k: v * STEPS for k, v in NLL_FWD_LAUNCHES.items()}:
         fail(f"gate: eval launched {ev_dev}, expected {NLL_FWD_LAUNCHES} x {STEPS}")
+    nll_s = ev["metric_seconds"]["nll"]
     print(f"gate: f32 launches: train {_nonzero(train_dev)}, generate {_nonzero(gen_dev)}, eval "
-          f"{_nonzero(ev_dev)}", flush=True)
+          f"{_nonzero(ev_dev)}; eval's nll {STEPS} forwards at B={GATE_EVAL} in {nll_s:.2f} s, "
+          f"{STEPS / nll_s:.2f} forwards/s (model load and warm-up included)", flush=True)
     return {"gate_train": _f32_path(train_dev), "gate_generate": _f32_path(gen_dev),
             "gate_eval": _f32_path(ev_dev)}
 
@@ -3078,12 +3178,13 @@ def main():
     phase_bench()
 
     meta = {
-        # B1 and B3 in bf16, the paths' type: attn_fwd_tc.cu (their f32 calls
-        # keep attn_fwd_online.cu and attn_fwd_train.cu, off these paths)
+        # B1 and B3 in bf16, the paths' type: attn_fwd_tc.cu (their f32 calls,
+        # attn_fwd_tf32.cu, have records of their own below)
         "attn_fwd_online": ("vdiff_tpu_torch/csrc/attn_fwd_tc.cu",
                             "vdiff_tpu/ops/attention.py:37"),
-        # B2 and B5 in bf16, the paths' type: the tensor-core kernels (their
-        # f32 calls keep the FMA kernels, off these paths)
+        # B2 and B5 in bf16, the paths' type: the tensor-core kernels (B2's
+        # f32 calls, attn_fwd_tf32.cu, are attn_fwd_qblk's record below; B5's
+        # f32 calls run the FMA pair)
         "attn_fwd_tc": ("vdiff_tpu_torch/csrc/attn_fwd_tc.cu",
                         "vdiff_tpu/ops/attention.py:224"),
         "attn_bwd_tc": ("vdiff_tpu_torch/csrc/attn_bwd_tc.cu",
@@ -3096,9 +3197,9 @@ def main():
                      "vdiff_tpu/ops/attention.py:204"),
         # B6-B9 in bf16, the paths' type, the tensor-core kernels:
         # attn_fwd_tc.cu and its lse entry, attn_bwd_tc.cu and its
-        # saved-statistics entry (their f32 calls keep the FMA sources,
-        # attn_fwd_online.cu and its lse entry, attn_bwd_rows.cu +
-        # attn_bwd_cols.cu, attn_bwd_pack1_kv.cu); each counted apart
+        # saved-statistics entry (f32 calls: attn_fwd_tf32.cu and its lse
+        # entry, attn_bwd_rows.cu + attn_bwd_cols.cu, attn_bwd_pack1_kv.cu);
+        # each counted apart
         "attn_fwd_pack1": ("vdiff_tpu_torch/csrc/attn_fwd_tc.cu",
                            "vdiff_tpu/ops/attention.py:318"),
         "attn_fwd_pack1_lse": ("vdiff_tpu_torch/csrc/attn_fwd_tc.cu",
@@ -3115,18 +3216,18 @@ def main():
         "fused_gn_silu_conv3x3": ("vdiff_tpu_torch/csrc/gn_silu_conv3x3_tc.cu",
                                   "vdiff_tpu/ops/conv3x3.py:58"),
         # B1 and B2 in f32, the eval path's type (its f32 UNet, as JAX's
-        # compute_nll runs it): the FMA kernels
-        "attn_fwd_online_f32": ("vdiff_tpu_torch/csrc/attn_fwd_online.cu",
+        # compute_nll runs it): the 3xTF32 tensor-core forward
+        "attn_fwd_online_f32": ("vdiff_tpu_torch/csrc/attn_fwd_tf32.cu",
                                 "vdiff_tpu/ops/attention.py:37"),
-        "attn_fwd_qblk": ("vdiff_tpu_torch/csrc/attn_fwd_qblk.cu",
+        "attn_fwd_qblk": ("vdiff_tpu_torch/csrc/attn_fwd_tf32.cu",
                           "vdiff_tpu/ops/attention.py:224"),
-        # B6 in f32, celeba's nll: B1's FMA kernel under attn_fwd_pack1's count
-        "attn_fwd_pack1_f32": ("vdiff_tpu_torch/csrc/attn_fwd_online.cu",
+        # B6 in f32, celeba's nll: the same kernel under attn_fwd_pack1's count
+        "attn_fwd_pack1_f32": ("vdiff_tpu_torch/csrc/attn_fwd_tf32.cu",
                                "vdiff_tpu/ops/attention.py:318"),
-        # B3, B4 and B5 in f32, the quality gate's train stage: the FMA
-        # forward and the row and column passes of the backward (B5's T=1024
-        # calls run the same pair)
-        "attn_fwd_train_f32": ("vdiff_tpu_torch/csrc/attn_fwd_train.cu",
+        # B3, B4 and B5 in f32, the quality gate's train stage: the same
+        # forward, and the FMA row and column passes of the backward (B5's
+        # T=1024 calls run the same pair)
+        "attn_fwd_train_f32": ("vdiff_tpu_torch/csrc/attn_fwd_tf32.cu",
                                "vdiff_tpu/ops/attention.py:184"),
         "attn_bwd_rows": ("vdiff_tpu_torch/csrc/attn_bwd_rows.cu",
                           "vdiff_tpu/ops/attention.py:204"),

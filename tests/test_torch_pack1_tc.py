@@ -275,11 +275,12 @@ def recorded(monkeypatch):
 
 @pytest.mark.parametrize("T", [256, 1024, 2048, 4096])
 def test_pack1_dispatch_on_dtype(recorded, T):
-    """bf16 calls reach the tensor-core entries and f32 calls the FMA ones;
-    each counts under its own wrapper only, never under attn_fwd_tc,
-    attn_bwd_tc or the pair's counters. The f32 full-row backward asks for
-    the row kernel's T cap; the bf16 one has none to ask for (T=2048 and 4096
-    are past the f32 cap at C=64)."""
+    """bf16 calls reach the bf16 tensor-core entries; f32 forwards the f32
+    (3xTF32) ones and f32 backwards the FMA ones; each counts under its own
+    wrapper only, never under attn_fwd_tc, attn_bwd_tc or the pair's
+    counters. The f32 full-row backward asks for the row kernel's T cap; the
+    bf16 one has none to ask for (T=2048 and 4096 are past the f32 cap at
+    C=64)."""
     N, C = 2, 64
     for dtype in (torch.float32, torch.bfloat16):
         bf16 = dtype == torch.bfloat16
@@ -287,12 +288,12 @@ def test_pack1_dispatch_on_dtype(recorded, T):
         g = torch.empty(2, T, N * C, dtype=dtype, device="meta")
         out = A.attn_fwd_pack1(qkv, N)
         assert (out.shape, out.dtype) == ((2, T, N * C), dtype)
-        assert recorded() == (["vdiff_attn_fwd_tc" if bf16 else "vdiff_attn_fwd_online"],
+        assert recorded() == (["vdiff_attn_fwd_tc" if bf16 else "vdiff_attn_fwd_tc_f32"],
                               {"attn_fwd_pack1": 1})
         out, lse = A.attn_fwd_pack1_lse(qkv, N)
         assert (out.shape, out.dtype, lse.shape, lse.dtype) == ((2, T, N * C), dtype, (2, N, T),
                                                                 torch.float32)
-        assert recorded() == (["vdiff_attn_fwd_tc_lse" if bf16 else "vdiff_attn_fwd_pack1_lse"],
+        assert recorded() == (["vdiff_attn_fwd_tc_lse" if bf16 else "vdiff_attn_fwd_tc_f32_lse"],
                               {"attn_fwd_pack1_lse": 1})
         assert A.attn_bwd_pack1(qkv, g, N).shape == qkv.shape
         want = (["vdiff_attn_bwd_tc"] if bf16 else

@@ -4,8 +4,8 @@ runs.
 bf16 CUDA calls of ``attn_fwd_online`` (B1, the samplers' attention at
 T ≤ 512) and ``attn_fwd_train`` (B3, the train steps' forward at T ≤ 512) run
 ``attn_fwd_tc.cu``, B2's kernel, at a q tile of 64 or 32 rows
-(``fwd_tc_q_rows``); f32 calls keep ``attn_fwd_online.cu`` and
-``attn_fwd_train.cu``. The kernel's tile algorithm, emulated in torch
+(``fwd_tc_q_rows``); f32 calls run ``attn_fwd_tf32.cu`` at the same q tile
+(tests/test_torch_attention_tf32.py holds its algorithm). The kernel's tile algorithm, emulated in torch
 (``tests/torch_parity.py::emulate_fwd_tc``; the q tile moves no result, the
 key tile is the kernel's), is held on bf16 inputs made from a numpy seed
 against what JAX runs at the same shapes, within the limit chip_smoke.py
@@ -167,27 +167,21 @@ def recorded(monkeypatch):
 @pytest.mark.parametrize("B,T,N,C", [(64, 64, 1, 256), (64, 256, 1, 256), (48, 64, 12, 64)])
 def test_dispatch_on_dtype(recorded, B, T, N, C):
     """bf16 calls of B1 and B3 launch vdiff_attn_fwd_tc with the q tile
-    fwd_tc_q_rows picks, f32 calls the FMA entries (B3's after its T cap
-    query); each counts under its own wrapper only, never attn_fwd_tc."""
+    fwd_tc_q_rows picks, f32 calls vdiff_attn_fwd_tc_f32 (3xTF32) with
+    fwd_tf32_q_rows's; each counts under its own wrapper only, never
+    attn_fwd_tc."""
     for dtype in (torch.float32, torch.bfloat16):
         bf16 = dtype == torch.bfloat16
+        entry = "vdiff_attn_fwd_tc" if bf16 else "vdiff_attn_fwd_tc_f32"
+        rows = (A.fwd_tc_q_rows if bf16 else A.fwd_tf32_q_rows)(B, T, N)
         qkv = torch.empty(B, T, 3 * N * C, dtype=dtype, device="meta")
-        tc = ("vdiff_attn_fwd_tc", (0, 0, B, T, N, C, A.fwd_tc_q_rows(B, T, N), 0))
+        want = [(entry, (0, 0, B, T, N, C, rows, 0))]
         out = A.attn_fwd_online(qkv, N)
         assert (out.shape, out.dtype) == ((B, T, N * C), dtype)
-        calls, counts = recorded()
-        assert [name for name, _ in calls] == ["vdiff_attn_fwd_tc" if bf16 else
-                                               "vdiff_attn_fwd_online"]
-        assert not bf16 or calls == [tc]
-        assert counts == {"attn_fwd_online": 1}
+        assert recorded() == (want, {"attn_fwd_online": 1})
         out = A.attn_fwd_train(qkv, N)
         assert (out.shape, out.dtype) == ((B, T, N * C), dtype)
-        calls, counts = recorded()
-        assert [name for name, _ in calls] == (["vdiff_attn_fwd_tc"] if bf16 else
-                                               ["vdiff_attn_fwd_qblk_max_t",
-                                                "vdiff_attn_fwd_train"])
-        assert not bf16 or calls == [tc]
-        assert counts == {"attn_fwd_train": 1}
+        assert recorded() == (want, {"attn_fwd_train": 1})
 
 
 @pytest.mark.parametrize("wrapper", ["attn_fwd_online", "attn_fwd_train"])

@@ -203,7 +203,8 @@ def main(argv=None) -> dict:
     """Run the CLI on ``argv``; returns {metric: result} of the metrics that
     ran (a skipped or unsupported one is left out). Where the image folder
     exists, rank 0 also writes ``eval_summary.json`` there: the results, the
-    seconds the metrics took and the kernels' launches (the nll UNet's)."""
+    seconds the metrics took (in all and each) and the kernels' launches (the
+    nll UNet's)."""
     from .ops import launch_counts
     from .utils.misc import seed_all
 
@@ -220,8 +221,9 @@ def main(argv=None) -> dict:
     log(f"Dataset: {dataset}")
     img_dir = os.path.join(args.eval_dir, args.folder_name) if args.folder_name else args.eval_dir
 
-    results, before, t0 = {}, launch_counts(), time.perf_counter()
+    results, metric_seconds, before, t0 = {}, {}, launch_counts(), time.perf_counter()
     for metric in sorted(set(args.metrics)):
+        t_metric = time.perf_counter()
         try:
             result = _compute_metric(metric, args, dataset, root, img_dir, device, mesh)
         except FileNotFoundError as e:
@@ -234,8 +236,10 @@ def main(argv=None) -> dict:
             continue
         log(f"{metric.upper()}: {result}", flush=True)
         results[metric] = result
+        metric_seconds[metric] = time.perf_counter() - t_metric
     if (mesh is None or is_leader()) and os.path.isdir(img_dir):  # what a launcher reads back
         summary = {"results": results, "seconds": time.perf_counter() - t0,
+                   "metric_seconds": metric_seconds,
                    "launches": {k: n - before[k] for k, n in launch_counts().items()}}
         with open(os.path.join(img_dir, "eval_summary.json"), "w") as f:
             json.dump(summary, f)

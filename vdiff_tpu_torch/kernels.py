@@ -1,8 +1,9 @@
 """Build and load the port's hand-written CUDA kernels.
 
 The sources under ``csrc/`` (attention, among them the bf16 tensor-core
-forward and backward, GroupNorm+FiLM+SiLU and the fused GN→SiLU→conv3x3, FMA
-and bf16 tensor-core) expose plain C entry points. At first use each is
+forward and backward and the f32 (3xTF32) tensor-core forward,
+GroupNorm+FiLM+SiLU and the fused GN→SiLU→conv3x3, FMA and bf16 tensor-core)
+expose plain C entry points. At first use each is
 compiled with ``nvcc`` for Hopper (``sm_90a``), all of them at once in parallel
 processes, then linked into one shared library under ``_build/`` and loaded
 with :mod:`ctypes`. The library's file name carries a hash of the sources and
@@ -25,7 +26,7 @@ BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 
 SOURCES = ("attn_fwd_online.cu", "attn_fwd_qblk.cu", "attn_fwd_train.cu", "attn_bwd_rows.cu",
            "attn_bwd_cols.cu", "attn_bwd_pack1_kv.cu", "attn_fwd_tc.cu", "attn_bwd_tc.cu",
-           "gn_film_silu.cu", "gn_silu_conv3x3.cu", "gn_silu_conv3x3_tc.cu")
+           "attn_fwd_tf32.cu", "gn_film_silu.cu", "gn_silu_conv3x3.cu", "gn_silu_conv3x3_tc.cu")
 HEADERS = ("attn_common.cuh", "attn_direct_fwd.cuh", "attn_tc.cuh", "gn_common.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -39,7 +40,6 @@ _ATTN_ARGS = [_P, _P] + [_I] * 5 + [_P]
 _ENTRY_POINTS = {
     "vdiff_attn_fwd_online": _ATTN_ARGS,
     "vdiff_attn_fwd_qblk": _ATTN_ARGS,
-    "vdiff_attn_fwd_qblk_max_t": [_I],
     "vdiff_attn_fwd_train": _ATTN_ARGS,
     "vdiff_attn_bwd_rows": [_P] * 5 + [_I] * 5 + [_P],
     "vdiff_attn_bwd_rows_max_t": [_I],
@@ -50,6 +50,9 @@ _ENTRY_POINTS = {
     # q rows per block, stream
     "vdiff_attn_fwd_tc": [_P, _P] + [_I] * 5 + [_P],
     "vdiff_attn_fwd_tc_lse": [_P] * 3 + [_I] * 4 + [_P],
+    # the f32 (3xTF32) tensor-core forward, the same arguments
+    "vdiff_attn_fwd_tc_f32": [_P, _P] + [_I] * 5 + [_P],
+    "vdiff_attn_fwd_tc_f32_lse": [_P] * 3 + [_I] * 4 + [_P],
     "vdiff_attn_bwd_tc": [_P] * 5 + [_I] * 4 + [_P],
     # qkv, out, lse, dout, dqkv, delta, B, T, N, C, stream
     "vdiff_attn_bwd_tc_kv": [_P] * 6 + [_I] * 4 + [_P],

@@ -12,28 +12,30 @@ d(qkv) in the same layout as one buffer:
   :func:`attention_qkv_bwd_kv_reference` the kv-chunked one
   (``_attn_bwd_kernel_pack1_kv``'s). They are the CPU path and what the
   kernels are held against on the card.
-* :func:`attn_fwd_online`, :func:`attn_fwd_qblk` and :func:`attn_fwd_train`
-  wrap the forward CUDA kernels (``csrc/attn_fwd_online.cu``,
-  ``csrc/attn_fwd_qblk.cu``, ``csrc/attn_fwd_train.cu``);
-  :func:`attn_bwd_rows` and :func:`attn_bwd_cols` the two passes of the
-  backward (``csrc/attn_bwd_rows.cu``, ``csrc/attn_bwd_cols.cu``), which
-  :func:`attn_bwd` runs in turn for f32 calls. These run f32 FMAs.
+* :func:`attn_fwd_online` (B1), :func:`attn_fwd_qblk` (B2) and
+  :func:`attn_fwd_train` (B3) wrap the forward tensor-core kernels: bf16
+  calls ``csrc/attn_fwd_tc.cu`` (mma.sync on bf16 operands), f32 calls
+  ``csrc/attn_fwd_tf32.cu`` (3xTF32: each f32 operand split into two TF32
+  parts, three products, f32 accumulators), by an explicit dispatch on
+  dtype. :func:`attn_bwd_rows` and :func:`attn_bwd_cols` wrap the two f32-FMA
+  passes of the backward (``csrc/attn_bwd_rows.cu``,
+  ``csrc/attn_bwd_cols.cu``), which :func:`attn_bwd` runs in turn for f32
+  calls.
 * :func:`attn_fwd_tc` and :func:`attn_bwd_tc` wrap the bf16 tensor-core
   kernels (``csrc/attn_fwd_tc.cu``, ``csrc/attn_bwd_tc.cu``). The bf16 calls
-  of B1 (:func:`attn_fwd_online`), B2 (:func:`attn_fwd_qblk`), B3
-  (:func:`attn_fwd_train`), B4 (:func:`attn_bwd` at T ≤ 512) and B5
-  (:func:`attn_bwd` at T > 512) go to them by an explicit dispatch on dtype;
-  f32 calls keep the FMA kernels. B1, B3 and B4 count under their own
-  wrappers, B2 and B5 under these two.
+  of B4 (:func:`attn_bwd` at T ≤ 512) and B5 (:func:`attn_bwd` at T > 512)
+  go to the backward one by an explicit dispatch on dtype; f32 calls keep the
+  FMA pair. B1, B3 and B4 count under their own wrappers, B2's bf16 calls
+  and B5 under these two, B2's f32 calls under :func:`attn_fwd_qblk`.
 * :func:`attn_fwd_pack1`, :func:`attn_fwd_pack1_lse`, :func:`attn_bwd_pack1`
   and :func:`attn_bwd_pack1_kv` are the counterparts of JAX's head-dim 32/64
   ``pack1`` kernels B6–B9, each with a launch counter of its own. They
-  dispatch on dtype as B2 and B5 do: bf16 calls run the tensor-core kernels
-  (B6 ``csrc/attn_fwd_tc.cu``, B7 its lse entry, B8 ``csrc/attn_bwd_tc.cu``,
-  B9 that file's saved-statistics entry), f32 calls the FMA kernels (B6 B1's
-  online kernel, B7 its logsumexp entry, B8 the two backward passes, B9 a
-  kv-streamed dQ pass followed by the column pass,
-  ``csrc/attn_bwd_pack1_kv.cu``).
+  dispatch on dtype: bf16 calls run the tensor-core kernels (B6
+  ``csrc/attn_fwd_tc.cu``, B7 its lse entry, B8 ``csrc/attn_bwd_tc.cu``, B9
+  that file's saved-statistics entry); f32 calls of B6 and B7 run
+  ``csrc/attn_fwd_tf32.cu`` and its lse entry, those of B8 the two FMA
+  backward passes and those of B9 a kv-streamed FMA dQ pass followed by the
+  column pass (``csrc/attn_bwd_pack1_kv.cu``).
 * :func:`spatial_attention_qkv` routes each call as JAX's
   ``spatial_attention_qkv`` does on a TPU without head padding
   (:func:`route`) and, with ``train=True``, goes through one of the
@@ -102,17 +104,6 @@ def _need_cuda(fn_name: str, *tensors: torch.Tensor):
             raise RuntimeError(f"{fn_name}: tensor on {t.device}; the kernel needs a CUDA tensor")
 
 
-def _launch(fn_name: str, qkv: torch.Tensor, num_heads: int, B: int, T: int, C: int):
-    _need_cuda(fn_name, qkv)
-    out = torch.empty(B, T, num_heads * C, dtype=qkv.dtype, device=qkv.device)
-    err = getattr(kernels.library(), fn_name)(
-        qkv.data_ptr(), out.data_ptr(), B, T, num_heads, C,
-        int(qkv.dtype == torch.bfloat16), torch.cuda.current_stream(qkv.device).cuda_stream,
-    )
-    kernels.check(err, fn_name)
-    return out
-
-
 def _check_max_t(name: str, T: int, C: int, max_t_fn: str):
     max_t = getattr(kernels.library(), max_t_fn)(C)
     if T > max_t:
@@ -125,22 +116,15 @@ def attn_fwd_online(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
 
     Replaces JAX's Pallas ``_flash_kernel`` (B1; ops/attention.py, used by
     ``flash_attention_qkv`` at T ≤ 512; JAX runs ``_xla_attention`` at T=64,
-    which this also takes). A bf16 CUDA call runs the tensor-core kernel of
-    :func:`attn_fwd_tc` (``attn_fwd_tc.cu``; 16-byte alignment checked, q
-    rows per block from :func:`fwd_tc_q_rows`), which rounds e to bf16 as
-    the operand of e·v where JAX's B1 takes e·v in f32. An f32 one runs
-    ``attn_fwd_online.cu``: an online softmax over 32-key tiles in f32 FMAs
-    from shared memory, the q tile resident, q/k/v read straight out of the
-    fused qkv (see the source's header). Its CPU twin is
-    :func:`attention_qkv_reference`."""
+    which this also takes). A CUDA call runs the forward tensor-core kernel
+    of its dtype (:func:`_fwd_tc`): in bf16 ``attn_fwd_tc.cu``, which
+    rounds e to bf16 as the operand of e·v where JAX's B1 takes e·v in f32;
+    in f32 ``attn_fwd_tf32.cu``, f32-accurate products (3xTF32). Its CPU
+    twin is :func:`attention_qkv_reference`."""
     B, T, C = _check_kernel_input(qkv, num_heads, "attn_fwd_online")
     if qkv.device.type == "cpu":
         return attention_qkv_reference(qkv, num_heads)
-    if qkv.dtype == torch.bfloat16:
-        _check_tc("attn_fwd_online", qkv)
-        out = _fwd_tc("attn_fwd_online", qkv, num_heads, B, T, C)
-    else:
-        out = _launch("vdiff_attn_fwd_online", qkv, num_heads, B, T, C)
+    out = _fwd_tc("attn_fwd_online", qkv, num_heads, B, T, C)
     attn_fwd_online.launches += 1
     return out
 
@@ -149,22 +133,21 @@ attn_fwd_online.launches = 0
 
 
 def attn_fwd_qblk(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
-    """Direct-softmax q-blocked attention forward: the counterpart of JAX's
-    Pallas ``_attn_fwd_kernel_qblk`` (B2; ops/attention.py, used by
-    ``flash_attention_qkv`` at T > 512).
+    """Attention forward at T > 512: the counterpart of JAX's Pallas
+    ``_attn_fwd_kernel_qblk`` (B2; ops/attention.py, used by
+    ``flash_attention_qkv`` at T > 512), whose direct softmax over the whole
+    score row the tensor-core kernels take online, over key tiles, with the
+    output divided once (roundings only).
 
-    A bf16 CUDA tensor goes to :func:`attn_fwd_tc` (tensor cores, counted
-    there). An f32 one launches ``attn_fwd_qblk.cu``, counted here: each
-    block keeps its whole (16, T) f32 score row in shared memory, so T is
-    capped by the 227 KB a block may use (2848 at C=256); f32 FMAs."""
+    A bf16 CUDA tensor goes to :func:`attn_fwd_tc` (``attn_fwd_tc.cu``,
+    counted there). An f32 one launches ``attn_fwd_tf32.cu`` (3xTF32,
+    :func:`_fwd_tc`), counted here; any T that is a multiple of 32 runs."""
     B, T, C = _check_kernel_input(qkv, num_heads, "attn_fwd_qblk")
     if qkv.device.type == "cpu":
         return attention_qkv_reference(qkv, num_heads)
     if qkv.dtype == torch.bfloat16:
         return attn_fwd_tc(qkv, num_heads)
-    _need_cuda("attn_fwd_qblk", qkv)
-    _check_max_t("attn_fwd_qblk", T, C, "vdiff_attn_fwd_qblk_max_t")
-    out = _launch("vdiff_attn_fwd_qblk", qkv, num_heads, B, T, C)
+    out = _fwd_tc("attn_fwd_qblk", qkv, num_heads, B, T, C)
     attn_fwd_qblk.launches += 1
     return out
 
@@ -172,15 +155,19 @@ def attn_fwd_qblk(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
 attn_fwd_qblk.launches = 0
 
 
-def _check_tc(name: str, qkv: torch.Tensor, *others: torch.Tensor):
-    """The tensor-core kernels' gates on top of the shape checks: bf16 only,
-    and every tensor on a 16-byte boundary (their tiles arrive by 16-byte
-    ``cp.async`` copies)."""
-    if qkv.dtype != torch.bfloat16:
-        raise TypeError(f"{name}: dtype {qkv.dtype} not supported (bfloat16; float32 calls "
-                        "take the FMA kernels)")
-    if any(t.data_ptr() % 16 for t in (qkv, *others)):
+def _check_aligned(name: str, *tensors: torch.Tensor):
+    """The tensor-core kernels' tiles arrive by 16-byte ``cp.async`` copies:
+    every tensor must start on a 16-byte boundary."""
+    if any(t.data_ptr() % 16 for t in tensors):
         raise ValueError(f"{name}: every tensor must start on a 16-byte boundary")
+
+
+def _check_tc(name: str, qkv: torch.Tensor, *others: torch.Tensor):
+    """The bf16 tensor-core wrappers' gates on top of the shape checks: bf16
+    only, and every tensor 16-byte aligned."""
+    if qkv.dtype != torch.bfloat16:
+        raise TypeError(f"{name}: dtype {qkv.dtype} not supported (bfloat16)")
+    _check_aligned(name, qkv, *others)
 
 
 def attn_fwd_tc(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -216,27 +203,55 @@ _SMS = 132
 
 
 def fwd_tc_q_rows(B: int, T: int, N: int) -> int:
-    """q rows per block of ``attn_fwd_tc.cu`` for a call at (B, T, N): 32
-    (two warps) when a grid of 64-row tiles, ceil(T/64)·N·B blocks, would
-    leave some of the card's SMs without a block, else 64 (four warps).
-    CIFAR's T=64 with one head is one 64-row tile per (head, batch). The q
-    tile moves no result (the key tile and every per-row step are the same);
-    the source's header has the times behind the choice."""
+    """q rows per block of the bf16 forward tensor-core kernel
+    (``attn_fwd_tc.cu``) for a call at (B, T, N): 32 (two warps) when a grid
+    of 64-row tiles, ceil(T/64)·N·B blocks, would leave some of the card's SMs
+    without a block, else 64 (four warps). CIFAR's T=64 with one head is one
+    64-row tile per (head, batch). The q tile moves no result (the key tile
+    and every per-row step are the same); the source's header has the times
+    behind the choice."""
     return 32 if -(-T // 64) * N * B < _SMS else 64
 
 
+#: blocks of 128 q rows ``attn_fwd_tf32.cu``'s grid needs to take them: 97%
+#: of the card's SMs (CIFAR's T=256 at B=64 gives 128)
+_TF32_WIDE_BLOCKS = 128
+
+
+def fwd_tf32_q_rows(B: int, T: int, N: int) -> int:
+    """q rows per block of ``attn_fwd_tf32.cu`` for a call at (B, T, N): 128
+    (eight warps) where T > 64 and the grid of 128-row tiles has at least
+    _TF32_WIDE_BLOCKS blocks, else 64 (four warps). Measured at every f32
+    path shape on an H100 (``scripts/probe_torch_tf32.py --time``), this
+    picks the fastest of the 32/64/128-row tiles or one within 4% of it; the
+    q tile moves no result."""
+    return 128 if T > 64 and -(-T // 128) * N * B >= _TF32_WIDE_BLOCKS else 64
+
+
+#: the forward tensor-core entry of each dtype
+_FWD_TC_ENTRY = {torch.bfloat16: "vdiff_attn_fwd_tc", torch.float32: "vdiff_attn_fwd_tc_f32"}
+
+
 def _fwd_tc(fn_name, qkv, num_heads, B, T, C, q_rows=None):
-    """Launch ``vdiff_attn_fwd_tc`` on checked bf16 CUDA input with ``q_rows``
-    q rows per block (default :func:`fwd_tc_q_rows`); the caller counts the
-    launch (B1 under :func:`attn_fwd_online`, B2 under :func:`attn_fwd_tc`,
-    B3 under :func:`attn_fwd_train`, B6 under :func:`attn_fwd_pack1`)."""
+    """Launch the forward tensor-core kernel of qkv's dtype
+    (``vdiff_attn_fwd_tc``, bf16, or ``vdiff_attn_fwd_tc_f32``, f32) on
+    shape-checked CUDA input, refusing a qkv off a 16-byte boundary before
+    the launch, with ``q_rows`` q rows per block (default
+    :func:`fwd_tc_q_rows` in bf16, :func:`fwd_tf32_q_rows` in f32); the
+    caller counts the launch (B1 under
+    :func:`attn_fwd_online`, B2 under :func:`attn_fwd_tc` in bf16 and
+    :func:`attn_fwd_qblk` in f32, B3 under :func:`attn_fwd_train`, B6 under
+    :func:`attn_fwd_pack1`)."""
     _need_cuda(fn_name, qkv)
+    _check_aligned(fn_name, qkv)
+    entry = _FWD_TC_ENTRY[qkv.dtype]
+    rows = fwd_tc_q_rows if qkv.dtype == torch.bfloat16 else fwd_tf32_q_rows
     out = torch.empty(B, T, num_heads * C, dtype=qkv.dtype, device=qkv.device)
-    err = kernels.library().vdiff_attn_fwd_tc(
+    err = getattr(kernels.library(), entry)(
         qkv.data_ptr(), out.data_ptr(), B, T, num_heads, C,
-        q_rows or fwd_tc_q_rows(B, T, num_heads),
+        q_rows or rows(B, T, num_heads),
         torch.cuda.current_stream(qkv.device).cuda_stream)
-    kernels.check(err, "vdiff_attn_fwd_tc")
+    kernels.check(err, entry)
     return out
 
 
@@ -247,25 +262,16 @@ def attn_fwd_train(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
     Replaces JAX's Pallas ``_attn_fwd_kernel`` (B3; ops/attention.py, used by
     ``flash_attention_trainable`` at T ≤ 512), which holds a whole (T, T)
     tile, normalises P before P·v when C ≥ T and divides the output
-    otherwise. A bf16 CUDA call runs the tensor-core kernel of
-    :func:`attn_fwd_tc` (``attn_fwd_tc.cu``; 16-byte alignment checked, q
-    rows per block from :func:`fwd_tc_q_rows`): an online softmax with the
-    output divided once in either case and e rounded to bf16 as the operand
-    of e·v, which moves roundings only. An f32 one runs
-    ``attn_fwd_train.cu``: q-tiled with the (16, T) f32 score row resident
-    (a (256, 256) f32 tile does not fit a block's shared memory), keeping
-    the Pallas kernel's branch, f32 FMAs. Its CPU twin is
+    otherwise. A CUDA call runs the forward tensor-core kernel of its dtype
+    (:func:`_fwd_tc`): an online softmax with the output divided once in
+    either case, which moves roundings only; in bf16 (``attn_fwd_tc.cu``) e
+    is rounded to bf16 as the operand of e·v, in f32 (``attn_fwd_tf32.cu``)
+    the products are 3xTF32. Its CPU twin is
     :func:`attention_qkv_reference`."""
     B, T, C = _check_kernel_input(qkv, num_heads, "attn_fwd_train")
     if qkv.device.type == "cpu":
         return attention_qkv_reference(qkv, num_heads)
-    if qkv.dtype == torch.bfloat16:
-        _check_tc("attn_fwd_train", qkv)
-        out = _fwd_tc("attn_fwd_train", qkv, num_heads, B, T, C)
-    else:
-        _need_cuda("attn_fwd_train", qkv)
-        _check_max_t("attn_fwd_train", T, C, "vdiff_attn_fwd_qblk_max_t")
-        out = _launch("vdiff_attn_fwd_train", qkv, num_heads, B, T, C)
+    out = _fwd_tc("attn_fwd_train", qkv, num_heads, B, T, C)
     attn_fwd_train.launches += 1
     return out
 
@@ -521,27 +527,26 @@ def attn_fwd_pack1(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
     Replaces JAX's Pallas ``_attn_fwd_kernel_pack1`` (B6, through
     ``_pack1_fwd_call``), which computes B1's function. The TPU kernel holds a
     whole (bq, T) score tile; at T=4096 no score row fits a block's shared
-    memory, and both kernels stream the softmax over key tiles. A bf16 CUDA
-    call runs the tensor-core kernel of :func:`attn_fwd_tc`
-    (``attn_fwd_tc.cu``; 16-byte alignment checked), which rounds e to bf16
-    as the operand of e·v where JAX's B6 takes e·v in f32; an f32 one B1's
-    online-softmax FMA kernel (``attn_fwd_online.cu``, entry
-    ``vdiff_attn_fwd_online``). Its CPU twin is
+    memory, and the kernels stream the softmax over key tiles. A CUDA call
+    runs the forward tensor-core kernel of its dtype (:func:`_fwd_tc`): in
+    bf16 ``attn_fwd_tc.cu``, which rounds e
+    to bf16 as the operand of e·v where JAX's B6 takes e·v in f32; in f32
+    ``attn_fwd_tf32.cu`` (3xTF32). Its CPU twin is
     :func:`attention_qkv_lse_reference`'s output: B6's f32 e·v, where
     :func:`attention_qkv_reference` rounds P to a bf16 input's dtype first."""
     B, T, C = _check_sublane(qkv, num_heads, "attn_fwd_pack1")
     if qkv.device.type == "cpu":
         return attention_qkv_lse_reference(qkv, num_heads)[0]
-    if qkv.dtype == torch.bfloat16:
-        _check_tc("attn_fwd_pack1", qkv)
-        out = _fwd_tc("attn_fwd_pack1", qkv, num_heads, B, T, C)
-    else:
-        out = _launch("vdiff_attn_fwd_online", qkv, num_heads, B, T, C)
+    out = _fwd_tc("attn_fwd_pack1", qkv, num_heads, B, T, C)
     attn_fwd_pack1.launches += 1
     return out
 
 
 attn_fwd_pack1.launches = 0
+
+#: the forward tensor-core lse entry of each dtype
+_FWD_TC_LSE_ENTRY = {torch.bfloat16: "vdiff_attn_fwd_tc_lse",
+                     torch.float32: "vdiff_attn_fwd_tc_f32_lse"}
 
 
 def attn_fwd_pack1_lse(qkv: torch.Tensor, num_heads: int):
@@ -550,28 +555,24 @@ def attn_fwd_pack1_lse(qkv: torch.Tensor, num_heads: int):
 
     Replaces JAX's Pallas ``_attn_fwd_kernel_pack1_lse`` (B7, through
     ``_pack1_fwd_lse_call``), the forward of the kv-chunked training path.
-    A bf16 CUDA call runs the tensor-core kernel's lse entry
-    (``vdiff_attn_fwd_tc_lse`` of ``attn_fwd_tc.cu``; 16-byte alignment
-    checked), which rounds e to bf16 as the operand of e·v as
-    :func:`attn_fwd_tc` does; an f32 one the online kernel's
-    (``vdiff_attn_fwd_pack1_lse`` of ``attn_fwd_online.cu``). Counted here
-    either way, not in :func:`attn_fwd_tc`."""
+    A CUDA call runs the lse entry of the forward tensor-core kernel of its
+    dtype (16-byte alignment checked): ``vdiff_attn_fwd_tc_lse`` of
+    ``attn_fwd_tc.cu`` in bf16, which rounds e to bf16 as the operand of e·v
+    as :func:`attn_fwd_tc` does; ``vdiff_attn_fwd_tc_f32_lse`` of
+    ``attn_fwd_tf32.cu`` in f32. Counted here either way, not in
+    :func:`attn_fwd_tc`."""
     B, T, C = _check_sublane(qkv, num_heads, "attn_fwd_pack1_lse")
     if qkv.device.type == "cpu":
         return attention_qkv_lse_reference(qkv, num_heads)
     _need_cuda("attn_fwd_pack1_lse", qkv)
+    _check_aligned("attn_fwd_pack1_lse", qkv)
+    entry = _FWD_TC_LSE_ENTRY[qkv.dtype]
     out = torch.empty(B, T, num_heads * C, dtype=qkv.dtype, device=qkv.device)
     lse = torch.empty(B, num_heads, T, dtype=torch.float32, device=qkv.device)
-    stream = torch.cuda.current_stream(qkv.device).cuda_stream
-    if qkv.dtype == torch.bfloat16:
-        _check_tc("attn_fwd_pack1_lse", qkv)
-        err = kernels.library().vdiff_attn_fwd_tc_lse(
-            qkv.data_ptr(), out.data_ptr(), lse.data_ptr(), B, T, num_heads, C, stream)
-        kernels.check(err, "vdiff_attn_fwd_tc_lse")
-    else:
-        err = kernels.library().vdiff_attn_fwd_pack1_lse(
-            qkv.data_ptr(), out.data_ptr(), lse.data_ptr(), B, T, num_heads, C, 0, stream)
-        kernels.check(err, "vdiff_attn_fwd_pack1_lse")
+    err = getattr(kernels.library(), entry)(
+        qkv.data_ptr(), out.data_ptr(), lse.data_ptr(), B, T, num_heads, C,
+        torch.cuda.current_stream(qkv.device).cuda_stream)
+    kernels.check(err, entry)
     attn_fwd_pack1_lse.launches += 1
     return out, lse
 
