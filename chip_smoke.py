@@ -87,21 +87,24 @@ Phases, one output line each (any failure raises and exits non-zero):
      default path's;
   5. train-kernels: the training forward (attn_fwd_train, B3, at T <= 512,
      whose bf16 calls run attn_fwd_tc.cu; at T=1024 attn_fwd_qblk in f32,
-     attn_fwd_tc in bf16) and the backward (attn_bwd: the two-pass
-     attn_bwd_rows + attn_bwd_cols in f32; attn_bwd_tc.cu in bf16, counted
-     as B4 under attn_bwd at T <= 512 and as B5 under attn_bwd_tc at T=1024)
-     against their twins at the train steps' shapes (B=128; T=64/256/1024 at
-     C=256, two heads of 128 and mnist's one of 128, and celeba's at B=48:
-     nine heads of 64 at T=1024, 256 and 64, twelve at T=64), f32 and bf16,
-     timed with CUDA
-     events, the tensor-core kernels beside the f32-FMA ones they replaced on
-     the same inputs (the f32 forwards on attn_fwd_tf32.cu, held as in phase
-     2); the f32 backward pair beside SDPA's f32 forward + backward;
+     attn_fwd_tc in bf16) and the backward (attn_bwd: in f32 the 3xTF32 row
+     and column kernels of attn_bwd_tf32.cu, attn_bwd_rows + attn_bwd_cols;
+     attn_bwd_tc.cu in bf16, counted as B4 under attn_bwd at T <= 512 and as
+     B5 under attn_bwd_tc at T=1024) against their twins at the train steps'
+     shapes (B=128; T=64/256/1024 at C=256, two heads of 128 and mnist's one
+     of 128, and celeba's at B=48: nine heads of 64 at T=1024, 256 and 64,
+     twelve at T=64), f32 and bf16, timed with CUDA events, the tensor-core
+     kernels beside the f32-FMA ones they replaced on the same inputs (the
+     f32 forwards on attn_fwd_tf32.cu, held as in phase 2; the f32 backward
+     within 1e-4 of max|ref| of the f32 twin per d(qkv) slot and against an
+     f64 twin within twice the FMA pair's largest error, each kernel timed
+     beside the FMA pass it replaced); both backwards beside SDPA's forward +
+     backward (f32 with TF32 off in f32);
   6. train-unet: one full-width train step (loss, backward, clip, AdamW, EMA)
      in f32 at B=2 on the GPU against the same step on the CPU, same weights,
      t, noise and CFG mask, dropout off; one step must launch attn_fwd_train
-     17 times, attn_fwd_qblk once, each backward pass 18 times and
-     attn_fwd_online never (f32: attn_fwd_tf32.cu and the FMA backward pair);
+     17 times, attn_fwd_qblk once, each backward kernel 18 times and
+     attn_fwd_online never (f32: attn_fwd_tf32.cu and attn_bwd_tf32.cu);
   7. train-cli: the port's train CLI (vdiff_tpu_torch.train) on
      synthetic_flagship.json with --allow-bf16 --epochs 1 (4 steps of 128, the
      epoch-end sample grid, ckpt_last), then generate samples from ckpt_last;
@@ -139,8 +142,9 @@ Phases, one output line each (any failure raises and exits non-zero):
      entry, both held to B2's P·|v| limit; B8 attn_bwd_tc.cu; B9 that file's
      saved-statistics entry, vdiff_attn_bwd_tc_kv), each timed beside the
      f32-FMA kernel it replaced on the same inputs; in f32 B6 and B7 run
-     attn_fwd_tf32.cu and its lse entry, held as in phase 2 and timed beside
-     the FMA kernels;
+     attn_fwd_tf32.cu and its lse entry, B8 and B9 attn_bwd_tf32.cu's pair
+     and its saved-statistics entry, held as in phases 2 and 5 (the f64 twin
+     at T=4096 on the same four slices) and timed beside the FMA kernels;
   9. celeba-unet: the full-width celeba UNet (301 M parameters, 40 multi-hot
      tags, 'both' head) in f32 at B=1 on the GPU against the CPU; one forward
      must launch attn_fwd_pack1 10 times, attn_fwd_qblk 8 and attn_fwd_online 9
@@ -173,6 +177,12 @@ Phases, one output line each (any failure raises and exits non-zero):
  12. celeba-train: 3 steps of the bf16 train step at B=48 on seeded images and
      multi-hot tags, each with CELEBA_STEP_LAUNCHES_BF16, a finite loss and
      the peak device memory;
+ 12f. train-f32 (after 12): the default f32 train steps (TF32 off): CIFAR's
+     img/s at B=128 as 4i's train stage measured it (the train CLI without
+     --allow-bf16), and the celeba train step through make_train_step at
+     B=48, one warm-up step and 3 timed ones (CUDA events): ms a step, a
+     finite loss, CELEBA_STEP_LAUNCHES a step (B8 and B9 on attn_bwd_tf32.cu;
+     path celeba_train_f32), the peak device memory;
  12a. remat: one celeba bf16 train step at B=48 (dropout 0.1) in each of the
      UNet's checkpointing modes (none, remat, remat_policy="conv"), from the
      same weights, draws and step generator, with cuDNN's deterministic
@@ -219,8 +229,9 @@ Phases, one output line each (any failure raises and exits non-zero):
      root bench's five, the canary and three arms, the headline last).
 Every kernel's launches in the JSON record are counted on the main paths
 (phases 4, 4q, 4e, 4i's gate_train, gate_generate and gate_eval, read back
-from each stage's summary, 4c, 7, 7a, 7b's train and generate runs, 7c's and
-7d's graph runs, 7d's calc_all_bpd, 10b's calc_all_bpd, 11's two runs, 12,
+from each stage's summary, 4c, 7, 7a, 7b's train and generate runs, 7c's
+and 7d's graph runs, 7d's calc_all_bpd, 10b's calc_all_bpd, 11's two runs, 12,
+12f,
 12b's ddp_train_cli, fsdp_train_cli and dp_generate, read back from the
 torchrun rank's summary.json files, and 12c's tp_generate, sp_generate,
 tp_progressive and sp_progressive, summed over the two ranks),
@@ -237,10 +248,14 @@ inputs, "before_ms"; phases 2 and 5 list every bf16 shape of a wrapper under
 "shapes", the first of them the record's own; B1's and B2's f32 calls, the
 eval path's, are attn_fwd_online_f32 and attn_fwd_qblk, with phase 2's f32
 shapes; B6's f32 calls, celeba's nll, are attn_fwd_pack1_f32, and B3's and
-the backward pair's f32 calls, the gate's train stage, attn_fwd_train_f32,
-attn_bwd_rows and attn_bwd_cols, with phase 10b's and phase 5's f32 shapes;
-the f32 forward records, attn_fwd_tf32.cu's, also carry their largest error
-against the f64 twin, "f64_err", beside the FMA kernel's, "before_f64_err");
+the backward pair's f32 calls, the default f32 train CLI's and the gate's
+train stage's, attn_fwd_train_f32, attn_bwd_rows and attn_bwd_cols
+(attn_bwd_tf32.cu), with phase 10b's and phase 5's f32 shapes; B7's, B8's and
+B9's f32 calls, celeba's f32 train step's, attn_fwd_pack1_lse_f32,
+attn_bwd_pack1_f32 and attn_bwd_pack1_kv_f32, with phase 8's f32 shapes;
+the f32 records of attn_fwd_tf32.cu and attn_bwd_tf32.cu also carry their
+largest error against the f64 twin, "f64_err", beside the FMA kernels',
+"before_f64_err");
 the last line is
 {"ok": true, "device": {...}}.
 Imports nothing of JAX.
@@ -619,12 +634,21 @@ def phase_kernels():
 # of their own
 F32_RECORDS = {"attn_fwd_online": "attn_fwd_online_f32", "attn_fwd_qblk": "attn_fwd_qblk"}
 # ... and of every f32 call an f32 path makes (the eval CLI's nll, celeba's
-# nll, the quality gate's f32 stages): B6's and B3's f32 calls run
-# attn_fwd_tf32.cu under attn_fwd_pack1's and attn_fwd_train's counts, B4's
-# and B5's the attn_bwd_rows.cu + attn_bwd_cols.cu pair, each counted
+# nll, the quality gate's f32 stages, the default f32 train steps): B6's and
+# B3's f32 calls run attn_fwd_tf32.cu under attn_fwd_pack1's and
+# attn_fwd_train's counts, B4's and B5's attn_bwd_tf32.cu's row and column
+# kernels, each counted
 F32_PATH_NAMES = dict(F32_RECORDS, attn_fwd_pack1="attn_fwd_pack1_f32",
                       attn_fwd_train="attn_fwd_train_f32", attn_bwd_rows="attn_bwd_rows",
                       attn_bwd_cols="attn_bwd_cols")
+
+
+# ... and of the f32 calls that only celeba's f32 train step makes (phase
+# 12f): B7 on attn_fwd_tf32.cu's lse entry, B8 and B9 on attn_bwd_tf32.cu
+F32_CELEBA_RECORDS = {"attn_fwd_pack1_lse": "attn_fwd_pack1_lse_f32",
+                      "attn_bwd_pack1": "attn_bwd_pack1_f32",
+                      "attn_bwd_pack1_kv": "attn_bwd_pack1_kv_f32"}
+F32_PATH_NAMES.update(F32_CELEBA_RECORDS)
 
 
 def _f32_path(counts):
@@ -662,16 +686,46 @@ def fma_fwd(qkv, N):
     return _fma_launch("vdiff_attn_fwd_qblk", qkv, N)
 
 
-def fma_bwd(qkv, g, N):
-    """The f32-FMA backward pair (attn_bwd_rows.cu, then attn_bwd_cols.cu) on
-    the same inputs, uncounted: what B4's, B5's and B8's bf16 calls ran before
-    attn_bwd_tc.cu."""
+def _fma_bwd_args(qkv, N):
+    """B, T, N, C, is_bf16, stream: the tail of every f32-FMA backward entry."""
     from vdiff_tpu_torch.ops import attention as A
 
     B, T, C = A._shape(qkv, N)
+    return (B, T, N, C, int(qkv.dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream)
+
+
+def fma_bwd_rows(qkv, g, N, dqkv):
+    """The f32-FMA row pass (attn_bwd_rows.cu) on the same inputs, uncounted:
+    dQ into ``dqkv``; returns its (lse, delta)."""
+    from vdiff_tpu_torch import kernels
+
+    B, T, three_nc = qkv.shape
+    lse = torch.empty(B, N, T, dtype=torch.float32, device=qkv.device)
+    delta = torch.empty_like(lse)
+    err = kernels.library().vdiff_attn_bwd_rows(
+        qkv.data_ptr(), g.data_ptr(), dqkv.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+        *_fma_bwd_args(qkv, N))
+    kernels.check(err, "vdiff_attn_bwd_rows")
+    return lse, delta
+
+
+def fma_bwd_cols(qkv, g, N, lse, delta, dqkv):
+    """The f32-FMA column pass (attn_bwd_cols.cu) on the same inputs, uncounted."""
+    from vdiff_tpu_torch import kernels
+
+    err = kernels.library().vdiff_attn_bwd_cols(
+        qkv.data_ptr(), g.data_ptr(), lse.data_ptr(), delta.data_ptr(), dqkv.data_ptr(),
+        *_fma_bwd_args(qkv, N))
+    kernels.check(err, "vdiff_attn_bwd_cols")
+
+
+def fma_bwd(qkv, g, N):
+    """The f32-FMA backward pair (attn_bwd_rows.cu, then attn_bwd_cols.cu) on
+    the same inputs, uncounted: what B4's, B5's and B8's bf16 calls ran before
+    attn_bwd_tc.cu, and their f32 calls before attn_bwd_tf32.cu."""
     dqkv = torch.empty_like(qkv)
-    lse, delta = A._bwd_rows(qkv, g, N, dqkv, B, T, C)
-    A._bwd_cols(qkv, g, N, lse, delta, dqkv, B, T, C)
+    lse, delta = fma_bwd_rows(qkv, g, N, dqkv)
+    fma_bwd_cols(qkv, g, N, lse, delta, dqkv)
     return dqkv
 
 
@@ -692,16 +746,15 @@ def fma_fwd_train(qkv, N):
 def fma_bwd_kv(qkv, out, lse, g, N):
     """B9's f32-FMA pair (attn_bwd_pack1_kv.cu's dQ/δ kernel, then
     attn_bwd_cols.cu) on the same inputs, uncounted: what B9's bf16 calls ran
-    before attn_bwd_tc.cu's saved-statistics entry."""
+    before attn_bwd_tc.cu's saved-statistics entry, and its f32 calls before
+    attn_bwd_tf32.cu's."""
     from vdiff_tpu_torch import kernels
-    from vdiff_tpu_torch.ops import attention as A
 
-    B, T, C = A._shape(qkv, N)
     dqkv = torch.empty_like(qkv)
     delta = torch.empty_like(lse)
     err = kernels.library().vdiff_attn_bwd_pack1_kv(
         qkv.data_ptr(), out.data_ptr(), lse.data_ptr(), g.data_ptr(), dqkv.data_ptr(),
-        delta.data_ptr(), *A._bwd_args(qkv, N, B, T, C))
+        delta.data_ptr(), *_fma_bwd_args(qkv, N))
     kernels.check(err, "vdiff_attn_bwd_pack1_kv")
     return dqkv
 
@@ -833,6 +886,45 @@ def _check_bwd(name, got, ref, dtype):
     return worst
 
 
+def _f64_bwd_twin(qkv, g, N):
+    """The exact attention backward in f64 on the card from the same values:
+    d(qkv) (B, T, 3·N·C) of softmax(q·kᵀ/√C)·v against d(out) ``g``."""
+    B, T, three_nc = qkv.shape
+    C = three_nc // (3 * N)
+    scale = 1.0 / math.sqrt(C)
+    q, k, v = qkv.double().reshape(B, T, 3, N, C).unbind(2)
+    do = g.double().reshape(B, T, N, C)
+    p = torch.softmax(torch.einsum("btnc,bsnc->bnts", q, k).mul_(scale), dim=-1)
+    ds = torch.einsum("btnc,bsnc->bnts", do, v)
+    ds.sub_((p * ds).sum(-1, keepdim=True)).mul_(p)  # in place: dS = P∘(dP − δ)
+    grads = (torch.einsum("bnts,bsnc->btnc", ds, k).mul_(scale),
+             torch.einsum("bnts,btnc->bsnc", ds, q).mul_(scale),
+             torch.einsum("bnts,btnc->bsnc", p, do))
+    return torch.stack(grads, dim=2).reshape(B, T, 3 * N * C)
+
+
+def _check_f32_bwd(name, got, ref, qkv, g, N, before):
+    """An f32 backward on the tensor cores (attn_bwd_tf32.cu), held two ways:
+    per d(qkv) slot within BWD_F32_RTOL of the f32 twin ``ref``
+    (_check_bwd), and against the f64 twin on the same inputs with a largest
+    error at most F64_ERR_RATIO times that of ``before``, the f32-FMA
+    kernels' d(qkv). Prints each slot's f64 errors; returns {"max_abs_err":
+    vs the f32 twin, "f64_err", "before_f64_err"}."""
+    err = _check_bwd(name, got, ref, torch.float32)
+    want = _f64_bwd_twin(qkv, g, N)
+    slots = lambda a: [(x.double() - w).abs().max().item()
+                       for x, w in zip(a.chunk(3, -1), want.chunk(3, -1))]
+    err64, before64 = slots(got), slots(before)
+    del want
+    worst, worst_before = max(err64), max(before64)
+    line = (f"{name}: vs the f64 twin dq/dk/dv {err64}, the f32-FMA kernels {before64} (ratio "
+            f"{worst / worst_before if worst_before else math.inf:.3f}, limit {F64_ERR_RATIO})")
+    print(line, flush=True)
+    if not worst <= F64_ERR_RATIO * worst_before:
+        fail(f"{line}: over {F64_ERR_RATIO} times the FMA kernels' error")
+    return {"max_abs_err": err, "f64_err": worst, "before_f64_err": worst_before}
+
+
 def phase_train_kernels():
     """The training kernels vs their twins at the train steps' shapes (B=128,
     the config's batch; celeba's at B=48: N=9 at T=1024, 256 and 64, N=12 at
@@ -882,32 +974,44 @@ def phase_train_kernels():
                 "library_ms": cuda_ms(_sdpa(qkv, N), iters=10), **_bound("fwd", B, T, N, C, dtype)}}
             bwd_name = "attn_bwd_tc" if tc else "attn_bwd"
             dqkv = A.attn_bwd(qkv, g, N)
-            err = _check_bwd(f"{bwd_name} {tag}", dqkv, A.attention_qkv_bwd_reference(qkv, g, N),
-                             dtype)
+            ref = A.attention_qkv_bwd_reference(qkv, g, N)
+            if bf16:
+                errs = {"max_abs_err": _check_bwd(f"{bwd_name} {tag}", dqkv, ref, dtype)}
+            else:  # attn_bwd_tf32.cu, also against the f64 twin beside the FMA pair
+                errs = _check_f32_bwd(f"{bwd_name} {tag}", dqkv, ref, qkv, g, N,
+                                      fma_bwd(qkv, g, N))
+            del ref
             plain = cuda_ms(lambda: A.attention_qkv_bwd_reference(qkv, g, N), iters=10)
             # SDPA's forward + backward, the yardstick of the whole backward
             library = cuda_ms(_sdpa(qkv, N, g), iters=10)
             if bf16:  # attn_bwd_tc.cu, beside the FMA pair it replaced
-                rec[bwd_name] = {"max_abs_err": err,
+                rec[bwd_name] = {**errs,
                                  "ms": cuda_ms(lambda: A.attn_bwd(qkv, g, N), iters=10),
                                  "before_ms": cuda_ms(lambda: fma_bwd(qkv, g, N), iters=10),
                                  "plain_ms": plain, "library_ms": library,
                                  **_bound("bwd", B, T, N, C, dtype)}
             else:
-                # no one PyTorch call computes either pass alone: SDPA's f32
-                # forward + backward, the whole backward's yardstick, is the
-                # library time of the pair
+                # the 3xTF32 row and column kernels (attn_bwd_tf32.cu), each
+                # beside the f32-FMA pass it replaced; no one PyTorch call
+                # computes either alone: SDPA's f32 forward + backward, the
+                # whole backward's yardstick, is the library time of the pair
                 lse, delta = A.attn_bwd_rows(qkv, g, N, dqkv)
-                rec["attn_bwd_rows"] = {"max_abs_err": err, "plain_ms": plain,
-                                        "library_ms": library,
-                                        "ms": cuda_ms(lambda: A.attn_bwd_rows(qkv, g, N, dqkv),
-                                                      iters=10),
-                                        **_bound("bwd_rows", B, T, N, C, dtype)}
-                rec["attn_bwd_cols"] = {"max_abs_err": err, "plain_ms": plain,
-                                        "library_ms": library,
-                                        "ms": cuda_ms(lambda: A.attn_bwd_cols(
-                                            qkv, g, N, lse, delta, dqkv), iters=10),
-                                        **_bound("bwd_cols", B, T, N, C, dtype)}
+                rec["attn_bwd_rows"] = {
+                    **errs, "plain_ms": plain, "library_ms": library,
+                    "ms": cuda_ms(lambda: A.attn_bwd_rows(qkv, g, N, dqkv), iters=10),
+                    "before_ms": cuda_ms(lambda: fma_bwd_rows(qkv, g, N, dqkv), iters=10),
+                    **_bound("bwd_rows", B, T, N, C, dtype)}
+                rec["attn_bwd_cols"] = {
+                    **errs, "plain_ms": plain, "library_ms": library,
+                    "ms": cuda_ms(lambda: A.attn_bwd_cols(qkv, g, N, lse, delta, dqkv), iters=10),
+                    "before_ms": cuda_ms(lambda: fma_bwd_cols(qkv, g, N, lse, delta, dqkv),
+                                         iters=10),
+                    **_bound("bwd_cols", B, T, N, C, dtype)}
+                pair = rec["attn_bwd_rows"]["ms"] + rec["attn_bwd_cols"]["ms"]
+                before = rec["attn_bwd_rows"]["before_ms"] + rec["attn_bwd_cols"]["before_ms"]
+                print(f"train-kernels: the f32 pair {tag}: {pair} ms (the FMA pair {before}, "
+                      f"{before / pair:.2f}x), {pair / library:.2f}x SDPA f32 forward+backward "
+                      f"({library}), bound {_bound('bwd', B, T, N, C, dtype)}", flush=True)
                 del lse, delta
             for name, r in rec.items():
                 pair = name in ("attn_bwd_rows", "attn_bwd_cols")
@@ -1673,10 +1777,13 @@ def phase_celeba_kernels():
     attn_fwd_tf32.cu and its lse entry, held by _check_f32_fwd on the same
     slices (B7's lse also against the f64 twin's). Each kernel is then timed
     on the whole batch beside its twin, SDPA, the card's bound and the
-    f32-FMA kernel it replaced on the same inputs (``before_ms``): in bf16,
-    and B6 and B7 in f32 too (printed; their f32 records are phase 10b's).
-    Returns the per-kernel records in bf16 (each kernel's first shape;
-    max_abs_err the largest over its bf16 shapes)."""
+    f32-FMA kernel it replaced on the same inputs (``before_ms``), in both
+    dtypes. In f32 B8 and B9 run attn_bwd_tf32.cu, held by _check_f32_bwd
+    (the f64 twin beside the FMA kernels' error). Returns the per-kernel
+    records in bf16 (each kernel's first shape; max_abs_err the largest over
+    its bf16 shapes) and the f32 records of the celeba f32 train step's B7,
+    B8 and B9 (F32_CELEBA_RECORDS, every shape under "shapes"; B6's f32
+    record is phase 10b's)."""
     from vdiff_tpu_torch.ops import attention as A
 
     torch.cuda.empty_cache()
@@ -1717,8 +1824,7 @@ def phase_celeba_kernels():
                 else:
                     fma_out, fma_lse = fma_fwd_lse(qkv, N)
                     errs["attn_fwd_pack1_lse"] = _check_f32_fwd(
-                        label, out[idx], sq, N, fma_out[idx], ref_out, lse[idx],
-                        fma_lse[idx])["max_abs_err"]
+                        label, out[idx], sq, N, fma_out[idx], ref_out, lse[idx], fma_lse[idx])
                     del fma_out, fma_lse
                 lse_err = (lse[idx] - ref_lse).abs().max().item()
                 if lse.shape != (B, N, T) or not lse_err <= LSE_ATOL:
@@ -1731,16 +1837,24 @@ def phase_celeba_kernels():
                                                lambda: fma_fwd_lse(qkv, N))
                 del ref_out, ref_lse
             if "attn_bwd_pack1" in names:
-                errs["attn_bwd_pack1"] = _check_bwd(
-                    f"attn_bwd_pack1 {tag}{on}", A.attn_bwd_pack1(qkv, g, N)[idx],
-                    A.attention_qkv_bwd_reference(sq, sg, N), dtype)
+                label, got = f"attn_bwd_pack1 {tag}{on}", A.attn_bwd_pack1(qkv, g, N)[idx]
+                ref = A.attention_qkv_bwd_reference(sq, sg, N)
+                errs["attn_bwd_pack1"] = (
+                    _check_bwd(label, got, ref, dtype) if dtype == torch.bfloat16 else
+                    _check_f32_bwd(label, got, ref, sq, sg, N, fma_bwd(qkv, g, N)[idx]))
+                del got, ref
                 timed["attn_bwd_pack1"] = (lambda: A.attn_bwd_pack1(qkv, g, N),
                                            lambda: A.attention_qkv_bwd_reference(qkv, g, N),
                                            _sdpa(qkv, N, g), "bwd", lambda: fma_bwd(qkv, g, N))
             if "attn_bwd_pack1_kv" in names:
-                errs["attn_bwd_pack1_kv"] = _check_bwd(
-                    f"attn_bwd_pack1_kv {tag}{on}", A.attn_bwd_pack1_kv(qkv, out, lse, g, N)[idx],
-                    A.attention_qkv_bwd_kv_reference(sq, out[idx], lse[idx], sg, N), dtype)
+                label = f"attn_bwd_pack1_kv {tag}{on}"
+                got = A.attn_bwd_pack1_kv(qkv, out, lse, g, N)[idx]
+                ref = A.attention_qkv_bwd_kv_reference(sq, out[idx], lse[idx], sg, N)
+                errs["attn_bwd_pack1_kv"] = (
+                    _check_bwd(label, got, ref, dtype) if dtype == torch.bfloat16 else
+                    _check_f32_bwd(label, got, ref, sq, sg, N,
+                                   fma_bwd_kv(qkv, out, lse, g, N)[idx]))
+                del got, ref
                 timed["attn_bwd_pack1_kv"] = (
                     lambda: A.attn_bwd_pack1_kv(qkv, out, lse, g, N),
                     lambda: A.attention_qkv_bwd_kv_reference(qkv, out, lse, g, N),
@@ -1750,8 +1864,6 @@ def phase_celeba_kernels():
             torch.cuda.empty_cache()
             bf16 = dtype == torch.bfloat16
             for name, (fn, plain, library, kind, before) in timed.items():
-                if not bf16 and "bwd" in name:
-                    continue  # the f32 backward: the FMA kernels, timed in phase 5
                 if bf16:
                     worst[name] = max(worst[name], errs[name])
                 rec = {"ms": cuda_ms(fn, iters=3, warmup=1),
@@ -1764,12 +1876,16 @@ def phase_celeba_kernels():
                       flush=True)
                 if bf16:
                     record.setdefault(name, rec)
+                elif name in F32_CELEBA_RECORDS:  # the celeba f32 train step's kernels
+                    _keep_shape(record, F32_CELEBA_RECORDS[name], (B, T, N, C),
+                                {**errs[name], **rec})
                 torch.cuda.empty_cache()
             del qkv, g, timed
             out = lse = None
             torch.cuda.empty_cache()
     for name, rec in record.items():
-        record[name] = {"max_abs_err": worst[name], **rec}
+        if name in worst:
+            record[name] = {"max_abs_err": worst[name], **rec}
     return record
 
 
@@ -1894,6 +2010,62 @@ def phase_celeba_train(cfg):
           flush=True)
     return total
 
+
+
+def phase_train_f32(cfg, cifar_img_per_s):
+    """The default (f32) train steps at full width. CIFAR's is the gate's
+    train stage (phase 4i: the train CLI on synthetic_flagship.json without
+    --allow-bf16 at B=128), whose img/s after the first step is passed in.
+    celeba's: CELEBA_TRAIN_STEPS f32 train steps of the celeba model at
+    CELEBA_TRAIN_B through make_train_step (the train CLI's step), seeded
+    images and tags, after one warm-up step: ms a step (CUDA events), a
+    finite loss and CELEBA_STEP_LAUNCHES a step (B8 and B9 on
+    attn_bwd_tf32.cu). Returns the timed steps' launches under the f32
+    kernels' JSON names (path celeba_train_f32)."""
+    from vdiff_tpu_torch.factory import build_diffusion, build_unet
+    from vdiff_tpu_torch.train_lib import Optimizer, make_train_step
+
+    torch.cuda.empty_cache()
+    tr, cond = cfg["train"], cfg["conditional"]
+    model = build_unet(cfg["model"], in_channels=3, model_out_type=cfg["diffusion"]["model_out_type"],
+                       num_classes=40, multitags=True, generator=torch.Generator().manual_seed(0)).cuda()
+    ema = copy.deepcopy(model).requires_grad_(False)
+    diffusion, timesteps = build_diffusion(cfg["diffusion"], w_guide=cond["w_guide"],
+                                           p_uncond=cond["p_uncond"])
+    opt = Optimizer(model.parameters(), lr=tr["lr"], weight_decay=tr["weight_decay"],
+                    warmup=tr["warmup"], grad_norm=tr["grad_norm"])
+    step = make_train_step(model, diffusion, opt, timesteps, use_cfg=True,
+                           ema_decay=tr["ema_decay"], ema_model=ema)
+    x, y = (a.cuda() for a in _celeba_inputs(CELEBA_TRAIN_B, torch.Generator().manual_seed(15)))
+    torch.cuda.reset_peak_memory_stats()
+    step(x, y, 0, 0).item()  # warm-up
+    total = collections.Counter()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    ms = []
+    for i in range(1, CELEBA_TRAIN_STEPS + 1):
+        _reset_counts()
+        start.record()
+        loss = step(x, y, 0, i).item()
+        end.record()
+        end.synchronize()
+        launched = _counts()
+        ms.append(start.elapsed_time(end))
+        print(f"train-f32: celeba f32 B={CELEBA_TRAIN_B} step {i}: {ms[-1]} ms, loss {loss}",
+              flush=True)
+        if not math.isfinite(loss):
+            fail(f"train-f32: celeba step {i} loss {loss}")
+        if launched != CELEBA_STEP_LAUNCHES:
+            fail(f"train-f32: celeba step {i} launched {launched}, expected {CELEBA_STEP_LAUNCHES}")
+        total.update(launched)
+    step_ms = sum(ms) / len(ms)
+    print(f"train-f32: the default f32 train steps (TF32 off; {torch.cuda.get_device_name(0)}): "
+          f"CIFAR synthetic_flagship B=128 through the train CLI (the gate's train stage) "
+          f"{cifar_img_per_s} img/s; celeba B={CELEBA_TRAIN_B} {step_ms} ms a step "
+          f"({CELEBA_TRAIN_B * 1e3 / step_ms} img/s), peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    del model, ema, opt, step
+    torch.cuda.empty_cache()
+    return _f32_path(total)
 
 
 def _write_mnist(root, n, seed=6):
@@ -3036,7 +3208,9 @@ def phase_gate(tmp, pre, card):
     generate's summary.json, eval's eval_summary.json): TRAIN_STEP_LAUNCHES
     a step and the grid's NLL_FWD_LAUNCHES a forward, 17 + 1 a forward for
     generate and eval's nll, all on the f32 kernels. Returns the three
-    stages' launches (paths gate_train, gate_generate, gate_eval)."""
+    stages' launches (paths gate_train, gate_generate, gate_eval) and the
+    train stage's img/s after its first step: the train CLI as it runs by
+    default, in f32, on synthetic_flagship.json at B=128."""
     work = os.path.join(tmp, "gate")
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [REPO_ROOT] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
@@ -3097,8 +3271,8 @@ def phase_gate(tmp, pre, card):
     print(f"gate: f32 launches: train {_nonzero(train_dev)}, generate {_nonzero(gen_dev)}, eval "
           f"{_nonzero(ev_dev)}; eval's nll {STEPS} forwards at B={GATE_EVAL} in {nll_s:.2f} s, "
           f"{STEPS / nll_s:.2f} forwards/s (model load and warm-up included)", flush=True)
-    return {"gate_train": _f32_path(train_dev), "gate_generate": _f32_path(gen_dev),
-            "gate_eval": _f32_path(ev_dev)}
+    return ({"gate_train": _f32_path(train_dev), "gate_generate": _f32_path(gen_dev),
+             "gate_eval": _f32_path(ev_dev)}, train["img_per_s"])
 
 
 def _timed(name, phase, *args):
@@ -3134,7 +3308,8 @@ def main():
         phase_metric_nets(pre)
         phase_rehearsal(ckpt, tmp, pre)
         phase_evaluator(cfg, model, tmp, pre)
-        by_path.update(_timed("gate", phase_gate, tmp, pre, card))
+        gate_paths, gate_img_per_s = _timed("gate", phase_gate, tmp, pre, card)
+        by_path.update(gate_paths)
         del model
         phase_progressive(ckpt, tmp)
         record.update(phase_fused_kernels())
@@ -3171,6 +3346,8 @@ def main():
         by_path.update(_timed("celeba-sample", phase_celeba_sample, model, tmp))
         del model
         by_path["celeba_train"] = phase_celeba_train(celeba_cfg)
+        by_path["celeba_train_f32"] = _timed("train-f32", phase_train_f32, celeba_cfg,
+                                             gate_img_per_s)
         phase_remat(celeba_cfg, card)
         torch.cuda.empty_cache()
         by_path.update(phase_dist(tmp, ckpt, card))
@@ -3184,22 +3361,22 @@ def main():
                             "vdiff_tpu/ops/attention.py:37"),
         # B2 and B5 in bf16, the paths' type: the tensor-core kernels (B2's
         # f32 calls, attn_fwd_tf32.cu, are attn_fwd_qblk's record below; B5's
-        # f32 calls run the FMA pair)
+        # f32 calls run attn_bwd_tf32.cu's pair, attn_bwd_rows / attn_bwd_cols)
         "attn_fwd_tc": ("vdiff_tpu_torch/csrc/attn_fwd_tc.cu",
                         "vdiff_tpu/ops/attention.py:224"),
         "attn_bwd_tc": ("vdiff_tpu_torch/csrc/attn_bwd_tc.cu",
                         "vdiff_tpu/ops/attention.py:240"),
         "attn_fwd_train": ("vdiff_tpu_torch/csrc/attn_fwd_tc.cu",
                            "vdiff_tpu/ops/attention.py:184"),
-        # B4 in bf16: attn_bwd_tc.cu (its f32 calls keep attn_bwd_rows.cu +
-        # attn_bwd_cols.cu, off these paths; phase 5 holds them in f32)
+        # B4 in bf16: attn_bwd_tc.cu (its f32 calls: attn_bwd_tf32.cu's pair,
+        # the records attn_bwd_rows / attn_bwd_cols below)
         "attn_bwd": ("vdiff_tpu_torch/csrc/attn_bwd_tc.cu",
                      "vdiff_tpu/ops/attention.py:204"),
         # B6-B9 in bf16, the paths' type, the tensor-core kernels:
         # attn_fwd_tc.cu and its lse entry, attn_bwd_tc.cu and its
         # saved-statistics entry (f32 calls: attn_fwd_tf32.cu and its lse
-        # entry, attn_bwd_rows.cu + attn_bwd_cols.cu, attn_bwd_pack1_kv.cu);
-        # each counted apart
+        # entry, attn_bwd_tf32.cu's pair and its saved-statistics entry, the
+        # *_f32 records below); each counted apart
         "attn_fwd_pack1": ("vdiff_tpu_torch/csrc/attn_fwd_tc.cu",
                            "vdiff_tpu/ops/attention.py:318"),
         "attn_fwd_pack1_lse": ("vdiff_tpu_torch/csrc/attn_fwd_tc.cu",
@@ -3224,15 +3401,23 @@ def main():
         # B6 in f32, celeba's nll: the same kernel under attn_fwd_pack1's count
         "attn_fwd_pack1_f32": ("vdiff_tpu_torch/csrc/attn_fwd_tf32.cu",
                                "vdiff_tpu/ops/attention.py:318"),
-        # B3, B4 and B5 in f32, the quality gate's train stage: the same
-        # forward, and the FMA row and column passes of the backward (B5's
-        # T=1024 calls run the same pair)
+        # B3, B4 and B5 in f32, the default train CLI and the quality gate's
+        # train stage: the same forward, and the 3xTF32 row and column
+        # kernels of the backward (B5's T=1024 calls run the same pair)
         "attn_fwd_train_f32": ("vdiff_tpu_torch/csrc/attn_fwd_tf32.cu",
                                "vdiff_tpu/ops/attention.py:184"),
-        "attn_bwd_rows": ("vdiff_tpu_torch/csrc/attn_bwd_rows.cu",
+        "attn_bwd_rows": ("vdiff_tpu_torch/csrc/attn_bwd_tf32.cu",
                           "vdiff_tpu/ops/attention.py:204"),
-        "attn_bwd_cols": ("vdiff_tpu_torch/csrc/attn_bwd_cols.cu",
+        "attn_bwd_cols": ("vdiff_tpu_torch/csrc/attn_bwd_tf32.cu",
                           "vdiff_tpu/ops/attention.py:204"),
+        # B7, B8 and B9 in f32, celeba's default f32 train step: attn_fwd_tf32.cu's
+        # lse entry, attn_bwd_tf32.cu's pair and its saved-statistics entry
+        "attn_fwd_pack1_lse_f32": ("vdiff_tpu_torch/csrc/attn_fwd_tf32.cu",
+                                   "vdiff_tpu/ops/attention.py:407"),
+        "attn_bwd_pack1_f32": ("vdiff_tpu_torch/csrc/attn_bwd_tf32.cu",
+                               "vdiff_tpu/ops/attention.py:470"),
+        "attn_bwd_pack1_kv_f32": ("vdiff_tpu_torch/csrc/attn_bwd_tf32.cu",
+                                  "vdiff_tpu/ops/attention.py:567"),
     }
     kernels = []
     for name, (source, replaces) in meta.items():

@@ -54,6 +54,9 @@ import chip_smoke as S  # noqa: E402
 from vdiff_tpu_torch import kernels  # noqa: E402
 
 SOURCE = os.path.join(kernels.CSRC_DIR, "attn_fwd_tf32.cu")
+# the 3xTF32 header the source includes, inlined into the copy so that its
+# split and products can be guarded too
+HEADER = os.path.join(kernels.CSRC_DIR, "attn_tf32.cuh")
 # (text of the source, what replaces it in the copy)
 GUARDS = {
     "NO_CROSS": ("  mma_tf32(x, al, h0, h1);\n  mma_tf32(x, ah, l0, l1);\n",
@@ -120,7 +123,8 @@ SHAPES = [(64, 1024, 1, 256), (64, 256, 1, 256), (64, 64, 1, 256), (128, 256, 1,
 
 
 def ablated_source():
-    src = open(SOURCE).read()
+    header = open(HEADER).read().replace("#pragma once\n", "")
+    src = open(SOURCE).read().replace('#include "attn_tf32.cuh"\n', header)
     for name, (old, new) in GUARDS.items():
         if src.count(old) != 1:
             raise SystemExit(f"ablate: the anchor of {name} is not in {SOURCE} once; update GUARDS")

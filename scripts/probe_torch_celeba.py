@@ -3,7 +3,8 @@
     python scripts/probe_torch_celeba.py [B ...]
 
 Prints the GPU's name and power limit; ptxas's register and spill report for
-the sources of the head-dim 32/64 kernels (attn_fwd_online.cu, attn_bwd_pack1_kv.cu); the
+the sources of the head-dim 32/64 kernels (attn_fwd_tc.cu, attn_bwd_tc.cu,
+attn_fwd_tf32.cu, attn_bwd_tf32.cu); the
 build time of the kernel library; for B=2 at (T, N, C) = (256, 4, 32),
 (4096, 6, 64), (1024, 6, 64) and (256, 12, 64), f32 and bf16, the largest
 error of attn_fwd_pack1 (B6), attn_fwd_pack1_lse (B7, and its lse),
@@ -123,7 +124,7 @@ def main():
     print(run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"]))
     print(sys.version, torch.__version__, torch.version.cuda)
     nvcc = kernels.find_nvcc()
-    for src in ("attn_fwd_online.cu", "attn_bwd_pack1_kv.cu"):
+    for src in ("attn_fwd_tc.cu", "attn_bwd_tc.cu", "attn_fwd_tf32.cu", "attn_bwd_tf32.cu"):
         out = run([nvcc, *kernels.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", os.devnull,
                    os.path.join(kernels.CSRC_DIR, src)])
         print("\n".join(line for line in out.splitlines()

@@ -200,9 +200,10 @@ def stub_kernels(monkeypatch):
 @pytest.mark.parametrize("T", [256, 1024])
 def test_cuda_dispatch_on_dtype(stub_kernels, T):
     """B2 (attn_fwd_qblk) and B5 (attn_bwd at T > 512) send bf16 calls to the
-    tensor-core kernels and f32 calls to the FMA kernels; so does B4 (attn_bwd
-    at T ≤ 512), its bf16 calls counted under attn_bwd, its f32 calls under
-    the FMA pair's two wrappers."""
+    bf16 tensor-core kernels and f32 calls to the 3xTF32 ones; so does B4
+    (attn_bwd at T ≤ 512), its bf16 calls counted under attn_bwd, its f32
+    calls under the 3xTF32 pair's two wrappers (attn_bwd_rows,
+    attn_bwd_cols)."""
     for dtype in (torch.float32, torch.bfloat16):
         qkv = torch.empty(2, T, 3 * 2 * 64, dtype=dtype, device="meta")
         g = torch.empty(2, T, 2 * 64, dtype=dtype, device="meta")

@@ -290,7 +290,9 @@ def test_refusals_raise_before_any_launch(recorded, wrapper, bad):
 def test_the_new_source_is_built_hashed_and_bound(monkeypatch, tmp_path):
     """kernels.py compiles attn_fwd_tf32.cu (its digest changes with the
     file), binds both entries with the bf16 entries' arguments, and the
-    source runs the 3xTF32 products at the key tiles the emulation assumes."""
+    source, with the 3xTF32 header it includes (attn_tf32.cuh, shared with
+    the f32 backward), runs the 3xTF32 products at the key tiles the
+    emulation assumes."""
     assert "attn_fwd_tf32.cu" in kernels.SOURCES
     assert kernels._ENTRY_POINTS["vdiff_attn_fwd_tc_f32"] == kernels._ENTRY_POINTS[
         "vdiff_attn_fwd_tc"]
@@ -305,6 +307,8 @@ def test_the_new_source_is_built_hashed_and_bound(monkeypatch, tmp_path):
     assert kernels.source_digest() != d0
     monkeypatch.undo()
     src = open(os.path.join(kernels.CSRC_DIR, "attn_fwd_tf32.cu")).read()
+    assert '#include "attn_tf32.cuh"' in src and "attn_tf32.cuh" in kernels.HEADERS
+    src += open(os.path.join(kernels.CSRC_DIR, "attn_tf32.cuh")).read()
     for token in ("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32", "cvt.rna.tf32.f32",
                   "cp.async" if "cp.async" in src else "cp_async16",
                   'extern "C" int vdiff_attn_fwd_tc_f32(', 'extern "C" int vdiff_attn_fwd_tc_f32_lse('):

@@ -2,8 +2,8 @@
 
 bf16 CUDA calls of ``attn_bwd`` at T ≤ 512 (B4, the train steps' backward at
 T=256 and T=64) run ``attn_bwd_tc.cu``'s full-row entry, B5's kernel, counted
-under ``attn_bwd``; f32 calls keep the FMA pair ``attn_bwd_rows.cu`` →
-``attn_bwd_cols.cu``, each counted under its own wrapper. The kernel's tile
+under ``attn_bwd``; f32 calls run the 3xTF32 pair of ``attn_bwd_tf32.cu``
+(row kernel → column kernel), each counted under its own wrapper. The kernel's tile
 algorithm, emulated in torch (``tests/torch_parity.py::emulate_bwd_tc``), is
 held on bf16 inputs made from a numpy seed against the VJP of JAX's
 ``flash_attention_trainable``, which at T ≤ 512 reaches the Pallas
@@ -92,8 +92,8 @@ def recorded(monkeypatch):
                                      (2, 512, 9, 64)])
 def test_dispatch_on_dtype(recorded, B, T, N, C):
     """bf16: one vdiff_attn_bwd_tc launch, counted under attn_bwd alone;
-    f32: the T cap query, the row pass and the column pass, counted under
-    their own wrappers."""
+    f32: the 3xTF32 row kernel and column kernel (no T cap query), counted
+    under their own wrappers."""
     for dtype in (torch.float32, torch.bfloat16):
         qkv = torch.empty(B, T, 3 * N * C, dtype=dtype, device="meta")
         g = torch.empty(B, T, N * C, dtype=dtype, device="meta")
@@ -106,8 +106,10 @@ def test_dispatch_on_dtype(recorded, B, T, N, C):
             assert calls[0][1][5:9] == (B, T, N, C)
             assert counts == {"attn_bwd": 1}
         else:
-            assert [name for name, _ in calls] == ["vdiff_attn_bwd_rows_max_t",
-                                                   "vdiff_attn_bwd_rows", "vdiff_attn_bwd_cols"]
+            assert [name for name, _ in calls] == ["vdiff_attn_bwd_tf32_rows",
+                                                   "vdiff_attn_bwd_tf32_cols"]
+            # qkv, dout, dqkv, lse, delta | B, T, N, C | stream
+            assert all(args[5:9] == (B, T, N, C) for _, args in calls)
             assert counts == {"attn_bwd_rows": 1, "attn_bwd_cols": 1}
 
 

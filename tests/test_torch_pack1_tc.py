@@ -275,12 +275,11 @@ def recorded(monkeypatch):
 
 @pytest.mark.parametrize("T", [256, 1024, 2048, 4096])
 def test_pack1_dispatch_on_dtype(recorded, T):
-    """bf16 calls reach the bf16 tensor-core entries; f32 forwards the f32
-    (3xTF32) ones and f32 backwards the FMA ones; each counts under its own
-    wrapper only, never under attn_fwd_tc, attn_bwd_tc or the pair's
-    counters. The f32 full-row backward asks for the row kernel's T cap; the
-    bf16 one has none to ask for (T=2048 and 4096 are past the f32 cap at
-    C=64)."""
+    """bf16 calls reach the bf16 tensor-core entries, f32 calls the f32
+    (3xTF32) ones (``attn_fwd_tf32.cu``, ``attn_bwd_tf32.cu``); each counts
+    under its own wrapper only, never under attn_fwd_tc, attn_bwd_tc or the
+    pair's counters. Neither backward has a T cap to ask for (T=2048 and 4096
+    were past the f32-FMA row kernel's cap at C=64)."""
     N, C = 2, 64
     for dtype in (torch.float32, torch.bfloat16):
         bf16 = dtype == torch.bfloat16
@@ -297,10 +296,10 @@ def test_pack1_dispatch_on_dtype(recorded, T):
                               {"attn_fwd_pack1_lse": 1})
         assert A.attn_bwd_pack1(qkv, g, N).shape == qkv.shape
         want = (["vdiff_attn_bwd_tc"] if bf16 else
-                ["vdiff_attn_bwd_rows_max_t", "vdiff_attn_bwd_rows", "vdiff_attn_bwd_cols"])
+                ["vdiff_attn_bwd_tf32_rows", "vdiff_attn_bwd_tf32_cols"])
         assert recorded() == (want, {"attn_bwd_pack1": 1})
         assert A.attn_bwd_pack1_kv(qkv, out, lse, g, N).shape == qkv.shape
-        assert recorded() == (["vdiff_attn_bwd_tc_kv" if bf16 else "vdiff_attn_bwd_pack1_kv"],
+        assert recorded() == (["vdiff_attn_bwd_tc_kv" if bf16 else "vdiff_attn_bwd_tf32_kv"],
                               {"attn_bwd_pack1_kv": 1})
 
 
@@ -320,7 +319,7 @@ def test_bf16_celeba_step_reaches_the_tc_entries(recorded):
     x, t = torch.empty(2, 64, 64, 3, device="meta"), torch.empty(2, device="meta")
     model(x, t, torch.empty(2, 40, device="meta"), train=True).float().sum().backward()
     calls, counts = recorded()
-    entries = {name: calls.count(name) for name in set(calls) if not name.endswith("_max_t")}
+    entries = {name: calls.count(name) for name in set(calls)}
     assert entries == {"vdiff_attn_fwd_tc_lse": 1, "vdiff_attn_fwd_tc": 26,
                        "vdiff_attn_bwd_tc": 26, "vdiff_attn_bwd_tc_kv": 1}
     assert counts == {"attn_fwd_pack1": 9, "attn_fwd_pack1_lse": 1, "attn_bwd_pack1": 9,

@@ -233,9 +233,8 @@ def _inputs(name, B):
 
 
 def _entries(calls):
-    """{entry: launches} without the T cap queries, and the q tiles of the
-    vdiff_attn_fwd_tc launches."""
-    names = collections.Counter(name for name, _ in calls if not name.endswith("_max_t"))
+    """{entry: launches} and the q tiles of the vdiff_attn_fwd_tc launches."""
+    names = collections.Counter(name for name, _ in calls)
     rows = collections.Counter(a[6] for name, a in calls if name == "vdiff_attn_fwd_tc")
     return dict(names), dict(rows)
 

@@ -5,8 +5,8 @@
 // vdiff_tpu/ops/attention.py::_attn_bwd_kernel (B4: the backward of
 // flash_attention_trainable at T <= 512), _attn_bwd_kernel_qblk (B5: the same
 // at T > 512) and _attn_bwd_kernel_pack1 (B8: the full-row backward of
-// pack1_attention_trainable, head dim 32/64) for bf16 inputs; f32 inputs stay
-// on attn_bwd_rows.cu + attn_bwd_cols.cu. The function kept is the Pallas
+// pack1_attention_trainable, head dim 32/64) for bf16 inputs; f32 inputs take
+// attn_bwd_tf32.cu (3xTF32). The function kept is the Pallas
 // kernels' (all three compute it):
 //   S = q.k^T / sqrt(C), P = softmax(S) (f32), dP = dO.v^T,
 //   delta = rowsum(P o dP) over the whole row in f32,
@@ -18,7 +18,7 @@
 // vdiff_attn_bwd_tc_kv, from qkv, d(out) and the forward's saved output O and
 // lse: replaces _attn_bwd_kernel_pack1_kv (B9: the backward of
 // pack1_attention_trainable_kv, head dim 32/64, the celeba train step's
-// T = 4096) for bf16 inputs; f32 inputs stay on attn_bwd_pack1_kv.cu. Its
+// T = 4096) for bf16 inputs; f32 inputs take attn_bwd_tf32.cu's kv entry. Its
 // function differs from the above in the row statistics only: lse is the
 // forward's (natural log, f32 (B, N, T), as attn_fwd_tc.cu's lse entry
 // writes it) and delta = sum_C dO o O from the saved bf16 O, summed in f32

@@ -18,12 +18,10 @@
 // attn_direct_fwd.cuh (B2, B3) and attn_fwd_online.cu (B1, B6, B7), which
 // stay built as yardsticks.
 //
-// 3xTF32. One TF32 product keeps ~11 significant bits, not f32's 24. Each
-// f32 operand x is split into hi = rna_tf32(x) and lo = rna_tf32(x - hi)
-// (x - hi is exact in f32), and a product is hi.hi + hi.lo + lo.hi with f32
-// accumulators; lo.lo (~2^-22 relative) is dropped. Products of TF32 values
-// are exact in f32, so each f32 product is good to ~2^-21 relative, the
-// order of an f32 FMA's rounding. The tensor cores truncate as they add, so
+// 3xTF32 (attn_tf32.cuh): each f32 operand split into two TF32 parts, hi
+// and lo, three products per f32 product with f32 accumulators, good to
+// ~2^-21 relative, the order of an f32 FMA's rounding. The tensor cores
+// truncate as they add, so
 // no large sum runs long on them: the cross terms accumulate apart from
 // hi.hi in both products, q.k^T's hi.hi restarts every 64 columns (32 at
 // C <= 64) into an f32 total, and each key tile's e.v starts from zero and is
@@ -93,7 +91,7 @@
 // scores, (m + log2 l) * ln2 from the running max m and sum l of the log2
 // domain, written as f32 (B, N, T), the convention of attn_fwd_tc.cu.
 
-#include "attn_tc.cuh"
+#include "attn_tf32.cuh"
 
 namespace vdiff {
 namespace {
@@ -135,47 +133,6 @@ __device__ __forceinline__ void load_tile_f32(float* dst, const float* __restric
     const bool ok = r < valid;
     cp_async16(dst + r * PITCH + c, src + (ok ? r * stride : 0) + c, ok);
   }
-}
-
-// x = hi + lo + O(2^-22 |x|): hi = x rounded to TF32, nearest with ties away
-// (cvt.rna.tf32.f32, which keeps NaN and inf what they are); lo = x - hi,
-// exact in f32, rounded the same way by two integer instructions, (bits +
-// 2^12) & ~(2^13 - 1): cvt.rna's values (for finite x, lo is small and finite,
-// so the carry never reaches the top of the exponent) at less cost than a
-// second cvt on this card (scripts/ablate_torch_tf32.py).
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-__device__ __forceinline__ uint32_t to_tf32_small(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = to_tf32(x);
-  lo = to_tf32_small(x - __uint_as_float(hi));
-}
-
-// d += a . b on the tensor cores, m16n8k8, tf32 operands, f32 accumulators.
-// Fragments (lane = 4*g + t): A (g, t), (g+8, t), (g, t+4), (g+8, t+4);
-// B (k t, n g), (k t+4, n g); C/D (g, 2t), (g, 2t+1), (g+8, 2t), (g+8, 2t+1).
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// d + x += a . b in 3xTF32: hi . hi into d, the cross terms into x.
-__device__ __forceinline__ void mma3(float (&d)[4], float (&x)[4], const uint32_t (&ah)[4],
-                                     const uint32_t (&al)[4], float b0, float b1) {
-  uint32_t h0, l0, h1, l1;
-  split(b0, h0, l0);
-  split(b1, h1, l1);
-  mma_tf32(x, al, h0, h1);
-  mma_tf32(x, ah, l0, l1);
-  mma_tf32(d, ah, h0, h1);
 }
 
 template <int C, bool kLse, int kWarps>

@@ -18,7 +18,7 @@
 // Bound on the H100: compute, 4*T*T*C FLOPs per (batch, head) on 4*T*C
 // elements; the first version runs f32 FMAs from shared memory. The kernel
 // body, and what its design does about the bound, are shared with B2 in
-// attn_direct_fwd.cuh. The backward that pairs with it is
+// attn_direct_fwd.cuh. The f32-FMA backward of the same first port is
 // attn_bwd_rows.cu + attn_bwd_cols.cu.
 
 #include "attn_direct_fwd.cuh"

@@ -1,7 +1,7 @@
 """Build and load the port's hand-written CUDA kernels.
 
 The sources under ``csrc/`` (attention, among them the bf16 tensor-core
-forward and backward and the f32 (3xTF32) tensor-core forward,
+forward and backward and the f32 (3xTF32) tensor-core forward and backward,
 GroupNorm+FiLM+SiLU and the fused GN→SiLU→conv3x3, FMA and bf16 tensor-core)
 expose plain C entry points. At first use each is
 compiled with ``nvcc`` for Hopper (``sm_90a``), all of them at once in parallel
@@ -26,8 +26,10 @@ BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 
 SOURCES = ("attn_fwd_online.cu", "attn_fwd_qblk.cu", "attn_fwd_train.cu", "attn_bwd_rows.cu",
            "attn_bwd_cols.cu", "attn_bwd_pack1_kv.cu", "attn_fwd_tc.cu", "attn_bwd_tc.cu",
-           "attn_fwd_tf32.cu", "gn_film_silu.cu", "gn_silu_conv3x3.cu", "gn_silu_conv3x3_tc.cu")
-HEADERS = ("attn_common.cuh", "attn_direct_fwd.cuh", "attn_tc.cuh", "gn_common.cuh")
+           "attn_fwd_tf32.cu", "attn_bwd_tf32.cu", "gn_film_silu.cu", "gn_silu_conv3x3.cu",
+           "gn_silu_conv3x3_tc.cu")
+HEADERS = ("attn_common.cuh", "attn_direct_fwd.cuh", "attn_tc.cuh", "attn_tf32.cuh",
+           "gn_common.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -56,6 +58,12 @@ _ENTRY_POINTS = {
     "vdiff_attn_bwd_tc": [_P] * 5 + [_I] * 4 + [_P],
     # qkv, out, lse, dout, dqkv, delta, B, T, N, C, stream
     "vdiff_attn_bwd_tc_kv": [_P] * 6 + [_I] * 4 + [_P],
+    # the f32 (3xTF32) tensor-core backward: the row kernel (qkv, dout, dqkv,
+    # lse, delta), the column kernel (qkv, dout, lse, delta, dqkv), the
+    # saved-statistics pair (as vdiff_attn_bwd_tc_kv); B, T, N, C, stream
+    "vdiff_attn_bwd_tf32_rows": [_P] * 5 + [_I] * 4 + [_P],
+    "vdiff_attn_bwd_tf32_cols": [_P] * 5 + [_I] * 4 + [_P],
+    "vdiff_attn_bwd_tf32_kv": [_P] * 6 + [_I] * 4 + [_P],
     # x, gamma, beta, shift, scale, film_stride, film_f32, out, B, HW, C, G, eps, silu, bf16,
     # then ops/groupnorm.py::gn_plan's groups, ranks, pixels, threads; stream
     "vdiff_gn_film_silu": [_P] * 5 + [_I] * 2 + [_P] + [_I] * 4 + [_F] + [_I] * 6 + [_P],

@@ -17,25 +17,27 @@ d(qkv) in the same layout as one buffer:
   calls ``csrc/attn_fwd_tc.cu`` (mma.sync on bf16 operands), f32 calls
   ``csrc/attn_fwd_tf32.cu`` (3xTF32: each f32 operand split into two TF32
   parts, three products, f32 accumulators), by an explicit dispatch on
-  dtype. :func:`attn_bwd_rows` and :func:`attn_bwd_cols` wrap the two f32-FMA
-  passes of the backward (``csrc/attn_bwd_rows.cu``,
-  ``csrc/attn_bwd_cols.cu``), which :func:`attn_bwd` runs in turn for f32
-  calls.
+  dtype. :func:`attn_bwd_rows` and :func:`attn_bwd_cols` wrap the row and
+  column kernels of the f32 backward on the tensor cores
+  (``csrc/attn_bwd_tf32.cu``, 3xTF32), which :func:`attn_bwd` runs in turn
+  for f32 calls.
 * :func:`attn_fwd_tc` and :func:`attn_bwd_tc` wrap the bf16 tensor-core
   kernels (``csrc/attn_fwd_tc.cu``, ``csrc/attn_bwd_tc.cu``). The bf16 calls
   of B4 (:func:`attn_bwd` at T ≤ 512) and B5 (:func:`attn_bwd` at T > 512)
-  go to the backward one by an explicit dispatch on dtype; f32 calls keep the
-  FMA pair. B1, B3 and B4 count under their own wrappers, B2's bf16 calls
-  and B5 under these two, B2's f32 calls under :func:`attn_fwd_qblk`.
+  go to the backward one by an explicit dispatch on dtype; f32 calls take
+  the 3xTF32 pair. B1, B3 and B4 count under their own wrappers, B2's bf16
+  calls and B5's under these two, B2's f32 calls under
+  :func:`attn_fwd_qblk`, B4's and B5's under the pair's two wrappers.
 * :func:`attn_fwd_pack1`, :func:`attn_fwd_pack1_lse`, :func:`attn_bwd_pack1`
   and :func:`attn_bwd_pack1_kv` are the counterparts of JAX's head-dim 32/64
   ``pack1`` kernels B6–B9, each with a launch counter of its own. They
   dispatch on dtype: bf16 calls run the tensor-core kernels (B6
   ``csrc/attn_fwd_tc.cu``, B7 its lse entry, B8 ``csrc/attn_bwd_tc.cu``, B9
   that file's saved-statistics entry); f32 calls of B6 and B7 run
-  ``csrc/attn_fwd_tf32.cu`` and its lse entry, those of B8 the two FMA
-  backward passes and those of B9 a kv-streamed FMA dQ pass followed by the
-  column pass (``csrc/attn_bwd_pack1_kv.cu``).
+  ``csrc/attn_fwd_tf32.cu`` and its lse entry, those of B8 the row and
+  column kernels of ``csrc/attn_bwd_tf32.cu`` and those of B9 that file's
+  saved-statistics entry (a row kernel that reads lse and takes δ from the
+  saved output, then the same column kernel).
 * :func:`spatial_attention_qkv` routes each call as JAX's
   ``spatial_attention_qkv`` does on a TPU without head padding
   (:func:`route`) and, with ``train=True``, goes through one of the
@@ -102,12 +104,6 @@ def _need_cuda(fn_name: str, *tensors: torch.Tensor):
     for t in tensors:
         if t.device.type != "cuda":
             raise RuntimeError(f"{fn_name}: tensor on {t.device}; the kernel needs a CUDA tensor")
-
-
-def _check_max_t(name: str, T: int, C: int, max_t_fn: str):
-    max_t = getattr(kernels.library(), max_t_fn)(C)
-    if T > max_t:
-        raise ValueError(f"{name}: T={T} exceeds the shared-memory score row ({max_t} at C={C})")
 
 
 def attn_fwd_online(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -312,36 +308,51 @@ def _check_bwd_input(qkv: torch.Tensor, g: torch.Tensor, num_heads: int, name: s
     return B, T, C
 
 
-def _bwd_args(qkv, num_heads, B, T, C):
-    return (B, T, num_heads, C, int(qkv.dtype == torch.bfloat16),
-            torch.cuda.current_stream(qkv.device).cuda_stream)
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _check_f32(name: str, qkv: torch.Tensor, *others: torch.Tensor):
+    """The f32 tensor-core backward's gates on top of the shape checks: f32
+    only, and every tensor 16-byte aligned (its tiles arrive by cp.async)."""
+    if qkv.dtype != torch.float32:
+        raise TypeError(f"{name}: dtype {qkv.dtype} not supported (float32)")
+    _check_aligned(name, qkv, *others)
 
 
 def _bwd_rows(qkv, g, num_heads, dqkv, B, T, C):
+    """Launch ``vdiff_attn_bwd_tf32_rows`` on checked f32 CUDA inputs: dQ
+    into ``dqkv``, the row statistics (lse, δ) returned."""
     lse = torch.empty(B, num_heads, T, dtype=torch.float32, device=qkv.device)
     delta = torch.empty_like(lse)
-    err = kernels.library().vdiff_attn_bwd_rows(
+    err = kernels.library().vdiff_attn_bwd_tf32_rows(
         qkv.data_ptr(), g.data_ptr(), dqkv.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-        *_bwd_args(qkv, num_heads, B, T, C))
-    kernels.check(err, "vdiff_attn_bwd_rows")
+        B, T, num_heads, C, _stream(qkv))
+    kernels.check(err, "vdiff_attn_bwd_tf32_rows")
     return lse, delta
 
 
 def _bwd_cols(qkv, g, num_heads, lse, delta, dqkv, B, T, C):
-    err = kernels.library().vdiff_attn_bwd_cols(
+    """Launch ``vdiff_attn_bwd_tf32_cols`` on checked f32 CUDA inputs: dK and
+    dV into ``dqkv``."""
+    err = kernels.library().vdiff_attn_bwd_tf32_cols(
         qkv.data_ptr(), g.data_ptr(), lse.data_ptr(), delta.data_ptr(), dqkv.data_ptr(),
-        *_bwd_args(qkv, num_heads, B, T, C))
-    kernels.check(err, "vdiff_attn_bwd_cols")
+        B, T, num_heads, C, _stream(qkv))
+    kernels.check(err, "vdiff_attn_bwd_tf32_cols")
 
 
 def attn_bwd_rows(qkv: torch.Tensor, g: torch.Tensor, num_heads: int, dqkv: torch.Tensor):
-    """First backward pass (CUDA kernel ``attn_bwd_rows.cu``): writes dQ into
-    the q columns of ``dqkv`` and returns the f32 row statistics (lse, δ),
-    each (B, N, T), that :func:`attn_bwd_cols` reads. CUDA tensors only: the
-    CPU path of the backward is :func:`attention_qkv_bwd_reference`."""
+    """Row kernel of the f32 backward on the tensor cores (entry
+    ``vdiff_attn_bwd_tf32_rows`` of ``attn_bwd_tf32.cu``, 3xTF32): per 64-row
+    q tile, a sweep over the key tiles for each row's max, sum and
+    δ = rowsum(P∘dP), then a sweep for dS and dQ += dS·k; writes dQ into the
+    q columns of ``dqkv`` and returns the f32 row statistics (lse, δ), each
+    (B, N, T), that :func:`attn_bwd_cols` reads. Any T that is a multiple of
+    32. f32 CUDA tensors, 16-byte aligned, only: the CPU path of the backward
+    is :func:`attention_qkv_bwd_reference`."""
     B, T, C = _check_bwd_input(qkv, g, num_heads, "attn_bwd_rows")
     _need_cuda("attn_bwd_rows", qkv, g, dqkv)
-    _check_max_t("attn_bwd_rows", T, C, "vdiff_attn_bwd_rows_max_t")
+    _check_f32("attn_bwd_rows", qkv, g, dqkv)
     lse, delta = _bwd_rows(qkv, g, num_heads, dqkv, B, T, C)
     attn_bwd_rows.launches += 1
     return lse, delta
@@ -352,11 +363,15 @@ attn_bwd_rows.launches = 0
 
 def attn_bwd_cols(qkv: torch.Tensor, g: torch.Tensor, num_heads: int, lse: torch.Tensor,
                   delta: torch.Tensor, dqkv: torch.Tensor) -> None:
-    """Second backward pass (CUDA kernel ``attn_bwd_cols.cu``): dK and dV into
-    the k and v columns of ``dqkv``, from :func:`attn_bwd_rows`' statistics.
-    CUDA tensors only."""
+    """Column kernel of the f32 backward on the tensor cores (entry
+    ``vdiff_attn_bwd_tf32_cols`` of ``attn_bwd_tf32.cu``): per 64-key tile,
+    one sweep over the q tiles, dK and dV accumulated in f32 registers and
+    written once into the k and v columns of ``dqkv``, from
+    :func:`attn_bwd_rows`' statistics. f32 CUDA tensors, 16-byte aligned,
+    only."""
     B, T, C = _check_bwd_input(qkv, g, num_heads, "attn_bwd_cols")
     _need_cuda("attn_bwd_cols", qkv, g, lse, delta, dqkv)
+    _check_f32("attn_bwd_cols", qkv, g, lse, delta, dqkv)
     _bwd_cols(qkv, g, num_heads, lse, delta, dqkv, B, T, C)
     attn_bwd_cols.launches += 1
 
@@ -413,10 +428,10 @@ def attn_bwd(qkv: torch.Tensor, g: torch.Tensor, num_heads: int) -> torch.Tensor
     call runs the tensor-core backward (``attn_bwd_tc.cu``; 16-byte alignment
     checked, refused before any launch): at T > 512 through
     :func:`attn_bwd_tc`, counted there (B5); at T ≤ 512 counted here (B4).
-    An f32 CUDA call
-    runs the row pass (dQ, lse, δ) and then the column pass (dK, dV) into one
-    buffer, deterministically (no atomics), each counted under its own
-    wrapper."""
+    An f32 CUDA call runs the 3xTF32 row kernel (:func:`attn_bwd_rows`: dQ,
+    lse, δ) and then the column kernel (:func:`attn_bwd_cols`: dK, dV) into
+    one buffer, deterministically (no atomics), each counted under its own
+    wrapper; at any T, as in bf16."""
     B, T, C = _check_bwd_input(qkv, g, num_heads, "attn_bwd")
     if qkv.device.type == "cpu":
         return attention_qkv_bwd_reference(qkv, g, num_heads)
@@ -585,11 +600,11 @@ def attn_bwd_pack1(qkv: torch.Tensor, g: torch.Tensor, num_heads: int) -> torch.
 
     Replaces JAX's Pallas ``_attn_bwd_kernel_pack1`` (B8, through
     ``_pack1_bwd_call``), which computes B4's function. A bf16 CUDA call runs
-    the tensor-core backward of :func:`attn_bwd_tc` (``attn_bwd_tc.cu``; any
-    T, 16-byte alignment checked); an f32 one the row and column kernels of
-    :func:`attn_bwd_rows` / :func:`attn_bwd_cols` (``attn_bwd_rows.cu``,
-    ``attn_bwd_cols.cu``; T ≤ 1664 at C=64). Either way one launch is counted
-    here, and the other wrappers' counts stay B4's and B5's."""
+    the tensor-core backward of :func:`attn_bwd_tc` (``attn_bwd_tc.cu``); an
+    f32 one the 3xTF32 row and column kernels of :func:`attn_bwd_rows` /
+    :func:`attn_bwd_cols` (``attn_bwd_tf32.cu``). Any T, 16-byte alignment
+    checked in both. Either way one launch is counted here, and the other
+    wrappers' counts stay B4's and B5's."""
     B, T, C = _check_bwd_input(qkv, g, num_heads, "attn_bwd_pack1")
     if C not in _SUBLANE_HEAD_DIMS:
         raise ValueError(f"attn_bwd_pack1: head dim {C} not supported {_SUBLANE_HEAD_DIMS}")
@@ -600,7 +615,7 @@ def attn_bwd_pack1(qkv: torch.Tensor, g: torch.Tensor, num_heads: int) -> torch.
         dqkv = _bwd_tc("attn_bwd_pack1", qkv, g, num_heads, B, T, C)
     else:
         _need_cuda("attn_bwd_pack1", qkv, g)
-        _check_max_t("attn_bwd_pack1", T, C, "vdiff_attn_bwd_rows_max_t")
+        _check_f32("attn_bwd_pack1", qkv, g)
         dqkv = torch.empty_like(qkv)
         lse, delta = _bwd_rows(qkv, g, num_heads, dqkv, B, T, C)
         _bwd_cols(qkv, g, num_heads, lse, delta, dqkv, B, T, C)
@@ -622,10 +637,10 @@ def attn_bwd_pack1_kv(qkv: torch.Tensor, out: torch.Tensor, lse: torch.Tensor, g
     ``vdiff_attn_bwd_tc_kv`` of ``attn_bwd_tc.cu`` (16-byte alignment
     checked): a row kernel that reads lse, takes δ from ``out`` and makes one
     sweep for dQ, then the column kernel of :func:`attn_bwd_tc` for dK/dV. An
-    f32 call runs ``vdiff_attn_bwd_pack1_kv`` (``attn_bwd_pack1_kv.cu``): its
-    own FMA dQ/δ kernel, then the column kernel of :func:`attn_bwd_cols`.
-    Either way one launch is counted here, and the other wrappers' counts
-    stay theirs."""
+    f32 call runs ``vdiff_attn_bwd_tf32_kv`` of ``attn_bwd_tf32.cu``, the
+    same two kernels in 3xTF32 (the column kernel :func:`attn_bwd_cols`'),
+    16-byte alignment checked. Either way one launch is counted here, and
+    the other wrappers' counts stay theirs."""
     B, T, C = _check_bwd_input(qkv, g, num_heads, "attn_bwd_pack1_kv")
     if C not in _SUBLANE_HEAD_DIMS:
         raise ValueError(f"attn_bwd_pack1_kv: head dim {C} not supported {_SUBLANE_HEAD_DIMS}")
@@ -641,14 +656,11 @@ def attn_bwd_pack1_kv(qkv: torch.Tensor, out: torch.Tensor, lse: torch.Tensor, g
     delta = torch.empty_like(lse)
     ptrs = (qkv.data_ptr(), out.data_ptr(), lse.data_ptr(), g.data_ptr(), dqkv.data_ptr(),
             delta.data_ptr())
-    if qkv.dtype == torch.bfloat16:
-        _check_tc("attn_bwd_pack1_kv", qkv, out, lse, g)
-        err = kernels.library().vdiff_attn_bwd_tc_kv(
-            *ptrs, B, T, num_heads, C, torch.cuda.current_stream(qkv.device).cuda_stream)
-        kernels.check(err, "vdiff_attn_bwd_tc_kv")
-    else:
-        err = kernels.library().vdiff_attn_bwd_pack1_kv(*ptrs, *_bwd_args(qkv, num_heads, B, T, C))
-        kernels.check(err, "vdiff_attn_bwd_pack1_kv")
+    bf16 = qkv.dtype == torch.bfloat16
+    (_check_tc if bf16 else _check_f32)("attn_bwd_pack1_kv", qkv, out, lse, g)
+    entry = "vdiff_attn_bwd_tc_kv" if bf16 else "vdiff_attn_bwd_tf32_kv"
+    err = getattr(kernels.library(), entry)(*ptrs, B, T, num_heads, C, _stream(qkv))
+    kernels.check(err, entry)
     attn_bwd_pack1_kv.launches += 1
     return dqkv
 
