@@ -17,6 +17,8 @@ import torch  # noqa: E402
 
 from vdiff_tpu_torch.ops import attention as A  # noqa: E402
 
+pytest_plugins = ["torch_limits"]
+
 # f32 on both sides; the interpret-mode kernels accumulate blockwise.
 ATOL = RTOL = 1e-5
 

@@ -44,6 +44,8 @@ from tests.test_torch_attention_tf32 import _mm  # noqa: E402
 from vdiff_tpu_torch import kernels  # noqa: E402
 from vdiff_tpu_torch.ops import attention as A  # noqa: E402
 
+pytest_plugins = ["torch_limits"]
+
 # keys per tile of the row kernel and q rows per tile of the column kernel of
 # attn_bwd_tf32.cu by head dim (RowShape::kBk, ColShape::kBq; at C=256 the
 # warp-pair kernels' RowPairShape::kBk, ColPairShape::kBq)

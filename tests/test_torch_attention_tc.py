@@ -34,6 +34,8 @@ from tests import torch_parity as P  # noqa: E402
 from vdiff_tpu_torch import kernels  # noqa: E402
 from vdiff_tpu_torch.ops import attention as A  # noqa: E402
 
+pytest_plugins = ["torch_limits"]
+
 
 def _fold(a, N):
     """(B, T, N·C) → (B·N, T, C), JAX's head folding."""

@@ -43,6 +43,8 @@ from tests import torch_parity as P  # noqa: E402
 from vdiff_tpu_torch import kernels  # noqa: E402
 from vdiff_tpu_torch.ops import attention as A  # noqa: E402
 
+pytest_plugins = ["torch_limits"]
+
 # keys per tile of attn_fwd_tf32.cu by head dim (Tf32Shape::kBk)
 KEY_TILE = {32: 64, 64: 64, 128: 32, 256: 32}
 # the bar: 3xTF32 within it of JAX's f32 kernels at unit-scale inputs, one

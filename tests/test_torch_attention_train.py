@@ -19,6 +19,8 @@ import torch  # noqa: E402
 
 from vdiff_tpu_torch.ops import attention as A  # noqa: E402
 
+pytest_plugins = ["torch_limits"]
+
 # f32 on both sides; only the summation order differs.
 RTOL = 1e-5
 

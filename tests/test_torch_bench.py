@@ -7,6 +7,8 @@ import json
 
 import torch
 
+pytest_plugins = ["torch_limits"]
+
 ROOT_METRICS = [  # the root bench.py's metric names, in its order
     "session_canary_matmul_tf_per_sec",
     "cifar10_train_img_per_sec_per_chip_bf16",

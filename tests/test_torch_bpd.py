@@ -24,15 +24,7 @@ import torch  # noqa: E402
 
 from tests import torch_parity as P  # noqa: E402
 
-
-@pytest.fixture(autouse=True)
-def _two_threads():
-    """Two intra-op threads a test: the suite runs six workers on a few
-    cores, where torch's default of one thread a core oversubscribes them."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
+pytest_plugins = ["torch_limits"]
 
 
 def _t(a):

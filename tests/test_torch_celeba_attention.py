@@ -22,6 +22,8 @@ import torch  # noqa: E402
 from tests import torch_parity as P  # noqa: E402
 from vdiff_tpu_torch.ops import attention as A  # noqa: E402
 
+pytest_plugins = ["torch_limits"]
+
 # f32: both sides do f32 math on the same values; only the summation order
 # and (B7/B9) the running max or the chunking differ.
 RTOL = 1e-5

@@ -16,6 +16,8 @@ jax = pytest.importorskip("jax")
 Image = pytest.importorskip("PIL.Image")
 import torch  # noqa: E402
 
+pytest_plugins = ["torch_limits"]
+
 
 @pytest.fixture
 def celeba_root(tmp_path):

@@ -22,6 +22,8 @@ import torch  # noqa: E402
 
 from tests.torch_parity import perturb  # noqa: E402
 
+pytest_plugins = ["torch_limits"]
+
 CELEBA_SMALL = dict(
     in_channels=3, hid_channels=64, out_channels=6, ch_multipliers=(1, 2, 3, 4),
     num_res_blocks=1, apply_attn=(False, True, True, True), embedding_dim=128,

@@ -13,6 +13,8 @@ import os
 
 import pytest
 
+pytest_plugins = ["torch_limits"]
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REQUIRED = {"train": ["--config-path", "c.json"],
             "generate": ["--config-path", "c.json", "--ckpt-path", "m.pt"]}

@@ -11,6 +11,8 @@ import pytest
 
 from vdiff_tpu_torch.utils.config import dict2str, fill_with_defaults, update_config
 
+pytest_plugins = ["torch_limits"]
+
 CONFIG_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "vdiff_tpu",
                           "configs")
 SHIPPED = sorted(f for f in os.listdir(CONFIG_DIR) if f.endswith(".json") and f != "defaults.json")

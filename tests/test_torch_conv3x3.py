@@ -18,6 +18,8 @@ from vdiff_tpu_torch.ops import attention as A  # noqa: E402
 from vdiff_tpu_torch.ops import conv3x3 as C3  # noqa: E402
 from vdiff_tpu_torch.ops import groupnorm as G  # noqa: E402
 
+pytest_plugins = ["torch_limits"]
+
 
 def _t(a):
     return None if a is None else torch.from_numpy(np.asarray(a))

@@ -31,6 +31,8 @@ from vdiff_tpu_torch import kernels  # noqa: E402
 from vdiff_tpu_torch.ops import conv3x3 as C3  # noqa: E402
 from vdiff_tpu_torch.ops import groupnorm as G  # noqa: E402
 
+pytest_plugins = ["torch_limits"]
+
 # chip_smoke.py's B11 bf16 limit: BF16_RTOL, F32_ATOL, FUSED_FLIP_RTOL
 RTOL, ATOL, FLIP = 2.0 ** -8, 1e-4, 2.0 ** -7
 GROUPS = 8

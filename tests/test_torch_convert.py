@@ -3,7 +3,6 @@
 
 import json
 import os
-import subprocess
 import sys
 
 import numpy as np
@@ -12,7 +11,10 @@ import pytest
 jax = pytest.importorskip("jax")
 import torch  # noqa: E402
 
+import procs  # noqa: E402
 from tests import torch_parity as P  # noqa: E402
+
+pytest_plugins = ["torch_limits"]
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT_MODULES = [
@@ -78,9 +80,9 @@ def test_port_imports_no_jax():
         "if m in sys.modules]\n"
         "assert not bad, bad\n"
     )
-    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
-                          timeout=120)
-    assert proc.returncode == 0, proc.stderr
+    p = procs.start([sys.executable, "-c", code], cwd=REPO)
+    ((out, _),) = procs.wait_all([p])
+    assert p.returncode == 0, out
 
 
 def test_port_sources_use_no_library_attention():

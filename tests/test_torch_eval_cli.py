@@ -6,7 +6,6 @@ weights, pre-written statistics and a pre-written manifold cache, each
 message the root CLI prints, the ``--dp`` refusal, the ``Evaluator`` against
 the JAX package's, and ``train --eval``."""
 
-import contextlib
 import json
 import math
 import os
@@ -21,27 +20,11 @@ from tests.test_torch_celeba_data import _tiny_celeba_config, celeba_root  # noq
 from tests.test_torch_cli_flags import _root_options  # noqa: E402
 from tests.torch_parity import metric_state_dict  # noqa: E402
 
+pytest_plugins = ["torch_limits"]
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SMOKE = os.path.join(REPO, "vdiff_tpu_torch", "configs", "synthetic_smoke.json")
 EVAL_OPTIONS = _root_options("eval")
-
-
-@pytest.fixture(autouse=True)
-def _two_threads():
-    """Two intra-op threads a test, and one BLAS thread: the suite runs six
-    workers on a few cores, where torch's default of one thread a core
-    oversubscribes them, and scipy's 2048² sqrtm (FID), which gains little
-    from BLAS threads alone, took ~4x as long beside busy workers with its
-    default of one BLAS thread a core as with one."""
-    try:
-        from threadpoolctl import threadpool_limits
-    except ImportError:  # without it, BLAS keeps its default
-        threadpool_limits = lambda *a, **k: contextlib.nullcontext()
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    with threadpool_limits(1, user_api="blas"):
-        yield
-    torch.set_num_threads(n)
 
 
 def test_the_root_eval_parser_was_read():

@@ -10,6 +10,8 @@ import numpy as np
 import pytest
 
 jax = pytest.importorskip("jax")
+
+pytest_plugins = ["torch_limits"]
 pytest.importorskip("orbax.checkpoint")
 import jax.numpy as jnp  # noqa: E402
 import torch  # noqa: E402
@@ -17,14 +19,6 @@ import torch  # noqa: E402
 from tests import torch_parity as P  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-
-
-@pytest.fixture(autouse=True)
-def _two_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture

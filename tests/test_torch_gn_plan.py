@@ -21,6 +21,8 @@ from vdiff_tpu_torch.ops import attention as A  # noqa: E402
 from vdiff_tpu_torch.ops import conv3x3 as C3  # noqa: E402
 from vdiff_tpu_torch.ops import groupnorm as G  # noqa: E402
 
+pytest_plugins = ["torch_limits"]
+
 # (model, batch, VDIFF_FUSED_CONV) → B10 launches of one forward (with
 # VDIFF_FUSED_GN=1); the counts tests/test_torch_conv3x3.py pins at B=2
 PATHS = {("cifar10_cond", 64, "0"): 73, ("cifar10_cond", 64, "1"): 35,

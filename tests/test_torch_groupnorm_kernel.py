@@ -13,6 +13,8 @@ import torch  # noqa: E402
 
 from vdiff_tpu_torch.ops import groupnorm as G  # noqa: E402
 
+pytest_plugins = ["torch_limits"]
+
 
 def _inputs(B=2, H=8, W=8, C=128, seed=0, film=True):
     rng = np.random.RandomState(seed)

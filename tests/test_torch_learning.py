@@ -13,18 +13,12 @@ jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 import torch  # noqa: E402
 
+pytest_plugins = ["torch_limits"]
+
 RES = 8
 MODE = 0.5  # the one constant-image mode, as in the JAX test
 CFG = dict(in_channels=1, hid_channels=32, out_channels=1, ch_multipliers=(1,),
            num_res_blocks=1, apply_attn=(False,), num_heads=1, drop_rate=0.0, num_classes=0)
-
-
-@pytest.fixture(autouse=True)
-def _two_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def test_training_learns_constant_images():

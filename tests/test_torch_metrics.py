@@ -18,17 +18,9 @@ import torch  # noqa: E402
 
 from tests.torch_parity import metric_state_dict  # noqa: E402
 
+pytest_plugins = ["torch_limits"]
+
 NET_RTOL = 1e-4
-
-
-@pytest.fixture(autouse=True)
-def _two_threads():
-    """Two intra-op threads a test: the suite runs six workers on a few
-    cores, where torch's default of one thread a core oversubscribes them."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def _near(got, ref, rtol=NET_RTOL):

@@ -18,6 +18,8 @@ import torch  # noqa: E402
 
 from tests import torch_parity as P  # noqa: E402
 
+pytest_plugins = ["torch_limits"]
+
 MNIST = dict(in_channels=1, hid_channels=64, out_channels=1, ch_multipliers=(1, 2, 2),
              num_res_blocks=1, apply_attn=(False, True, True), drop_rate=0.0, num_heads=1,
              num_classes=10)

@@ -42,6 +42,8 @@ from tests import torch_parity as P  # noqa: E402
 from vdiff_tpu_torch import kernels  # noqa: E402
 from vdiff_tpu_torch.ops import attention as A  # noqa: E402
 
+pytest_plugins = ["torch_limits"]
+
 SHAPES = [(2, 256, 2, 64), (2, 256, 4, 32)]  # (B, T, N, C): N·C = 128, JAX's pack1 gate
 BQ, BKV = 128, 128
 # lse against JAX's and the twins', f32 on both sides (chip_smoke's LSE_ATOL)

@@ -21,6 +21,8 @@ import torch  # noqa: E402
 
 from tests import torch_parallel_setup as S  # noqa: E402
 
+pytest_plugins = ["torch_limits"]
+
 PHASES = ("data", "sample", "ddp", "fsdp", "replicated", "generate", "eval", "evaluator",
           "train_cli")
 

@@ -6,12 +6,15 @@ model-parallel modes' too) and the fused switches the model-parallel modes
 refuse; ``dryrun_multichip(2)`` on the CPU."""
 
 import os
-import subprocess
 import sys
 
 import numpy as np
 import pytest
 import torch
+
+import procs
+
+pytest_plugins = ["torch_limits"]
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -21,9 +24,9 @@ def test_parallel_imports_no_jax():
             "import vdiff_tpu_torch.parallel, vdiff_tpu_torch.parallel.dryrun\n"
             "bad = [m for m in ('jax', 'flax', 'optax', 'orbax', 'vdiff_tpu') if m in sys.modules]\n"
             "assert not bad, bad\n")
-    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
-                          timeout=120)
-    assert proc.returncode == 0, proc.stderr
+    p = procs.start([sys.executable, "-c", code], cwd=REPO)
+    ((out, _),) = procs.wait_all([p])
+    assert p.returncode == 0, out
 
 
 def test_row_range_and_shard_batch():

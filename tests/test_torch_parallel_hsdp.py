@@ -11,6 +11,8 @@ import torch
 
 from tests import torch_parallel_setup as S
 
+pytest_plugins = ["torch_limits"]
+
 pytest.importorskip("jax")  # the set-up converts JAX's params
 
 

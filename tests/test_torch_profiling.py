@@ -3,10 +3,13 @@ package's ``benchmark``, a ``span`` region in a profiler's exported trace,
 and imports free of JAX (``tests/test_torch_spans.py`` holds the spans)."""
 
 import os
-import subprocess
 import sys
 
 import torch
+
+import procs
+
+pytest_plugins = ["torch_limits"]
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -49,6 +52,6 @@ def test_profiling_and_bench_import_no_jax():
         "bad = [m for m in ('jax', 'flax', 'optax', 'orbax', 'vdiff_tpu') if m in sys.modules]\n"
         "assert not bad, bad\n"
     )
-    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
-                          timeout=120)
-    assert proc.returncode == 0, proc.stderr
+    p = procs.start([sys.executable, "-c", code], cwd=REPO)
+    ((out, _),) = procs.wait_all([p])
+    assert p.returncode == 0, out

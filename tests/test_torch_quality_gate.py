@@ -14,17 +14,22 @@ import subprocess
 import sys
 import tempfile
 
+import procs
+
+pytest_plugins = ["torch_limits"]
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _gate(cwd, *args, code=None):
-    """The gate in a subprocess from ``cwd`` (the repository on PYTHONPATH,
-    two intra-op threads a stage); ``code``, where given, runs in place of
+    """The gate in a subprocess from ``cwd`` (the repository on PYTHONPATH);
+    ``code``, where given, runs in place of
     ``-m vdiff_tpu_torch.quality_gate``."""
-    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="2")
+    env = dict(os.environ, PYTHONPATH=REPO)
     cmd = [sys.executable] + (["-c", code] if code else ["-m", "vdiff_tpu_torch.quality_gate"])
-    return subprocess.run(cmd + list(args), cwd=cwd, env=env, capture_output=True, text=True,
-                          timeout=300)
+    p = procs.start(cmd + list(args), cwd=cwd, env=env, stderr=subprocess.PIPE)
+    ((out, err),) = procs.wait_all([p])
+    return subprocess.CompletedProcess(p.args, p.returncode, out, err)
 
 
 def test_latest_ckpt_is_the_checkpoint_managers_pick(tmp_path):

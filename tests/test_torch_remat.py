@@ -15,18 +15,10 @@ import torch  # noqa: E402
 
 from tests import torch_parity as P  # noqa: E402
 
+pytest_plugins = ["torch_limits"]
+
 MODES = {"none": {}, "full": {"remat": True}, "conv": {"remat_policy": "conv"}}
 KW = dict(model_out_type="v", reweight_type="snr_trunc", loss_type="mse", p_uncond=0.1)
-
-
-@pytest.fixture(autouse=True)
-def _two_threads():
-    """Two intra-op threads a test: the suite runs six workers on a few
-    cores, where torch's default of one thread a core oversubscribes them."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def _t(a):

@@ -13,16 +13,10 @@ import torch  # noqa: E402
 
 from tests import torch_parity as P  # noqa: E402
 
+pytest_plugins = ["torch_limits"]
+
 CFG = dict(P.SMALL, resample_with_res=False)
 KW = dict(model_out_type="eps", reweight_type="snr_trunc", loss_type="mse", p_uncond=0.1)
-
-
-@pytest.fixture(autouse=True)
-def _two_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def _t(a):

@@ -15,6 +15,8 @@ import torch  # noqa: E402
 
 from tests import torch_parity as P  # noqa: E402
 
+pytest_plugins = ["torch_limits"]
+
 
 def _pair(**kw):
     """The same GaussianDiffusion in both packages."""

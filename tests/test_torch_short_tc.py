@@ -42,6 +42,8 @@ from tests import torch_parity as P  # noqa: E402
 from vdiff_tpu_torch import kernels  # noqa: E402
 from vdiff_tpu_torch.ops import attention as A  # noqa: E402
 
+pytest_plugins = ["torch_limits"]
+
 
 def _jax_bf16(t):
     return jnp.asarray(t.float().numpy(), jnp.bfloat16)

@@ -15,6 +15,8 @@ from vdiff_tpu_torch.factory import build_diffusion, build_unet
 from vdiff_tpu_torch.train_lib import Optimizer, make_train_step
 from vdiff_tpu_torch.utils.profiling import attribute, span, span_totals
 
+pytest_plugins = ["torch_limits"]
+
 GN, CONV, ATTN = "vdiff.unet.gn_chain", "vdiff.unet.conv", "vdiff.unet.attention"
 OPT, CAPTURE = "vdiff.train.optimizer", "vdiff.sample.capture"
 MODEL = {"hid_channels": 32, "ch_multipliers": [1, 1], "num_res_blocks": 1,

@@ -23,17 +23,11 @@ import torch  # noqa: E402
 
 from tests import torch_parallel_setup as S  # noqa: E402
 
+pytest_plugins = ["torch_limits"]
+
 ONE_RANK_TOL = 1e-5  # a port mode against the port's one-rank run
 JAX_TOL = 1e-4  # against JAX's mode on its 2-device mesh
 PHASES = ("tp_forward", "tp_sample", "tp_generate")
-
-
-@pytest.fixture(autouse=True)
-def _two_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -251,14 +245,11 @@ def _one_rank_cli(setup, tmp_path_factory, *flags):
 
     captured, write = [], generate.write_pngs
     generate.write_pngs = lambda save_dir, x: (captured.append(np.array(x)), write(save_dir, x))
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
     try:
         generate.main(setup["generate_args"] + list(flags)
                       + ["--save-dir", str(tmp_path_factory.mktemp("one_rank_cli"))])
     finally:
         generate.write_pngs = write
-        torch.set_num_threads(n)
     return np.concatenate(captured)
 
 

@@ -12,6 +12,8 @@ import pytest
 jax = pytest.importorskip("jax")
 import torch  # noqa: E402
 
+pytest_plugins = ["torch_limits"]
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SMOKE = os.path.join(REPO, "vdiff_tpu_torch", "configs", "synthetic_smoke.json")
 
@@ -223,14 +225,9 @@ def test_train_cli_trains_with_remat(tmp_path, monkeypatch, flags, policy):
     checkpoint_block = unet.checkpoint_block
     monkeypatch.setattr(unet, "checkpoint_block",
                         lambda *a: regions.append(a[-1]) or checkpoint_block(*a))
-    threads = torch.get_num_threads()
-    torch.set_num_threads(2)
-    try:
-        summary = train.main(["--config-path", SMOKE, "--device", "cpu", "--batch-size", "16",
-                              "--num-save-images", "0", "--max-ckpts-kept", "0",
-                              "--exp-dir", str(tmp_path / "exps"), *flags])
-    finally:
-        torch.set_num_threads(threads)
+    summary = train.main(["--config-path", SMOKE, "--device", "cpu", "--batch-size", "16",
+                          "--num-save-images", "0", "--max-ckpts-kept", "0",
+                          "--exp-dir", str(tmp_path / "exps"), *flags])
     (model,) = built
     assert model.remat and model.remat_policy == policy
     assert summary["steps"] == 1 and math.isfinite(summary["loss"])

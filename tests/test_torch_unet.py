@@ -11,6 +11,8 @@ import torch  # noqa: E402
 
 from tests import torch_parity as P  # noqa: E402
 
+pytest_plugins = ["torch_limits"]
+
 
 def _t(a):
     return torch.from_numpy(np.asarray(a))

@@ -6,11 +6,12 @@ launch, and the step tolerances of tests/test_torch_train_parity.py."""
 import functools
 import json
 import os
-import subprocess
 import sys
 
 import numpy as np
 import torch
+
+import procs
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORKER = os.path.join(REPO, "tests", "torch_parallel_worker.py")
@@ -210,30 +211,21 @@ def flax_params_to_state_dict_np(tree, cfg):
 
 class Ranks:
     """``world`` worker processes running ``phases``; :meth:`results` waits
-    for them (each at most ``timeout`` s) and returns each rank's results."""
+    for them and returns each rank's results."""
 
-    def __init__(self, workdir, world, phases, timeout=600):
+    def __init__(self, workdir, world, phases):
         env = {k: v for k, v in os.environ.items() if k not in ("RANK", "WORLD_SIZE")}
         env.update(PYTHONPATH=REPO + os.pathsep + env.get("PYTHONPATH", ""), OMP_NUM_THREADS="1")
-        self.workdir, self.world, self.timeout = str(workdir), world, timeout
-        self.procs = [subprocess.Popen(
+        self.workdir, self.world = str(workdir), world
+        self.procs = [procs.start(
             [sys.executable, WORKER, str(r), str(world), self.workdir, ",".join(phases)],
-            env=env, cwd=self.workdir, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True) for r in range(world)]
+            env=env, cwd=self.workdir) for r in range(world)]
         self._results = None
 
     def results(self):
         if self._results is None:
-            outs = []
-            try:
-                for p in self.procs:
-                    outs.append(p.communicate(timeout=self.timeout)[0])
-            except subprocess.TimeoutExpired:
-                for p in self.procs:
-                    p.kill()
-                raise AssertionError("workers timed out (a collective left waiting?)\n"
-                                     + "\n".join(outs))
-            for r, (p, out) in enumerate(zip(self.procs, outs)):
+            outs = procs.wait_all(self.procs)
+            for r, (p, (out, _)) in enumerate(zip(self.procs, outs)):
                 assert p.returncode == 0 and f"WORKER_OK {r}" in out, f"rank {r}:\n{out}"
             self._results = [torch.load(os.path.join(self.workdir, f"result_{r}.pt"),
                                         weights_only=False) for r in range(self.world)]

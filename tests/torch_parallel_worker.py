@@ -24,7 +24,6 @@ def main():
 
     import torch
 
-    torch.set_num_threads(1)
     from vdiff_tpu_torch.parallel import init_distributed
 
     init_distributed("cpu", init_method=f"file://{os.path.join(workdir, 'rendezvous')}")
